@@ -1,0 +1,78 @@
+"""The reference's parameter tree <-> the port's parameters.
+
+The port lays its parameters out exactly like the reference's tree
+(``repro.models.lm.DecoderLM.param_specs``: layers stacked on axis 0,
+as ``lax.scan`` consumes them), so the bridge is a key-for-key copy
+that checks every key and shape against the port's own specs.  bf16
+leaves (numpy's ``ml_dtypes`` bfloat16) keep their bits.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.base import flatten_specs
+from ..models.lm import param_specs
+
+__all__ = ["params_from_jax", "params_to_numpy", "to_tensor"]
+
+
+def to_tensor(arr, device) -> torch.Tensor:
+    """numpy array -> tensor with the same bits.  numpy has no bf16
+    dtype of its own: an ``ml_dtypes`` bfloat16 array arrives by name
+    and crosses as its uint16 view."""
+    arr = np.array(arr)                 # a private, writable copy
+    if arr.dtype.name == "bfloat16":
+        raw = torch.from_numpy(arr.view(np.uint16))
+        return raw.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _get(tree, path):
+    node = tree
+    for k in path:
+        if not isinstance(node, dict) or k not in node:
+            raise KeyError(f"parameter {'/'.join(path)} missing from the "
+                           "reference tree")
+        node = node[k]
+    return node
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def params_from_jax(tree, cfg, device=None) -> dict:
+    """The port's parameters from the reference's tree (nested dicts of
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, model.init(key))``)
+    for config ``cfg``.  Raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    specs = list(flatten_specs(param_specs(cfg)))
+    if _count_leaves(tree) != len(specs):
+        raise ValueError(f"reference tree has {_count_leaves(tree)} "
+                         f"leaves, {cfg.name} needs {len(specs)}")
+    out: dict = {}
+    for path, ps in specs:
+        arr = _get(tree, path)
+        if tuple(np.shape(arr)) != tuple(ps.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, "
+                             f"expected {ps.shape}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = to_tensor(arr, dev)
+    return out
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameters as nested dicts of numpy arrays (bf16
+    leaves as their uint16 view)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy()
+    return t.numpy()

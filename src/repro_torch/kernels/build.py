@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds, not minutes).  Libraries go
+to ``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one is reused.  Builds happen
+at first use, never at import; :func:`build` starts one ``nvcc`` per
+missing library, all at once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["SOURCES", "build", "load", "build_log"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+
+#: kernel name -> source under csrc/
+SOURCES = {
+    "flash_attention": "flash_attention.cu",
+    "paged_attention": "paged_attention.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "on the machine with the GPU (CUDA toolkit needed)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) of the last build of ``name``, or "" if it was not built in
+    this checkout."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library of ``names`` (default: all) in
+    parallel.  Returns {name: seconds spent building} for the ones that
+    were built.  Raises with the compiler's output if any build fails."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = _lib_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    took, failed = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)           # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib

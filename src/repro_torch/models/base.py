@@ -1,0 +1,74 @@
+"""Parameter specs and seeded initialization.
+
+A model's parameters are declared once as a nested dict of
+:class:`ParamSpec` (shape + initializer), laid out exactly like
+the reference's parameter tree so the weight bridge
+(``checkpoint/bridge.py``) is a key-for-key copy.  The initializers
+draw from the reference's *distributions* (``fan_in`` normal,
+``normal(0.02)`` embeddings, zero norm scales, f32 storage), not its
+bits: ``jax.random`` and ``torch.Generator`` give different numbers from
+one seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterator, Optional, Sequence, Tuple
+
+import torch
+
+__all__ = ["ParamSpec", "normal", "fan_in", "zeros", "flatten_specs",
+           "init_params"]
+
+InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    init: Optional[InitFn] = None     # None -> fan_in(shape); f32 storage
+
+
+def normal(stddev: float) -> InitFn:
+    def f(gen, shape, device):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device) * stddev
+    return f
+
+
+def fan_in(shape: Sequence[int]) -> InitFn:
+    """Normal with 1/sqrt(fan_in) scale, fan_in = every dim but the
+    last (for layer-stacked weights that includes the layer axis,
+    exactly as the reference's ``models/base.py:fan_in`` counts it)."""
+    fi = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+    return normal(1.0 / math.sqrt(max(fi, 1)))
+
+
+def zeros(gen, shape, device):
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def flatten_specs(tree, prefix: Tuple[str, ...] = ()
+                  ) -> Iterator[Tuple[Tuple[str, ...], ParamSpec]]:
+    """(path, spec) pairs in sorted-key order (the reference's pytree
+    flattening order)."""
+    if isinstance(tree, ParamSpec):
+        yield prefix, tree
+        return
+    for k in sorted(tree):
+        yield from flatten_specs(tree[k], prefix + (k,))
+
+
+def init_params(spec_tree, seed: int, device: torch.device) -> dict:
+    """Initialize a ParamSpec tree from one seeded generator on
+    ``device``, leaves drawn in sorted-path order."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    out: dict = {}
+    for path, ps in flatten_specs(spec_tree):
+        init = ps.init if ps.init is not None else fan_in(ps.shape)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = init(gen, tuple(ps.shape), device)
+    return out

@@ -1,0 +1,119 @@
+"""Serving programs: prefill, decode against a contiguous cache, and the
+paged programs the engine dispatches (decode, chunked prefill,
+speculative verify, fused), each ending in a greedy argmax over f32
+logits — the counterpart of ``repro.serve.step``.
+
+PyTorch runs eagerly, so a "program" here is a plain function and
+``ServePrograms`` holds no compile caches; it keeps the reference's
+shape (one bundle per model, shared by engines) and its
+``prepare_params`` hook (the reference's tensor-parallel hooks are not
+ported).
+
+``greedy_generate`` is the parity oracle: lockstep greedy decoding
+through the contiguous-cache path (``DecoderLM.prefill`` +
+``decode_step``).  Its decode attention runs the same paged kernel as
+the engine (the contiguous cache viewed as one page per row), so the
+engine and the oracle share one kernel and one summation order.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["greedy", "make_decode_step", "make_paged_decode_step",
+           "make_chunk_prefill_step", "make_verify_step",
+           "make_fused_step", "greedy_generate", "ServePrograms"]
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token ids (int32) over the last axis of f32 logits; ties
+    go to the lowest id, as ``jnp.argmax``."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_decode_step(model) -> Callable:
+    def serve_step(params, cache, tokens):
+        logits, cache = model.decode_step(params, cache, tokens)
+        return greedy(logits)[:, None], cache
+    return serve_step
+
+
+def make_paged_decode_step(model) -> Callable:
+    def paged_step(params, state, tokens):
+        logits, state = model.decode_step_paged(params, state, tokens)
+        return greedy(logits)[:, None], state
+    return paged_step
+
+
+def make_verify_step(model) -> Callable:
+    """Row b's ``nxt[b, t]`` is the model's own greedy prediction after
+    consuming tokens 0..t of the row."""
+    def verify_step(params, state, tokens):
+        logits, state = model.verify_step_paged(params, state, tokens)
+        return greedy(logits), state
+    return verify_step
+
+
+def make_chunk_prefill_step(model) -> Callable:
+    def chunk_step(params, state, tokens, table_rows, starts, n_valid):
+        logits, state = model.prefill_chunk_paged(
+            params, state, tokens, table_rows, starts, n_valid)
+        return greedy(logits)[:, None], state
+    return chunk_step
+
+
+def make_fused_step(model) -> Callable:
+    def fused_step(params, state, tokens, p_tokens, p_table_rows,
+                   p_starts, p_n_valid):
+        (d_logits, p_logits), state = model.fused_step_paged(
+            params, state, tokens, p_tokens, p_table_rows, p_starts,
+            p_n_valid)
+        return (greedy(d_logits), greedy(p_logits)[:, None]), state
+    return fused_step
+
+
+#: layer weights that enter ``x @ W`` in the compute dtype
+_MATMUL_WEIGHTS = {"mix": ("wq", "wk", "wv", "wo"),
+                   "ffn": ("wg", "wu", "wd")}
+
+
+class ServePrograms:
+    """The serving programs of one model, shared by every engine built
+    on it."""
+
+    def __init__(self, model):
+        self.model = model
+        self.decode = make_paged_decode_step(model)
+        self.chunk = make_chunk_prefill_step(model)
+        self.verify = make_verify_step(model)
+        self.fused = make_fused_step(model)
+
+    def prepare_params(self, params):
+        """Cast the projection weights to the compute dtype once, where
+        every call would otherwise cast them again (the cast is exact
+        and the same either way; norm scales and the f32 embedding table
+        are left as they are)."""
+        dt = self.model.dtype
+        layers = dict(params["layers"])
+        for group, names in _MATMUL_WEIGHTS.items():
+            layers[group] = {k: (v.to(dt) if k in names else v)
+                             for k, v in layers[group].items()}
+        return {**params, "layers": layers}
+
+
+def greedy_generate(model, params, tokens, n_steps: int,
+                    cache_len: int) -> torch.Tensor:
+    """Lockstep greedy decoding of a (B, S) prompt batch for
+    ``n_steps`` tokens.  Returns (B, n_steps) int32 on the model's
+    device."""
+    tokens = torch.as_tensor(tokens, device=model.device)
+    max_len = max(cache_len, tokens.shape[1] + n_steps)
+    last, cache = model.prefill(params, tokens, max_len=max_len)
+    step = make_decode_step(model)
+    tok = greedy(last)[:, None]
+    out = [tok]
+    for _ in range(n_steps - 1):
+        tok, cache = step(params, cache, tok)
+        out.append(tok)
+    return torch.cat(out, dim=1)
