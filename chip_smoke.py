@@ -12,23 +12,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
                Dh 128, page 16), bf16, with kernel / plain / library /
                bound times, and the kernel's own bitwise properties
                (a row's bits depend on its own keys only).
-3. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
+3. **paper**   the paper's kernel path at full width: the dataflow GEMM
+               (all four reuse schemes) on llama4-scout's expert
+               up-projection (M 8192, K 5120, N 8192, bf16), input-/
+               weight-stationary again at 2M / 2N (twice the blocks),
+               and a ragged f32 GEMM, the block-sparse GEMM on the same
+               operands at the Table-3 keep rates, and the LUT
+               activation on the GEMM's output shape and on all eight
+               tables.  Its entry points run once with the launch
+               counters at 0 (the path); then each kernel is held
+               against its plain version (the four dataflows bit-
+               identical, dead columns exactly 0, the LUT bit-identical)
+               and timed beside its plain version, a library call and
+               its bound.
+4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
                kernels' launch counters prove the path ran through them.
-4. **parity**  every served token is re-scored teacher-forced by the
+5. **parity**  every served token is re-scored teacher-forced by the
                port's whole-sequence ``apply`` on the card.
-5. **profile** a shorter serve run under ``torch.profiler``: device
+6. **profile** a shorter serve run under ``torch.profiler``: device
                time by kernel and the device's idle share.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+Then a ``{"kernels": [...]}`` line (all five kernels, launches from the
+serve and paper paths), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
-``{"ok": true, "device": {...}}``.  Without a GPU, or without the rest
-of the repository beside this file, it exits non-zero and prints no
-result.  It imports neither ``jax`` nor the JAX package ``repro``.
+``{"ok": true, "device": {...}}``.  The run uses one card: the first
+one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
+Without a GPU, or without the rest of the repository beside this file,
+it exits non-zero and prints no result.  It imports neither ``jax`` nor
+the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +58,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 # bf16 outputs: kernel and plain version both accumulate in f32 but in
 # different orders, then round to bf16 (8 significant bits, relative
@@ -54,6 +72,16 @@ ATOL = RTOL = 2e-2
 TAU = 0.05
 
 N_REQUESTS, PROMPT_LEN, GEN = 16, 256, 32
+
+# paper phase.  llama4-scout's expert up-projection (tokens x d_model @
+# d_model x d_ff), the GEMM of benchmarks/kernel_dataflow.py
+SCOUT_M, SCOUT_K, SCOUT_N = 8192, 5120, 8192
+KEEP_RATES = (0.36, 0.27, 0.35, 0.38)      # the paper's Table-3 rates
+# f32 outputs of a K-5120 product: kernel and plain version sum 5120
+# products of magnitude ~1 in two orders (tensor-core or FMA tile
+# products vs cuBLAS f32 panels), so outputs of magnitude ~70 differ by
+# ~1e-3; 1e-2 + 1e-4 |want| allows that and no real error
+GEMM_ATOL, GEMM_RTOL = 1e-2, 1e-4
 
 
 def emit(obj) -> None:
@@ -80,13 +108,23 @@ def _flush_l2(buf) -> None:
     buf.zero_()                      # 256 MB > the 50 MB L2
 
 
-def time_ms(fn, *, iters: int = 20, flush=None) -> float:
+def time_ms(fn, *, iters: int = 20, flush=None,
+            budget_ms: float = None) -> float:
     """Median device time of one call, CUDA events around each call,
     L2 flushed between calls when ``flush`` is given (in the serve path
-    each of the 28 layers reads its own K/V)."""
+    each of the 28 layers reads its own K/V).  With ``budget_ms`` the
+    number of calls is cut (to no fewer than 3) so that they take about
+    that long in all."""
     import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     fn()
-    torch.cuda.synchronize()
+    b.record()
+    b.synchronize()
+    if budget_ms is not None:
+        iters = max(3, min(iters, int(budget_ms / max(a.elapsed_time(b),
+                                                      1e-3))))
     times = []
     for _ in range(iters):
         if flush is not None:
@@ -102,17 +140,18 @@ def time_ms(fn, *, iters: int = 20, flush=None) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = BF16_FLOPS_PER_S):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_f = n_flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def max_err(got, want):
-    """(max |got - want|, within ATOL + RTOL * |want| everywhere)."""
+def max_err(got, want, atol: float = ATOL, rtol: float = RTOL):
+    """(max |got - want|, within atol + rtol * |want| everywhere)."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
-    ok = bool((d <= ATOL + RTOL * w.abs()).all()) and bool(
+    ok = bool((d <= atol + rtol * w.abs()).all()) and bool(
         torch_isfinite(g))
     return float(d.max()), ok
 
@@ -137,7 +176,8 @@ def phase_env():
     for name in build.SOURCES:
         log = build.build_log(name)
         rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
-                                if "registers" in ln or "spill" in ln]
+                                if "entry function" in ln
+                                or "registers" in ln or "spill" in ln]
     emit(rec)
 
 
@@ -337,6 +377,205 @@ def phase_kernels():
     return results
 
 
+def _lut_x(g, rows, cols, scale):
+    """Activations of the given shape: normal values times ``scale``,
+    with every fourth value an exact half step LUT_LO + (i + 0.5) STEP
+    (where rounding half to even decides the entry) and +-inf, |x| > 8
+    and the grid's ends among the first eight."""
+    import torch
+    from repro_torch.kernels.lut_activation import LUT_ENTRIES, LUT_LO, STEP
+    n = rows * cols
+    x = torch.randn(n, generator=g, device="cuda") * scale
+    idx = torch.randint(0, LUT_ENTRIES, (n,), generator=g, device="cuda")
+    x[::4] = LUT_LO + (idx[::4].float() + 0.5) * STEP
+    x[:8] = torch.tensor([float("inf"), float("-inf"), 8.5, -8.5, 1e30,
+                          -1e30, 7.9999, -8.0], device="cuda")
+    return x.reshape(rows, cols)
+
+
+def _scout_masks(b):
+    """(case, mask, B) for the block-sparse GEMM on scout's operands:
+    masks at the Table-3 keep rates, made as
+    benchmarks/kernel_dataflow.py makes them, and one read by
+    ``mask_from_weights`` from a B whose pruned tiles are zero (keep
+    0.36 at random, every eighth column of tiles pruned whole, so some
+    output columns are dead)."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    nk, nn = SCOUT_K // 128, SCOUT_N // 128
+    out = []
+    for keep in KEEP_RATES:
+        rng = np.random.default_rng(int(keep * 100))
+        out.append((f"keep_{keep}", rng.random((nk, nn)) < keep, b))
+    keep = np.random.default_rng(1).random((nk, nn)) < 0.36
+    keep[:, 7::8] = False
+    pruned = b * torch.from_numpy(bs.expand_mask(keep, 128, 128)).to(b.device)
+    mask = bs.mask_from_weights(pruned.float().cpu().numpy(), 128, 128)
+    if not np.array_equal(mask, keep):
+        fail("paper: mask_from_weights did not recover the pruned tiles")
+    out.append(("from_weights", mask, pruned))
+    return out
+
+
+def phase_paper():
+    """The paper's kernel path at full width: the dataflow GEMM, the
+    block-sparse GEMM and the LUT activation through their entry points.
+    Returns ({kernel: [case records]}, {kernel: launches on the path})."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import gemm_dataflow as gd
+    from repro_torch.kernels import lut_activation as lut
+    from repro_torch.kernels.block_sparse import ops as bs_ops
+    from repro_torch.kernels.gemm_dataflow import ops as gd_ops
+    from repro_torch.kernels.lut_activation import ops as lut_ops
+    t_phase = time.perf_counter()
+    M, K, N = SCOUT_M, SCOUT_K, SCOUT_N
+    g = torch.Generator(device="cuda").manual_seed(12)
+    a = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+    b = torch.randn(K, N, generator=g, device="cuda").bfloat16()
+    a2 = torch.randn(2 * M, K, generator=g, device="cuda").bfloat16()
+    b2 = torch.randn(K, 2 * N, generator=g, device="cuda").bfloat16()
+    a32 = torch.randn(1000, K, generator=g, device="cuda")
+    b32 = torch.randn(K, 1000, generator=g, device="cuda")
+    # ragged bf16: K and N no multiple of 8 (element-wise loads), N odd
+    ar = torch.randn(1000, 5100, generator=g, device="cuda").bfloat16()
+    br = torch.randn(5100, 999, generator=g, device="cuda").bfloat16()
+    mask_r = np.random.default_rng(2).random((40, 8)) < 0.36
+    mask_r[:, 3] = False
+    sparse_cases = ([(case, a, w, mask) for case, mask, w in _scout_masks(b)]
+                    + [("ragged_bf16", ar, br, mask_r)])
+    x_act = _lut_x(g, M, N, 2.0)           # the GEMM's output shape
+    x_tab = _lut_x(g, 2048, 2048, 3.0)
+    D = gd.Dataflow
+    # input-/weight-stationary parallelise over M/128 or N/128 blocks
+    # only (64 here, on 132 SMs); the 2M / 2N cases give them 128
+    gemm_cases = ([("scout_expert_bf16", df, a, b) for df in D]
+                  + [("scout_2m_bf16", df, a2, b)
+                     for df in (D.OUTPUT_STATIONARY, D.INPUT_STATIONARY)]
+                  + [("scout_2n_bf16", df, a, b2)
+                     for df in (D.OUTPUT_STATIONARY, D.WEIGHT_STATIONARY)]
+                  + [("ragged_f32", df, a32, b32)
+                     for df in (D.OUTPUT_STATIONARY, D.NO_REUSE)]
+                  + [("ragged_bf16", df, ar, br) for df in D])
+    lut_cases = ([("silu_f32", "silu", x_act),
+                  ("silu_bf16", "silu", x_act.bfloat16())]
+                 + [(f"{name}_f32", name, x_tab)
+                    for name in sorted(lut.TABLES)])
+
+    # the path: each entry point once per case, counters from 0
+    gd_ops.launches = bs_ops.launches = lut_ops.launches = 0
+    gemm_out = [gd.matmul(x, w, df) for _, df, x, w in gemm_cases]
+    bs_out = [bs.matmul(x, w, mask) for _, x, w, mask in sparse_cases]
+    lut_out = [lut.apply_lut(x, name) for _, name, x in lut_cases]
+    torch.cuda.synchronize()
+    launches = {"gemm_dataflow": gd_ops.launches,
+                "block_sparse": bs_ops.launches,
+                "lut_activation": lut_ops.launches}
+    want = {"gemm_dataflow": len(gemm_cases),
+            "block_sparse": len(sparse_cases),
+            "lut_activation": len(lut_cases)}
+    if launches != want:
+        fail(f"paper: launches {launches}, the path needs {want}")
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    results = {}
+
+    def record(kernel, case, got, want, atol, rtol, t_k, t_p, t_l,
+               n_bytes, flops, flops_per_s, **extra):
+        err, ok = max_err(got, want, atol, rtol)
+        b_ms, b_by = bound_ms(n_bytes, flops, flops_per_s)
+        rec = {"phase": "paper", "kernel": kernel, "case": case, **extra,
+               "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+               "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+               "flops": flops, "launches": launches[kernel]}
+        emit(rec)
+        if not ok:
+            fail(f"{kernel} [{case}] disagrees with its plain version: "
+                 f"max abs err {err} (atol {atol}, rtol {rtol})")
+        results.setdefault(kernel, []).append(rec)
+
+    # dataflow GEMM: every dataflow of a case gives the first one's bits
+    first = {}
+    for (case, df, x, w), got in zip(gemm_cases, gemm_out):
+        if case not in first:
+            first[case] = (got, gd.matmul_plain(x, w),
+                           time_ms(lambda: gd.matmul_plain(x, w), iters=3,
+                                   flush=flush),
+                           time_ms(lambda: torch.matmul(x, w), flush=flush))
+        ref_c, want_c, t_p, t_l = first[case]
+        same = torch.equal(got, ref_c)
+        if not same:
+            fail(f"gemm_dataflow [{case}]: {df.value} gives other bits "
+                 "than output_stationary")
+        m, k = x.shape
+        n = w.shape[1]
+        e = x.element_size()
+        t_k = time_ms(lambda: gd.matmul(x, w, df), flush=flush,
+                      budget_ms=1500)
+        record("gemm_dataflow", case, got, want_c, GEMM_ATOL, GEMM_RTOL,
+               t_k, t_p, t_l, (m * k + k * n) * e + m * n * 4,
+               2 * m * n * k,
+               BF16_FLOPS_PER_S if e == 2 else F32_FLOPS_PER_S,
+               dataflow=df.value, M=m, K=k, N=n, dtype=str(x.dtype)[6:],
+               bitwise_equal_across_dataflows=same,
+               modeled_bytes=gd.modeled_traffic(
+                   m, n, k, df, bytes_per_elem=e)["total_bytes"])
+    del first
+
+    # block-sparse GEMM: live tiles only; dead columns exactly 0
+    for (case, x, w, mask), got in zip(sparse_cases, bs_out):
+        m, k = x.shape
+        n = w.shape[1]
+        live_w = bs.expand_mask(mask, 128, 128)[:k, :n]   # live weights
+        dead = torch.from_numpy(~live_w.any(axis=0)).cuda()
+        dead_zero = bool((got[:, dead] == 0).all())
+        if not dead_zero:
+            fail(f"block_sparse [{case}]: a dead column is not 0")
+        dense = w * torch.from_numpy(live_w).cuda()
+        n_live, k_live = int(live_w.sum()), int(live_w.any(axis=1).sum())
+        record("block_sparse", case, got, bs.matmul_plain(x, w, mask),
+               GEMM_ATOL, GEMM_RTOL,
+               time_ms(lambda: bs.matmul(x, w, mask), flush=flush,
+                       budget_ms=1000),
+               time_ms(lambda: bs.matmul_plain(x, w, mask), iters=3,
+                       flush=flush),
+               time_ms(lambda: torch.matmul(x, dense), flush=flush),
+               (m * k_live + n_live) * 2 + m * n * 4, 2 * m * n_live,
+               BF16_FLOPS_PER_S, M=m, K=k, N=n, dtype="bfloat16",
+               tiles_live=int(mask.sum()), tiles_total=int(mask.size),
+               dead_columns=int((~mask.any(axis=0)).sum()),
+               dead_columns_zero=dead_zero)
+        del dense
+    nk, nn = K // 128, N // 128
+    dense_bits = torch.equal(bs.matmul(a, b, np.ones((nk, nn), bool)),
+                             gemm_out[0])
+    empty_zero = bool((bs.matmul(a, b, np.zeros((nk, nn), bool)) == 0
+                       ).all())
+    if not (dense_bits and empty_zero):
+        fail(f"block_sparse: density 1 == output-stationary bits "
+             f"{dense_bits}, fully pruned == 0 {empty_zero}")
+
+    # LUT activation: bit-identical to the plain version
+    for (case, name, x), got in zip(lut_cases, lut_out):
+        table = lut.table_for(name, str(x.device))
+        n = x.numel()
+        record("lut_activation", case, got, lut.lut_plain(x, table), 0.0,
+               0.0, time_ms(lambda: lut.apply_lut(x, name), flush=flush),
+               time_ms(lambda: lut.lut_plain(x, table), iters=5,
+                       flush=flush),
+               time_ms(lambda: lut.TABLES[name](x), flush=flush),
+               n * x.element_size() + n * 4 + lut.LUT_ENTRIES * 4, 0,
+               BF16_FLOPS_PER_S, table=name, shape=list(x.shape),
+               dtype=str(x.dtype)[6:])
+    del flush
+    emit({"phase": "paper", "seconds": time.perf_counter() - t_phase,
+          "launches": launches,
+          "block_sparse_density_1_equals_output_stationary": dense_bits,
+          "block_sparse_fully_pruned_is_zero": empty_zero})
+    return results, launches
+
+
 def phase_serve():
     """qwen3-0.6b FULL, seeded random init, 16 requests through the
     engine with the ServeOptions defaults at batch 8.  Returns what the
@@ -504,18 +743,30 @@ def phase_profile(model, params, programs):
 
 
 def summary_line(kernel_results, launches):
-    sources = {"paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention/"
-                                   "kernel.py:89", "B8_T5"),
-               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/"
-                                   "kernel.py:69", "chunk_B8_C32")}
+    """One entry for each kernel whose checks and path both ran."""
+    sources = {"paged_attention": ("paged_attention.cu",
+                                   "paged_attention/kernel.py:89", "B8_T5"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention/kernel.py:69",
+                                   "chunk_B8_C32"),
+               "gemm_dataflow": ("gemm_dataflow.cu",
+                                 "gemm_dataflow/kernel.py:79",
+                                 "scout_expert_bf16"),
+               "block_sparse": ("block_sparse.cu",
+                                "block_sparse/kernel.py:44", "keep_0.36"),
+               "lut_activation": ("lut_activation.cu",
+                                  "lut_activation/kernel.py:38",
+                                  "silu_f32")}
     out = []
     for name, (src, replaces, case) in sources.items():
+        if name not in kernel_results or name not in launches:
+            continue
         recs = kernel_results[name]
         main = next(r for r in recs if r["case"] == case)
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/csrc/{src}",
+                    "replaces": f"src/repro/kernels/{replaces}",
+                    "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in recs),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
@@ -524,7 +775,12 @@ def summary_line(kernel_results, launches):
     emit({"kernels": out})
 
 
-def main(phases=("env", "kernels", "serve", "parity", "profile")) -> int:
+def main(phases=("env", "kernels", "paper", "serve", "parity",
+                 "profile")) -> int:
+    # one card: the first visible one (before torch sees the devices)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (
+        "0" if visible is None else visible.split(",")[0])
     try:
         import torch
     except ImportError:
@@ -541,18 +797,24 @@ def main(phases=("env", "kernels", "serve", "parity", "profile")) -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    results, launches = {}, {}
     if "env" in phases:
         phase_env()
     if "kernels" in phases:
-        results = phase_kernels()
+        results.update(phase_kernels())
+    if "paper" in phases:
+        paper_results, paper_launches = phase_paper()
+        results.update(paper_results)
+        launches.update(paper_launches)
     if "serve" in phases:
-        model, params, programs, done, launches = phase_serve()
+        model, params, programs, done, served = phase_serve()
+        launches.update(served)
         if "parity" in phases:
             phase_parity(model, params, done)
         if "profile" in phases:
             phase_profile(model, params, programs)
-        if "kernels" in phases:
-            summary_line(results, launches)
+    if results:
+        summary_line(results, launches)
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

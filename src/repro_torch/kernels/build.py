@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C function and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes).  Libraries go
 to ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  Builds happen
-at first use, never at import; :func:`build` starts one ``nvcc`` per
-missing library, all at once, and waits for them together.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  Builds happen at first use, never at
+import; :func:`build` starts one ``nvcc`` per missing library, all at
+once, and waits for them together.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 #: kernel name -> source under csrc/
 SOURCES = {
+    "block_sparse": "block_sparse.cu",
     "flash_attention": "flash_attention.cu",
+    "gemm_dataflow": "gemm_dataflow.cu",
+    "lut_activation": "lut_activation.cu",
     "paged_attention": "paged_attention.cu",
 }
 
@@ -51,8 +55,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    # the shared headers are hashed too, so an edited header rebuilds
+    # every source (a source includes only headers from csrc/)
     src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

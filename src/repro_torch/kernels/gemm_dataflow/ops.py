@@ -1,0 +1,168 @@
+"""Dataflow-parameterised tiled matmul (paper §5.2, Table 6): the CUDA
+kernel's wrapper, its plain PyTorch version and the HBM-traffic model.
+
+``matmul(a, b, dataflow)`` computes C = A @ B with f32 accumulation and
+an f32 output, for A ``(M, K)`` and B ``(K, N)`` both float32 or both
+bfloat16.  The dataflow is the paper's reuse scheme, mapped onto the
+order in which 128-tiles are visited; it decides which operand stays
+resident on chip and how often the psum crosses device memory, never
+the value:
+
+    OUTPUT_STATIONARY  (paper: All Reuse)    psum resident, C written once
+    WEIGHT_STATIONARY  (paper: Filter Reuse) B tile resident over the m sweep
+    INPUT_STATIONARY   (paper: Ifmap Reuse)  A tile resident over the n sweep
+    NO_REUSE           (paper: No Reuse)     k outermost, nothing resident
+
+Every dataflow sums the same bk-deep tile products, each formed from
+zero, in ascending k, so the kernel gives the same bits under all four.
+``modeled_traffic`` is the Pallas pipeline's copy-elision model of the
+bytes each order moves (the Table-6 ordering).
+
+The wrapper launches the kernel (``csrc/gemm_dataflow.cu``) for CUDA
+tensors and takes the plain version only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import enum
+from typing import Dict, Optional
+
+import torch
+
+from ..build import load
+
+__all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
+           "modeled_traffic", "TILE"]
+
+#: the kernel's tile (bm = bn = bk)
+TILE = 128
+
+#: kernel launches since the last reset (chip_smoke.py reads it)
+launches = 0
+
+_fn = None
+
+
+class Dataflow(enum.Enum):
+    OUTPUT_STATIONARY = "output_stationary"   # paper: All Reuse
+    WEIGHT_STATIONARY = "weight_stationary"   # paper: Filter Reuse
+    INPUT_STATIONARY = "input_stationary"     # paper: Ifmap Reuse
+    NO_REUSE = "no_reuse"                     # paper: No Reuse
+
+
+_CODE = {Dataflow.OUTPUT_STATIONARY: 0, Dataflow.WEIGHT_STATIONARY: 1,
+         Dataflow.INPUT_STATIONARY: 2, Dataflow.NO_REUSE: 3}
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        f = load("gemm_dataflow").repro_gemm_dataflow
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        _fn = f
+    return _fn
+
+
+def matmul_ref(a, b, out_dtype: Optional[torch.dtype] = None):
+    """The oracle: one f32 product of the whole operands."""
+    out_dtype = out_dtype or torch.promote_types(a.dtype, torch.float32)
+    return (a.float() @ b.float()).to(out_dtype)
+
+
+def matmul_plain(a, b, *, bk: int = TILE):
+    """The kernel's function in plain PyTorch: f32 psum of the bk-deep
+    tile products in ascending k, each product formed from zero and
+    added with one rounding.  (Within a product, PyTorch's summation
+    order is its own, so the kernel agrees to a tolerance, not bits.)"""
+    m, k = a.shape
+    n = b.shape[1]
+    a32, b32 = a.float(), b.float()
+    out = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    for k0 in range(0, k, bk):
+        out += a32[:, k0:k0 + bk] @ b32[k0:k0 + bk]
+    return out
+
+
+def _check(a, b):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} do "
+                         "not chain")
+    if a.device != b.device:
+        raise ValueError(f"a is on {a.device}, b on {b.device}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"a is {a.dtype}, b is {b.dtype}")
+
+
+def matmul(a, b, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY, *,
+           bm: int = TILE, bn: int = TILE, bk: int = TILE):
+    """C = A @ B under ``dataflow``; returns ``(M, N)`` float32."""
+    _check(a, b)
+    dataflow = Dataflow(dataflow)
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, bk=bk)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if (bm, bn, bk) != (TILE, TILE, TILE):
+        raise ValueError(f"the kernel takes {TILE} x {TILE} x {TILE} "
+                         f"tiles, not bm={bm} bn={bn} bk={bk}")
+    if a.dtype not in _DTYPE:
+        raise TypeError(f"operands must be float32 or bfloat16, got "
+                        f"{a.dtype}")
+    a, b = a.contiguous(), b.contiguous()
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    global launches
+    launches += 1
+    err = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                    _CODE[dataflow], _DTYPE[a.dtype],
+                    torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gemm_dataflow kernel launch failed: "
+                           f"cudaError_t {err}")
+    return out
+
+
+def modeled_traffic(m: int, n: int, k: int, dataflow: Dataflow,
+                    *, bm: int = 128, bn: int = 128, bk: int = 128,
+                    bytes_per_elem: int = 2) -> Dict[str, float]:
+    """HBM bytes under the pipeline's copy-elision rule: a block is
+    fetched again iff its index changed since the previous grid step."""
+    nm, nn, nk = -(-m // bm), -(-n // bn), -(-k // bk)
+    a_blk = bm * bk * bytes_per_elem
+    b_blk = bk * bn * bytes_per_elem
+    o_blk = bm * bn * 4                      # f32 psums/out
+    if dataflow is Dataflow.OUTPUT_STATIONARY:
+        a_loads = nm * nn * nk               # A changes with (i, kk)
+        b_loads = nm * nn * nk
+        o_writes = nm * nn                   # written once
+        o_reads = 0
+    elif dataflow is Dataflow.WEIGHT_STATIONARY:
+        a_loads = nn * nk * nm
+        b_loads = nn * nk                    # B constant over inner m
+        o_writes = nn * nk * nm
+        o_reads = nn * (nk - 1) * nm
+    elif dataflow is Dataflow.INPUT_STATIONARY:
+        a_loads = nm * nk                    # A constant over inner n
+        b_loads = nm * nk * nn
+        o_writes = nm * nk * nn
+        o_reads = nm * (nk - 1) * nn
+    else:                                    # NO_REUSE
+        a_loads = nk * nm * nn
+        b_loads = nk * nm * nn
+        o_writes = nk * nm * nn
+        o_reads = (nk - 1) * nm * nn
+    return {
+        "a_bytes": a_loads * a_blk,
+        "b_bytes": b_loads * b_blk,
+        "out_bytes": o_writes * o_blk + o_reads * o_blk,
+        "total_bytes": (a_loads * a_blk + b_loads * b_blk
+                        + (o_writes + o_reads) * o_blk),
+    }

@@ -43,6 +43,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert {"repro_torch.serve.scheduler", "repro_torch.models.lm",
             "repro_torch.kernels.paged_attention.ops",
+            "repro_torch.kernels.gemm_dataflow.ops",
+            "repro_torch.kernels.block_sparse.ops",
+            "repro_torch.kernels.lut_activation.ops",
             "repro_torch.launch.serve"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
