@@ -11,7 +11,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                card at qwen3-0.6b FULL attention shapes (H 16, KVH 8,
                Dh 128, page 16), bf16, with kernel / plain / library /
                bound times, and the kernel's own bitwise properties
-               (a row's bits depend on its own keys only).
+               (a row's bits depend on its own keys only; 32-row chunks
+               of the 512-token prefill at offsets 0, 32, 224 and 480
+               give the whole prefill's bits).
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -22,9 +24,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                tables.  Its entry points run once with the launch
                counters at 0 (the path); then each kernel is held
                against its plain version (the four dataflows bit-
-               identical, dead columns exactly 0, the LUT bit-identical)
-               and timed beside its plain version, a library call and
-               its bound.
+               identical, dead columns exactly 0, the LUT bit-identical,
+               the bf16 pipeline's TMA and cp.async producers bit-
+               identical) and timed beside its plain version, a library
+               call and its bound.
 4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
                kernels' launch counters prove the path ran through them.
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,6 +76,8 @@ ATOL = RTOL = 2e-2
 TAU = 0.05
 
 N_REQUESTS, PROMPT_LEN, GEN = 16, 256, 32
+# chunk starts of the kernel-level chunked == whole prefill check
+CHUNK_STARTS = (0, 32, 224, 480)
 
 # paper phase.  llama4-scout's expert up-projection (tokens x d_model @
 # d_model x d_ff), the GEMM of benchmarks/kernel_dataflow.py
@@ -174,11 +180,40 @@ def phase_env():
            "build_s": round(time.perf_counter() - t0, 3),
            "build_s_per_kernel": {k: round(v, 3) for k, v in took.items()}}
     for name in build.SOURCES:
-        log = build.build_log(name)
-        rec[f"ptxas_{name}"] = [ln.strip() for ln in log.splitlines()
-                                if "entry function" in ln
-                                or "registers" in ln or "spill" in ln]
+        rec[f"ptxas_{name}"] = _ptxas_summary(build.build_log(name))
     emit(rec)
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's demangled name without its parameter list
+    (``pipe::gemm_bf16<0>``); without c++filt, its last identifier."""
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = mangled
+    if out == mangled:
+        found = re.findall(r"\d+([a-z][a-z0-9_]+?)(?:I|E)", mangled)
+        return found[-1] if found else mangled
+    name = out.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return name.split(" ", 1)[-1]
+
+
+def _ptxas_summary(log: str):
+    """One line per kernel of ptxas's -v report: registers, shared
+    memory and spill bytes."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            used = ln.split("Used", 1)[1].strip()
+            out.append(f"{name}: {used}; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def _paged_case(B, T, lengths, *, seed):
@@ -299,6 +334,22 @@ def _flash_bitwise(kernel, q, k, v, off, got) -> bool:
     return torch.equal(longer, got) and torch.equal(alone, got[1:2])
 
 
+def _flash_chunked_equals_whole(kernel, q, k, v, whole) -> bool:
+    """Each row of a 32-row call at q_offset s over the first s + 32
+    keys equals the same row of the whole prefill, for s in CHUNK_STARTS:
+    chunked == whole prefill, held by the kernel itself."""
+    import torch
+    ok = True
+    for s in CHUNK_STARTS:
+        off = torch.full((q.shape[0],), s, dtype=torch.int32,
+                         device=q.device)
+        part = kernel(q[:, s:s + 32].contiguous(),
+                      k[:, :s + 32].contiguous(), v[:, :s + 32].contiguous(),
+                      q_offset=off, causal=True)
+        ok = ok and torch.equal(part, whole[:, s:s + 32])
+    return ok
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -362,6 +413,13 @@ def phase_kernels():
         got = fa.flash_attention(q, k, v, q_offset=off, causal=True)
         want = fa.flash_attention_plain(q, k, v, q_offset=off, causal=True)
         bitwise = _flash_bitwise(fa.flash_attention, q, k, v, off, got)
+        chunked = None
+        if case.startswith("prefill"):
+            chunked = _flash_chunked_equals_whole(fa.flash_attention, q, k,
+                                                  v, got)
+            if not chunked:
+                fail(f"flash_attention [{case}]: a 32-row chunk gives other "
+                     "bits than the same rows of the whole prefill")
         torch.cuda.synchronize()
         n_bytes, flops = _flash_numbers(q, k, v, off.tolist(), True)
         record("flash_attention", case, got, want, bitwise,
@@ -372,7 +430,8 @@ def phase_kernels():
                    flush=flush),
                time_ms(_sdpa_flash(q, k, v, off, True), flush=flush),
                n_bytes, flops, B=q.shape[0], Sq=q.shape[1],
-               Skv=k.shape[1], q_offset=off.tolist())
+               Skv=k.shape[1], q_offset=off.tolist(),
+               chunked_equals_whole=chunked)
     del flush
     return results
 
@@ -547,6 +606,29 @@ def phase_paper():
                dead_columns=int((~mask.any(axis=0)).sum()),
                dead_columns_zero=dead_zero)
         del dense
+    # the two producers of the bf16 pipeline on the same aligned
+    # operands: the same C, through the wrappers' private launchers
+    if gd_ops.producer_for(a, b) != gd_ops.TMA:
+        fail("paper: the scout operands should take the TMA producer")
+    OS = D.OUTPUT_STATIONARY
+    cp_c = gd_ops._launch(a, b, OS, gd_ops.CP_ASYNC)
+    mask0 = sparse_cases[0][3]
+    cp_bs = bs_ops._launch(a, b, mask0, gd_ops.CP_ASYNC)
+    same_gemm = torch.equal(cp_c, gemm_out[0])
+    same_bs = torch.equal(cp_bs, bs_out[0])
+    emit({"phase": "paper", "check": "producers", "case": "scout_expert_bf16",
+          "gemm_tma_equals_cp_async": same_gemm,
+          "block_sparse_tma_equals_cp_async": same_bs,
+          "gemm_os_tma_ms": time_ms(lambda: gd_ops._launch(
+              a, b, OS, gd_ops.TMA), flush=flush),
+          "gemm_os_cp_async_ms": time_ms(lambda: gd_ops._launch(
+              a, b, OS, gd_ops.CP_ASYNC), flush=flush),
+          "ragged_bf16_producer": "cp_async" if gd_ops.producer_for(
+              ar, br) == gd_ops.CP_ASYNC else "tma"})
+    if not (same_gemm and same_bs):
+        fail(f"paper: the cp.async producer gives other bits than TMA "
+             f"(gemm {same_gemm}, block-sparse {same_bs})")
+    del cp_c, cp_bs
     nk, nn = K // 128, N // 128
     dense_bits = torch.equal(bs.matmul(a, b, np.ones((nk, nn), bool)),
                              gemm_out[0])

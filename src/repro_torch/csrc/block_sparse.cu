@@ -19,39 +19,49 @@
 // prefetch.  A fully pruned mask has n_live = 0 here: compile_mask's
 // one-step sentinel is never computed into C.
 //
-// One block per output tile (i, j) walks column j's live k tiles in
-// ascending k and keeps the f32 psum in registers; a column with no
-// live tile is written as exactly 0.0.  Dead tiles cost no B bytes and
-// no operations.  The tile product is tile_mma.cuh's, added with one
-// rounded f32 addition as in gemm_dataflow.cu, so at density 1 this
-// kernel gives the bits of the output-stationary dataflow.
+// Each output tile (i, j) is owned by one block (bf16: persistent
+// blocks, one per SM, each walking tiles gridDim.x apart), which walks
+// column j's live k tiles in ascending k and keeps the f32 psum in
+// registers; a column with no live tile is written as exactly 0.0.
+// Dead tiles cost no B bytes and no operations.
 //
 // What bounds it on the H100: at the scout expert shape and the paper's
 // Table-3 keep rates (0.27-0.38) the tensor-core operations of the live
-// tiles.  What the design does about it: operations and B bytes scale
-// with the live tiles alone; A tiles of a row are re-read from L2 by the
-// blocks of that row.  No copy/compute overlap yet (as gemm_dataflow).
+// tiles.  What the design does about it: bf16 operands take the
+// output-stationary main loop of wgmma_pipe.cuh (TMA producer warp
+// reading live_k, 3-stage ring, two wgmma consumer warpgroups),
+// so operations and B bytes scale with the live tiles alone and copies
+// overlap the products; f32 operands keep tile_mma.cuh's FMA product.
+// The tile product and its one rounded addition are the dataflow
+// GEMM's, so at density 1 this kernel gives the bits of its output-
+// stationary dataflow.  Blocks are not balanced: columns with more
+// live tiles take longer.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W, L2 flushed
+// before each call), scout bf16: keep 0.36 3.45 ms before this
+// pipeline (mma.sync, no overlap), 1.12 ms with it; keep 0.27 / 0.35 /
+// 0.38 0.83 / 0.85 / 0.85 ms, against 0.81-0.85 ms for dense cuBLAS on
+// the masked B.
 
-#include "tile_mma.cuh"
+#include "wgmma_pipe.cuh"
 
 namespace {
 
 using tile::BK;
 using tile::BM;
 using tile::BN;
-using tile::Mma;
 using tile::PAIRS;
 using tile::THREADS;
+using F = tile::Mma<float>;
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-block_sparse_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    const int* __restrict__ col_start,
-                    const int* __restrict__ live_k, float* __restrict__ C,
-                    int M, int N, int K) {
+block_sparse_f32(const float* __restrict__ A, const float* __restrict__ B,
+                 const int* __restrict__ col_start,
+                 const int* __restrict__ live_k, float* __restrict__ C,
+                 int M, int N, int K) {
     extern __shared__ __align__(16) unsigned char smem[];
-    T* sA = reinterpret_cast<T*>(smem);
-    T* sB = sA + BM * Mma<T>::LDA;
+    float* sA = reinterpret_cast<float*>(smem);
+    float* sB = sA + BM * F::LDA;
     const int j = blockIdx.x, i = blockIdx.y;
     const int s0 = col_start[j], s1 = col_start[j + 1];
     float acc[2 * PAIRS], part[2 * PAIRS];
@@ -61,42 +71,46 @@ block_sparse_kernel(const T* __restrict__ A, const T* __restrict__ B,
         const int kk = live_k[s];
         tile::stage(sA, sB, A, B, M, N, K, i, j, kk, true, true);
         __syncthreads();
-        Mma<T>::product(sA, sB, part);
+        F::product(sA, sB, part);
         __syncthreads();
         tile::accumulate(acc, part);
     }
-    tile::write_tile<T>(C, M, N, i, j, acc, 0);
-}
-
-template <typename T>
-int launch(const void* a, const void* b, const int* col_start,
-           const int* live_k, void* c, int M, int N, int K,
-           cudaStream_t stream) {
-    cudaError_t err =
-        tile::allow_smem<T>((const void*)block_sparse_kernel<T>);
-    if (err != cudaSuccess) return (int)err;
-    const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
-    block_sparse_kernel<T><<<dim3(nn, nm), THREADS, Mma<T>::SMEM, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), col_start,
-        live_k, static_cast<float*>(c), M, N, K);
-    return (int)cudaGetLastError();
+    tile::write_tile<F>(C, M, N, i, j, acc, 0);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (A and B alike; C is float32).
+// producer (bf16 only): 0 TMA, 1 cp.async; TMA is refused unless both
+// operands have 16-byte aligned bases and row strides.
 // col_start: (ceil(N/128) + 1,) int32; live_k: (col_start[-1],) int32.
 // Needs M, N >= 1.  Returns the cudaError_t of the launch.
 extern "C" int repro_block_sparse(const void* a, const void* b,
                                   const void* col_start, const void* live_k,
                                   void* c, int M, int N, int K, int dtype,
-                                  void* stream) {
+                                  int producer, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     auto cs = static_cast<const int*>(col_start);
     auto lk = static_cast<const int*>(live_k);
     if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return launch<float>(a, b, cs, lk, c, M, N, K, s);
-    if (dtype == 1)
-        return launch<__nv_bfloat16>(a, b, cs, lk, c, M, N, K, s);
-    return (int)cudaErrorInvalidValue;
+    const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
+    if (dtype == 0) {
+        cudaError_t err =
+            tile::allow_smem<float>((const void*)block_sparse_f32);
+        if (err != cudaSuccess) return (int)err;
+        block_sparse_f32<<<dim3(nn, nm), THREADS, F::SMEM, s>>>(
+            static_cast<const float*>(a), static_cast<const float*>(b), cs,
+            lk, static_cast<float*>(c), M, N, K);
+        return (int)cudaGetLastError();
+    }
+    if (dtype != 1 || (producer != 0 && producer != 1))
+        return (int)cudaErrorInvalidValue;
+    pipe::Args args{static_cast<const pipe::bf16*>(a),
+                    static_cast<const pipe::bf16*>(b),
+                    static_cast<float*>(c), M, N, K, cs, lk, 0,
+                    producer == 0};
+    CUtensorMap ma, mb;
+    cudaError_t err = pipe::maps_for(args, &ma, &mb);
+    if (err != cudaSuccess) return (int)err;
+    return (int)pipe::launch<pipe::BS>(args, ma, mb, nm * nn, s);
 }

@@ -10,25 +10,44 @@
 // p rounded to bf16 before the P.V product, f32 accumulation.
 //
 // What bounds it on the H100: at a whole-prompt prefill (Sq of several
-// hundred) the tensor-core flops; at a 32-token chunk step the bytes of
-// the gathered K/V buffer.  What the design does about it: one block
-// per (64-row q tile, head, batch row) keeps its q tile, running max,
-// denominator and output accumulator on chip for the whole key sweep,
-// stages each 64-key K/V tile in shared memory once for all 64 rows,
-// and stops at the causal frontier, so K/V bytes are read once per q
-// tile and the (Sq, Skv) score matrix never reaches device memory.
-// This first cut multiplies with FMAs on f32 copies in shared memory,
-// far below the tensor-core rate; mma/wgmma with TMA-fed tiles is the
-// later step.
+// hundred) the tensor-core operations; at a 32-token chunk step the
+// bytes of the gathered K/V buffer; at both sizes of the serve path
+// (qwen3-0.6b, H 16, KVH 8, Dh 128) in practice the latency of a few
+// key tiles per block.  What the design does about it: one block of
+// four warps per (64-row q tile, head, batch row); each warp owns 16
+// query rows and keeps their Q fragments (ldmatrix), the running max,
+// denominator and output accumulator in registers for the whole key
+// sweep.  K and V tiles of 64 keys stay bf16 in shared memory (XOR-
+// swizzled 16-byte chunks, so ldmatrix is free of bank conflicts),
+// double-buffered with cp.async: the next tile loads while this one is
+// multiplied.  S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 x
+// bf16 -> f32) on the tensor cores; the online softmax runs on the S
+// accumulator fragments, and P is rounded to bf16 and packed straight
+// into the A fragments of the P V product (V read with ldmatrix.trans):
+// no score tile touches shared memory.  80 KB of shared memory a block
+// at Dh 128: two blocks per SM.
 //
 // Summation structure (what makes chunked == whole prefill bitwise in
 // the port): keys are walked in tiles of KV_TILE anchored at absolute
-// position 0, every reduction inside a tile runs over the same 64 lanes
-// in the same order for every row, and a tile fully masked for a row is
-// an exact no-op of the recurrence (the max against -1e30 cannot win,
-// exp underflows to +0.0, x + 0.0 == x).  A row's bits therefore depend
-// only on its own keys and offset: attention over a longer, padded
-// buffer with the same leading keys gives the same output.
+// position 0; within a tile every row's max and denominator are taken
+// over the thread's 16 values in one fixed order, then across the
+// quad by two xor shuffles (whose result is the same on all four
+// lanes); the tensor-core products are elementwise and the same for
+// every row position; a tile fully masked for a row is an exact no-op
+// of the recurrence (the max against -1e30 cannot win, exp underflows
+// to +0.0, alpha is 1, P V adds products of zero).  A row's bits
+// therefore depend only on its own keys and offset, whatever its place
+// in the q tile: attention over a longer, padded buffer with the same
+// leading keys, or over a 32-row chunk at an offset, gives the bits of
+// the whole prefill.  The causal loop ends at kend, the last key any
+// row of the tile can see.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W, L2 flushed
+// before each call): before this design (f32 copies in shared memory,
+// FMAs, no asynchronous load) 0.342 ms at a B 2 x 512 prefill and
+// 0.0965 ms at a B 8 x C 32 chunk step; with it 0.0312 and 0.0165 ms
+// (SDPA with the same mask: 0.0358 and 0.0299 ms).  224 registers a
+// thread at Dh 128, no spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,44 +55,73 @@
 
 namespace {
 
-constexpr int Q_TILE = 64;     // query rows per block
+constexpr int Q_TILE = 64;     // query rows per block (16 per warp)
 constexpr int KV_TILE = 64;    // keys per online-softmax step
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float warp_max(float x) {
-    for (int o = 16; o > 0; o >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-    for (int o = 16; o > 0; o >>= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
-// 8 bf16 (16 bytes) -> 8 floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(e[i]);
-}
-
-constexpr int SS = KV_TILE + 1;   // padded score-row stride
 
 template <int DH>
 constexpr size_t smem_bytes() {
-    return sizeof(float) * (size_t)(Q_TILE * (DH + 1)      // q tile (padded)
-                                    + KV_TILE * (DH + 1)   // K tile (padded)
-                                    + KV_TILE * DH         // V tile
-                                    + Q_TILE * SS          // scores / p
-                                    + 3 * Q_TILE);         // m, l, alpha
+    // q tile, then K and V tiles, double-buffered; all bf16
+    return 2 * (size_t)(Q_TILE + 4 * KV_TILE) * DH;
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of DH-wide rows:
+// chunks XOR-swizzled by the row's low three bits
+template <int DH>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+    return (uint32_t)(r * DH * 2 + ((c ^ (r & 7)) << 4));
+}
+
+// rows [r0, r0 + 64) of a (rows, stride-DH-apart) bf16 matrix whose row
+// r starts at g + r * ld, into a swizzled tile; rows >= rows are zero
+template <int DH>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* g,
+                                          size_t ld, int r0, int rows) {
+    constexpr int CH = DH / 8;
+    for (int idx = threadIdx.x; idx < 64 * CH; idx += THREADS) {
+        const int r = idx / CH, c = idx % CH;
+        const bool in = r0 + r < rows;
+        const __nv_bfloat16* src = g + (in ? (size_t)(r0 + r) * ld : 0) + c * 8;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         dst + swz<DH>(r, c)),
+                     "l"(src), "r"(in ? 16 : 0)
+                     : "memory");
+    }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                        const __nv_bfloat16* __restrict__ k,   // (B,Skv,KVH,DH)
                        const __nv_bfloat16* __restrict__ v,
@@ -81,156 +129,173 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                        __nv_bfloat16* __restrict__ out,       // (B,Sq,H,DH)
                        int Sq, int Skv, int H, int KVH, int causal,
                        float scale) {
-    constexpr int VEC = DH / 8;
-    constexpr int DJ = DH / 32;     // output columns per lane
+    constexpr int KS = DH / 16;        // k16 steps of Q K^T
+    constexpr int ND = DH / 8;         // n8 tiles of the output
+    constexpr int TILE = KV_TILE * DH * 2;
 
     const int q0 = blockIdx.x * Q_TILE;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
     const int kvh = h / (H / KVH);
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-    extern __shared__ float smem[];
-    float* sq = smem;                          // Q_TILE x (DH + 1)
-    float* sk = sq + Q_TILE * (DH + 1);        // KV_TILE x (DH + 1)
-    float* sv = sk + KV_TILE * (DH + 1);       // KV_TILE x DH
-    float* ss = sv + KV_TILE * DH;             // Q_TILE x SS
-    float* s_m = ss + Q_TILE * SS;
-    float* s_l = s_m + Q_TILE;
-    float* s_alpha = s_l + Q_TILE;
+    extern __shared__ __align__(128) unsigned char smem[];
+    const uint32_t sq = (uint32_t)__cvta_generic_to_shared(smem);
+    const uint32_t sk = sq + Q_TILE * DH * 2;     // 2 K tiles
+    const uint32_t sv = sk + 2 * TILE;            // 2 V tiles
 
     const int qoff = q_offset[b];
-    for (int idx = tid; idx < Q_TILE * VEC; idx += THREADS) {
-        const int r = idx / VEC, c = (idx % VEC) * 8;
-        float tmp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (q0 + r < Sq)
-            load8(q + (((size_t)b * Sq + q0 + r) * H + h) * DH + c, tmp);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sq[r * (DH + 1) + c + i] = tmp[i];
-    }
-    if (tid < Q_TILE) {
-        s_m[tid] = NEG_INF;
-        s_l[tid] = 0.f;
-    }
-    // last key any row of this tile can see
-    int kend = Skv;
+    int kend = Skv;        // last key any row of this tile can see
     if (causal) kend = min(Skv, qoff + min(q0 + Q_TILE, Sq));
+    const int ntiles = (kend + KV_TILE - 1) / KV_TILE;
 
-    // score mapping: rows tr + 16 i, keys tc + 16 jj
-    const int tr = tid / 16, tc = tid % 16;
-    // P.V mapping: rows warp + 8 i, columns lane + 32 jj
-    float acc[8][DJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-    __syncthreads();
+    const size_t kv_ld = (size_t)KVH * DH;
+    const __nv_bfloat16* kb = k + ((size_t)b * Skv * KVH + kvh) * DH;
+    const __nv_bfloat16* vb = v + ((size_t)b * Skv * KVH + kvh) * DH;
+    load_rows<DH>(sq, q + ((size_t)b * Sq * H + h) * DH, (size_t)H * DH, q0,
+                  Sq);
+    if (ntiles > 0) {
+        load_rows<DH>(sk, kb, kv_ld, 0, Skv);
+        load_rows<DH>(sv, vb, kv_ld, 0, Skv);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    for (int j0 = 0; j0 < kend; j0 += KV_TILE) {
-        for (int idx = tid; idx < KV_TILE * VEC; idx += THREADS) {
-            const int key = idx / VEC, c = (idx % VEC) * 8;
-            float kt[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            float vt[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            if (j0 + key < Skv) {
-                const size_t off =
-                    (((size_t)b * Skv + j0 + key) * KVH + kvh) * DH + c;
-                load8(k + off, kt);
-                load8(v + off, vt);
-            }
+    // this thread's rows: r0 = 16 warp + lane / 4 and r0 + 8
+    const int rq = warp * 16 + (lane >> 2);
+    const int qpos0 = qoff + q0 + rq, qpos1 = qpos0 + 8;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    float acc[ND][4];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                sk[key * (DH + 1) + c + i] = kt[i];
-                sv[key * DH + c + i] = vt[i];
-            }
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    uint32_t qf[KS][4];
+
+    for (int t = 0; t < ntiles; ++t) {
+        const int buf = t & 1;
+        if (t + 1 < ntiles) {
+            load_rows<DH>(sk + (buf ^ 1) * TILE, kb, kv_ld,
+                          (t + 1) * KV_TILE, Skv);
+            load_rows<DH>(sv + (buf ^ 1) * TILE, vb, kv_ld,
+                          (t + 1) * KV_TILE, Skv);
+            asm volatile("cp.async.commit_group;\n" ::: "memory");
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         }
         __syncthreads();
+        if (t == 0) {
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+                ldsm_x4(sq + swz<DH>(warp * 16 + (lane & 15),
+                                     2 * ks + (lane >> 4)),
+                        qf[ks]);
+        }
+        const uint32_t kt = sk + buf * TILE, vt = sv + buf * TILE;
 
-        {
-            float dot[4][4];
+        // S = Q K^T: 16 rows x 64 keys per warp, 8 n8 tiles
+        float s[8][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-                for (int jj = 0; jj < 4; ++jj) dot[i][jj] = 0.f;
-#pragma unroll 4
-            for (int e = 0; e < DH; ++e) {
-                float qa[4], kb[4];
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-                for (int i = 0; i < 4; ++i) qa[i] = sq[(tr + 16 * i) * (DH + 1) + e];
+        for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-                for (int jj = 0; jj < 4; ++jj) kb[jj] = sk[(tc + 16 * jj) * (DH + 1) + e];
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int jj = 0; jj < 4; ++jj)
-                        dot[i][jj] = fmaf(qa[i], kb[jj], dot[i][jj]);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int r = tr + 16 * i;
-                const int qpos = qoff + q0 + r;
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                    const int c = tc + 16 * jj;
-                    const int j = j0 + c;
-                    const bool ok = j < Skv && (!causal || j <= qpos);
-                    ss[r * SS + c] = ok ? dot[i][jj] * scale : NEG_INF;
-                }
+            for (int n = 0; n < 8; n += 2) {
+                uint32_t bk[4];
+                const int m = lane >> 3;
+                ldsm_x4(kt + swz<DH>((n + (m >> 1)) * 8 + (lane & 7),
+                                     2 * ks + (m & 1)),
+                        bk);
+                mma(s[n], qf[ks], bk[0], bk[1]);
+                mma(s[n + 1], qf[ks], bk[2], bk[3]);
             }
         }
-        __syncthreads();
 
-        // online-softmax update, one warp per row
-        for (int r = warp; r < Q_TILE; r += THREADS / 32) {
-            const float x0 = ss[r * SS + lane];
-            const float x1 = ss[r * SS + lane + 32];
-            const float m_prev = s_m[r];
-            const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-            const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-            const float psum = warp_sum(p0 + p1);
-            // P.V takes p rounded to bf16; the denominator sums f32 p
-            ss[r * SS + lane] = __bfloat162float(__float2bfloat16(p0));
-            ss[r * SS + lane + 32] = __bfloat162float(__float2bfloat16(p1));
-            if (lane == 0) {
-                const float alpha = expf(m_prev - m_new);
-                s_alpha[r] = alpha;
-                s_l[r] = s_l[r] * alpha + psum;
-                s_m[r] = m_new;
+        // scale, mask, online softmax on the fragments: thread values
+        // s[n][0..1] are row r0, s[n][2..3] row r0 + 8, key
+        // j0 + 8 n + 2 (lane & 3) + e
+        const int j0 = t * KV_TILE;
+        float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int j = j0 + 8 * n + 2 * (lane & 3) + e;
+                const bool in = j < Skv;
+                s[n][e] = in && (!causal || j <= qpos0) ? s[n][e] * scale
+                                                        : NEG_INF;
+                s[n][e + 2] = in && (!causal || j <= qpos1)
+                                  ? s[n][e + 2] * scale
+                                  : NEG_INF;
+                mx0 = fmaxf(mx0, s[n][e]);
+                mx1 = fmaxf(mx1, s[n][e + 2]);
+            }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        float ps0 = 0.f, ps1 = 0.f;
+        uint32_t pa[4][4];     // P as bf16 A fragments, one per k16 step
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+            const float p00 = expf(s[n][0] - mn0), p01 = expf(s[n][1] - mn0);
+            const float p10 = expf(s[n][2] - mn1), p11 = expf(s[n][3] - mn1);
+            // the denominator sums f32 p; P V takes p rounded to bf16
+            ps0 += p00;
+            ps0 += p01;
+            ps1 += p10;
+            ps1 += p11;
+            pa[n >> 1][(n & 1) * 2] = pack_bf16(p00, p01);
+            pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p10, p11);
+        }
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+        const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+        l0 = l0 * al0 + ps0;
+        l1 = l1 * al1 + ps1;
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+            acc[n][0] *= al0;
+            acc[n][1] *= al0;
+            acc[n][2] *= al1;
+            acc[n][3] *= al1;
+        }
+
+        // O += P V: V (keys x DH) read transposed, two n8 tiles a load
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+            for (int n = 0; n < ND; n += 2) {
+                uint32_t bv[4];
+                ldsm_x4_t(vt + swz<DH>(ks * 16 + (lane & 15), n + (lane >> 4)),
+                          bv);
+                mma(acc[n], pa[ks], bv[0], bv[1]);
+                mma(acc[n + 1], pa[ks], bv[2], bv[3]);
             }
         }
-        __syncthreads();
-
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int r = warp + 8 * i;
-            const float* pr = ss + r * SS;
-            float pv[DJ];
-#pragma unroll
-            for (int jj = 0; jj < DJ; ++jj) pv[jj] = 0.f;
-#pragma unroll 8
-            for (int c = 0; c < KV_TILE; ++c) {
-                const float p = pr[c];
-#pragma unroll
-                for (int jj = 0; jj < DJ; ++jj)
-                    pv[jj] = fmaf(p, sv[c * DH + lane + 32 * jj], pv[jj]);
-            }
-            const float alpha = s_alpha[r];
-#pragma unroll
-            for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = acc[i][jj] * alpha + pv[jj];
-        }
-        __syncthreads();
+        __syncthreads();   // this buffer is the next prefetch's target
     }
 
+    const float inv0 = fmaxf(l0, 1e-30f), inv1 = fmaxf(l1, 1e-30f);
+    const int col = 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int r = warp + 8 * i;
-        if (q0 + r < Sq) {
-            __nv_bfloat16* o = out + (((size_t)b * Sq + q0 + r) * H + h) * DH;
+    for (int half = 0; half < 2; ++half) {
+        const int r = q0 + rq + 8 * half;
+        if (r >= Sq) continue;
+        const float den = half ? inv1 : inv0;
+        __nv_bfloat16* o = out + (((size_t)b * Sq + r) * H + h) * DH + col;
 #pragma unroll
-            for (int jj = 0; jj < DJ; ++jj)
-                o[lane + 32 * jj] = __float2bfloat16(acc[i][jj] / fmaxf(s_l[r], 1e-30f));
-        }
+        for (int n = 0; n < ND; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) =
+                __floats2bfloat162_rn(acc[n][2 * half] / den,
+                                      acc[n][2 * half + 1] / den);
     }
 }
 

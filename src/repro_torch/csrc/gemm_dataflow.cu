@@ -9,36 +9,55 @@
 // kernel, it decides which operand stays resident on chip, not what is
 // computed:
 //
-//   OUTPUT_STATIONARY (All Reuse)    one block per C tile (i, j); the
-//       f32 psum stays in registers over the k sweep, C written once.
+//   OUTPUT_STATIONARY (All Reuse)    each C tile (i, j) is owned by one
+//       block (bf16: persistent blocks, one per SM, each walking tiles
+//       gridDim.x apart); the f32 psum stays in registers over the k
+//       sweep, C written once.
 //   WEIGHT_STATIONARY (Filter Reuse) one block per column j of tiles;
 //       for each kk, B(kk, j) stays resident in shared memory for the
 //       whole i sweep; each C(i, j) is read, added to and written back
 //       through device memory.
 //   INPUT_STATIONARY  (Ifmap Reuse)  one block per row i; for each kk,
 //       A(i, kk) stays resident over the j sweep; C revisited the same.
-//   NO_REUSE                         k outermost: one launch per kk,
-//       one block per C tile; both operands read again at every step,
-//       and the psum goes through device memory at every kk.
+//   NO_REUSE                         k outermost: one launch per kk
+//       over every C tile (bf16: persistent blocks as OS); both
+//       operands read again at every step, and the psum goes through
+//       device memory at every kk.
 //
 // Parallelism runs only over an axis whose C tiles no two blocks share,
 // so k is summed in ascending order with no atomics, and every tile
-// product is formed from zero by the same code (tile_mma.cuh) and added
-// with one rounded f32 addition: the four dataflows give the same bits.
+// product is formed from zero by the same code and added with one
+// rounded f32 addition (the contract of tile_mma.cuh): the four
+// dataflows give the same bits.
 //
 // What bounds it on the H100: at the scout expert shape (M 8192, K 5120,
-// N 8192, bf16) the tensor-core operations (2MNK / 989 TFLOP/s against
-// 436 MB / 3.35 TB/s); for f32 operands the f32 FMA rate (67 TFLOP/s).
-// What the design does about it: bf16 tiles go through mma.sync on the
-// tensor cores with ldmatrix from bank-conflict-free padded shared
-// memory; each staged 128 x 128 tile feeds 128 products per element.
-// This first cut has no copy/compute overlap (no cp.async, TMA or
-// wgmma), so it runs well below the tensor-core peak.  WS and IS give
-// the card only N/128 or M/128 blocks (64 at the scout shape, on 132
-// SMs) and round-trip every psum through device memory: they are the
-// paper's reuse schemes, not a throughput design, and run slower.
+// N 8192, bf16) the tensor-core operations (2MNK / 989 TFLOP/s = 0.695
+// ms against 436 MB / 3.35 TB/s); for WS, IS and NR also the f32 psum
+// round trips through device memory (C is 268 MB, read and written at
+// each of the 40 k steps); for f32 operands the f32 FMA rate.
+// What the design does about it: bf16 operands go through
+// wgmma_pipe.cuh, a warp-specialised pipeline (one TMA producer warp,
+// two wgmma consumer warpgroups, a 3-stage ring of 128 x 128 tiles in
+// 192 KB of shared memory) in which copies overlap the tensor-core
+// products; the tiles in flight at once lie in groups of 16 rows of
+// tiles, so they share operand tiles in L2.  Operands
+// whose base or row stride is not 16-byte aligned are fetched by a
+// cp.async producer into the same swizzled layout.  f32 operands keep
+// tile_mma.cuh's FMA product (off the tensor cores by contract).
+// WS and IS give the card only N/128 or M/128 blocks (64 at the scout
+// shape, on 132 SMs): they are the paper's reuse schemes, not a
+// throughput design.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W, L2 flushed
+// before each call), scout bf16: before this pipeline (ldmatrix +
+// mma.sync, no overlap) OS 10.77, NR 14.89, WS 44.85, IS 44.86 ms; with
+// it OS 1.36-1.41 (torch.matmul 0.88), NR 9.53, WS 10.68, IS 10.48 ms.
+// OS now moves its 10.7 GB of operand tiles from L2 at about 7.7 TB/s
+// with one 128 x 128 tile per SM; WS and IS serialise each step's psum
+// round trip through C with the next product on 64 SMs.  Ragged bf16
+// (cp.async producer): OS 0.79, NR 1.27, WS 5.09, IS 4.56 ms.
 
-#include "tile_mma.cuh"
+#include "wgmma_pipe.cuh"
 
 namespace {
 
@@ -49,18 +68,19 @@ using tile::Mma;
 using tile::PAIRS;
 using tile::THREADS;
 
-template <typename T>
-__device__ __forceinline__ void smem_tiles(T*& sA, T*& sB) {
+// ------------------------------------------------------------ f32
+__device__ __forceinline__ void smem_tiles(float*& sA, float*& sB) {
     extern __shared__ __align__(16) unsigned char smem[];
-    sA = reinterpret_cast<T*>(smem);
-    sB = sA + BM * Mma<T>::LDA;
+    sA = reinterpret_cast<float*>(smem);
+    sB = sA + BM * Mma<float>::LDA;
 }
 
-template <typename T>
+using F = Mma<float>;
+
 __global__ void __launch_bounds__(THREADS)
-gemm_output_stationary(const T* __restrict__ A, const T* __restrict__ B,
+gemm_output_stationary(const float* __restrict__ A, const float* __restrict__ B,
                        float* __restrict__ C, int M, int N, int K) {
-    T *sA, *sB;
+    float *sA, *sB;
     smem_tiles(sA, sB);
     const int j = blockIdx.x, i = blockIdx.y;
     const int nk = (K + BK - 1) / BK;
@@ -70,18 +90,17 @@ gemm_output_stationary(const T* __restrict__ A, const T* __restrict__ B,
     for (int kk = 0; kk < nk; ++kk) {
         tile::stage(sA, sB, A, B, M, N, K, i, j, kk, true, true);
         __syncthreads();
-        Mma<T>::product(sA, sB, part);
+        F::product(sA, sB, part);
         __syncthreads();
         tile::accumulate(acc, part);
     }
-    tile::write_tile<T>(C, M, N, i, j, acc, 0);
+    tile::write_tile<F>(C, M, N, i, j, acc, 0);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gemm_weight_stationary(const T* __restrict__ A, const T* __restrict__ B,
+gemm_weight_stationary(const float* __restrict__ A, const float* __restrict__ B,
                        float* __restrict__ C, int M, int N, int K) {
-    T *sA, *sB;
+    float *sA, *sB;
     smem_tiles(sA, sB);
     const int j = blockIdx.x;
     const int nk = (K + BK - 1) / BK, nm = (M + BM - 1) / BM;
@@ -91,18 +110,17 @@ gemm_weight_stationary(const T* __restrict__ A, const T* __restrict__ B,
         for (int i = 0; i < nm; ++i) {
             tile::stage(sA, sB, A, B, M, N, K, i, j, kk, true, false);
             __syncthreads();
-            Mma<T>::product(sA, sB, part);
+            F::product(sA, sB, part);
             __syncthreads();
-            tile::write_tile<T>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
+            tile::write_tile<F>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
         }
     }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gemm_input_stationary(const T* __restrict__ A, const T* __restrict__ B,
+gemm_input_stationary(const float* __restrict__ A, const float* __restrict__ B,
                       float* __restrict__ C, int M, int N, int K) {
-    T *sA, *sB;
+    float *sA, *sB;
     smem_tiles(sA, sB);
     const int i = blockIdx.x;
     const int nk = (K + BK - 1) / BK, nn = (N + BN - 1) / BN;
@@ -112,62 +130,57 @@ gemm_input_stationary(const T* __restrict__ A, const T* __restrict__ B,
         for (int j = 0; j < nn; ++j) {
             tile::stage(sA, sB, A, B, M, N, K, i, j, kk, false, true);
             __syncthreads();
-            Mma<T>::product(sA, sB, part);
+            F::product(sA, sB, part);
             __syncthreads();
-            tile::write_tile<T>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
+            tile::write_tile<F>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
         }
     }
 }
 
 // one k step of NO_REUSE over every C tile
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gemm_no_reuse_step(const T* __restrict__ A, const T* __restrict__ B,
+gemm_no_reuse_step(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ C, int M, int N, int K, int kk) {
-    T *sA, *sB;
+    float *sA, *sB;
     smem_tiles(sA, sB);
     const int j = blockIdx.x, i = blockIdx.y;
     float part[2 * PAIRS];
     tile::stage(sA, sB, A, B, M, N, K, i, j, kk, true, true);
     __syncthreads();
-    Mma<T>::product(sA, sB, part);
-    tile::write_tile<T>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
+    F::product(sA, sB, part);
+    tile::write_tile<F>(C, M, N, i, j, part, kk == 0 ? 1 : 2);
 }
 
-template <typename T>
-int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           int dataflow, cudaStream_t stream) {
-    const T* A = static_cast<const T*>(a);
-    const T* B = static_cast<const T*>(b);
-    float* C = static_cast<float*>(c);
+int launch_f32(const float* A, const float* B, float* C, int M, int N, int K,
+               int dataflow, cudaStream_t stream) {
     const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
     const int nk = (K + BK - 1) / BK;
-    const size_t smem = Mma<T>::SMEM;
+    const size_t smem = F::SMEM;
     cudaError_t err;
     switch (dataflow) {
     case 0:
-        err = tile::allow_smem<T>((const void*)gemm_output_stationary<T>);
+        err = tile::allow_smem<float>((const void*)gemm_output_stationary);
         if (err != cudaSuccess) return (int)err;
-        gemm_output_stationary<T><<<dim3(nn, nm), THREADS, smem, stream>>>(
+        gemm_output_stationary<<<dim3(nn, nm), THREADS, smem, stream>>>(
             A, B, C, M, N, K);
         break;
     case 1:
-        err = tile::allow_smem<T>((const void*)gemm_weight_stationary<T>);
+        err = tile::allow_smem<float>((const void*)gemm_weight_stationary);
         if (err != cudaSuccess) return (int)err;
-        gemm_weight_stationary<T><<<nn, THREADS, smem, stream>>>(
-            A, B, C, M, N, K);
+        gemm_weight_stationary<<<nn, THREADS, smem, stream>>>(A, B, C, M, N,
+                                                              K);
         break;
     case 2:
-        err = tile::allow_smem<T>((const void*)gemm_input_stationary<T>);
+        err = tile::allow_smem<float>((const void*)gemm_input_stationary);
         if (err != cudaSuccess) return (int)err;
-        gemm_input_stationary<T><<<nm, THREADS, smem, stream>>>(
-            A, B, C, M, N, K);
+        gemm_input_stationary<<<nm, THREADS, smem, stream>>>(A, B, C, M, N,
+                                                             K);
         break;
     case 3:
-        err = tile::allow_smem<T>((const void*)gemm_no_reuse_step<T>);
+        err = tile::allow_smem<float>((const void*)gemm_no_reuse_step);
         if (err != cudaSuccess) return (int)err;
         for (int kk = 0; kk < nk; ++kk) {
-            gemm_no_reuse_step<T><<<dim3(nn, nm), THREADS, smem, stream>>>(
+            gemm_no_reuse_step<<<dim3(nn, nm), THREADS, smem, stream>>>(
                 A, B, C, M, N, K, kk);
             err = cudaGetLastError();
             if (err != cudaSuccess) return (int)err;
@@ -179,18 +192,54 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
     return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------------------- bf16
+int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
+                int dataflow, int use_tma, cudaStream_t stream) {
+    pipe::Args args{static_cast<const pipe::bf16*>(a),
+                    static_cast<const pipe::bf16*>(b),
+                    static_cast<float*>(c), M, N, K, nullptr, nullptr, 0,
+                    use_tma};
+    CUtensorMap ma, mb;
+    cudaError_t err = pipe::maps_for(args, &ma, &mb);
+    if (err != cudaSuccess) return (int)err;
+    const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
+    const int nk = (K + BK - 1) / BK;
+    switch (dataflow) {
+    case 0:
+        return (int)pipe::launch<pipe::OS>(args, ma, mb, nm * nn, stream);
+    case 1:
+        return (int)pipe::launch<pipe::WS>(args, ma, mb, nn, stream);
+    case 2:
+        return (int)pipe::launch<pipe::IS>(args, ma, mb, nm, stream);
+    case 3:
+        for (int kk = 0; kk < nk; ++kk) {
+            args.kk = kk;
+            err = pipe::launch<pipe::NR>(args, ma, mb, nm * nn, stream);
+            if (err != cudaSuccess) return (int)err;
+        }
+        return 0;
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // dataflow: 0 output-, 1 weight-, 2 input-stationary, 3 no reuse.
 // dtype: 0 float32, 1 bfloat16 (A and B alike; C is float32).
+// producer (bf16 only): 0 TMA, 1 cp.async; TMA is refused unless both
+// operands have 16-byte aligned bases and row strides.
 // Needs M, N >= 1 and K >= 1.  Returns the cudaError_t of the launch.
 extern "C" int repro_gemm_dataflow(const void* a, const void* b, void* c,
                                    int M, int N, int K, int dataflow,
-                                   int dtype, void* stream) {
+                                   int dtype, int producer, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return launch<float>(a, b, c, M, N, K, dataflow, s);
-    if (dtype == 1)
-        return launch<__nv_bfloat16>(a, b, c, M, N, K, dataflow, s);
+    if (dtype == 0)
+        return launch_f32(static_cast<const float*>(a),
+                          static_cast<const float*>(b),
+                          static_cast<float*>(c), M, N, K, dataflow, s);
+    if (dtype == 1 && (producer == 0 || producer == 1))
+        return launch_bf16(a, b, c, M, N, K, dataflow, producer == 0, s);
     return (int)cudaErrorInvalidValue;
 }

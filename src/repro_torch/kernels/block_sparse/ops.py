@@ -15,7 +15,9 @@ tile.  ``mask_from_weights``, ``compile_mask``, ``sparse_savings`` and
 ``expand_mask`` are numpy, as in the reference.
 
 The wrapper launches the kernel (``csrc/block_sparse.cu``) for CUDA
-tensors and takes the plain version only for CPU tensors.
+tensors and takes the plain version only for CPU tensors; bf16
+operands pick their producer as the dataflow GEMM's do
+(``gemm_dataflow.ops.producer_for``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..build import load
+from ..gemm_dataflow.ops import producer_for
 
 __all__ = ["compile_mask", "column_table", "expand_mask",
            "mask_from_weights", "matmul", "matmul_plain", "sparse_savings",
@@ -45,7 +48,7 @@ def _kernel():
     global _fn
     if _fn is None:
         f = load("block_sparse").repro_block_sparse
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _fn = f
@@ -162,11 +165,19 @@ def matmul(a, b, mask, *, bm: int = TILE, bn: int = TILE, bk: int = TILE):
         raise TypeError(f"operands must be float32 or bfloat16, got "
                         f"{a.dtype}")
     a, b = a.contiguous(), b.contiguous()
+    return _launch(a, b, mask, producer_for(a, b))
+
+
+def _launch(a, b, mask, producer: int):
+    """The kernel on contiguous CUDA operands with the given bf16
+    producer (ignored for f32); private, as gemm_dataflow's."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        return out.zero_()
     col_start, live_k = column_table(mask)
     table = torch.from_numpy(np.concatenate([col_start, live_k])
                              ).to(a.device)
@@ -174,7 +185,7 @@ def matmul(a, b, mask, *, bm: int = TILE, bn: int = TILE, bk: int = TILE):
     launches += 1
     err = _kernel()(a.data_ptr(), b.data_ptr(), table.data_ptr(),
                     table.data_ptr() + 4 * col_start.size, out.data_ptr(),
-                    m, n, k, _DTYPE[a.dtype],
+                    m, n, k, _DTYPE[a.dtype], producer,
                     torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"block_sparse kernel launch failed: "

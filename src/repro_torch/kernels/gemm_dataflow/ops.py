@@ -19,7 +19,11 @@ zero, in ascending k, so the kernel gives the same bits under all four.
 bytes each order moves (the Table-6 ordering).
 
 The wrapper launches the kernel (``csrc/gemm_dataflow.cu``) for CUDA
-tensors and takes the plain version only for CPU tensors.
+tensors and takes the plain version only for CPU tensors.  For bf16
+operands it also picks the producer that fills the kernel's shared-
+memory ring (``producer_for``): TMA where the operands' bases and row
+strides are 16-byte aligned, cp.async otherwise; both give the same
+bits.
 """
 from __future__ import annotations
 
@@ -32,10 +36,13 @@ import torch
 from ..build import load
 
 __all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
-           "modeled_traffic", "TILE"]
+           "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC"]
 
 #: the kernel's tile (bm = bn = bk)
 TILE = 128
+
+#: the producers of the bf16 pipeline (csrc/wgmma_pipe.cuh)
+TMA, CP_ASYNC = 0, 1
 
 #: kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
@@ -59,7 +66,7 @@ def _kernel():
     global _fn
     if _fn is None:
         f = load("gemm_dataflow").repro_gemm_dataflow
-        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _fn = f
@@ -84,6 +91,19 @@ def matmul_plain(a, b, *, bk: int = TILE):
     for k0 in range(0, k, bk):
         out += a32[:, k0:k0 + bk] @ b32[k0:k0 + bk]
     return out
+
+
+def producer_for(a, b) -> int:
+    """The producer of the bf16 pipeline for row-major contiguous
+    operands A ``(M, K)`` and B ``(K, N)``: ``TMA`` needs both bases
+    16-byte aligned and both row strides (K and N elements) multiples
+    of 16 bytes; anything else takes ``CP_ASYNC``, which writes the
+    same swizzled layout."""
+    row_a = a.shape[1] * a.element_size()
+    row_b = b.shape[1] * b.element_size()
+    aligned = (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+               and row_a % 16 == 0 and row_b % 16 == 0)
+    return TMA if aligned else CP_ASYNC
 
 
 def _check(a, b):
@@ -112,6 +132,14 @@ def matmul(a, b, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY, *,
         raise TypeError(f"operands must be float32 or bfloat16, got "
                         f"{a.dtype}")
     a, b = a.contiguous(), b.contiguous()
+    return _launch(a, b, dataflow, producer_for(a, b))
+
+
+def _launch(a, b, dataflow: Dataflow, producer: int):
+    """The kernel on contiguous CUDA operands with the given bf16
+    producer (ignored for f32).  Private: ``matmul`` picks the producer
+    from the operands; chip_smoke.py forces each in turn to hold the
+    two against each other."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -122,7 +150,7 @@ def matmul(a, b, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY, *,
     global launches
     launches += 1
     err = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                    _CODE[dataflow], _DTYPE[a.dtype],
+                    _CODE[dataflow], _DTYPE[a.dtype], producer,
                     torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"gemm_dataflow kernel launch failed: "

@@ -119,6 +119,16 @@ def test_flash_wrapper_rejects_bad_input():
     q = torch.zeros(1, 4, 4, 16, device="meta")
     with pytest.raises(ValueError, match="device"):
         flash_attention(q, k.to("meta"), k.to("meta"))
+    q = torch.zeros(1, 4, 4, 16)
+    with pytest.raises(ValueError, match="q must be"):
+        flash_attention(q, k, k[:, :3])
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, torch.zeros(2, 4, 2, 16),
+                        torch.zeros(2, 4, 2, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, k, q_offset=torch.zeros(3, dtype=torch.int32))
 
 
 # ------------------------------------------------------------- paged
@@ -239,3 +249,21 @@ def test_plain_versions_are_the_cpu_path():
                        paged_attention_plain(q[:, :1], pages, pages, tbl,
                                              ln))
     assert (fops.launches, pops.launches) == before
+
+
+@pytest.mark.parametrize("start", [0, 8, 24, 56])
+def test_flash_chunk_rows_equal_whole_prefill_rows(start):
+    """Each row of an 8-row call at q_offset ``start`` over the first
+    start + 8 keys equals the same row of the whole prefill, bit for
+    bit: chunked == whole prefill at the function's level (chip_smoke.py
+    holds the CUDA kernel to the same at 32-row chunks of 512)."""
+    rng = np.random.default_rng(8)
+    B, S, H, KVH, Dh, C = 2, 64, 4, 2, 16, 8
+    q = torch.from_numpy(_rand(rng, (B, S, H, Dh))).bfloat16()
+    k = torch.from_numpy(_rand(rng, (B, S, KVH, Dh))).bfloat16()
+    v = torch.from_numpy(_rand(rng, (B, S, KVH, Dh))).bfloat16()
+    whole = flash_attention(q, k, v, q_offset=0)
+    off = torch.full((B,), start, dtype=torch.int32)
+    part = flash_attention(q[:, start:start + C], k[:, :start + C],
+                           v[:, :start + C], q_offset=off)
+    assert torch.equal(part, whole[:, start:start + C])

@@ -244,7 +244,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gd.matmul(a, torch.ones(7, 8))
     with pytest.raises(TypeError):
         gd.matmul(a, a.bfloat16())
+    with pytest.raises(ValueError, match="on"):
+        gd.matmul(a, torch.ones(8, 8, device="meta"))
     with pytest.raises(ValueError, match="mask shape"):
         bs.matmul(a, a, np.ones((2, 1), bool))
+    with pytest.raises(ValueError, match="do not chain"):
+        bs.matmul(a, torch.ones(7, 8), np.ones((1, 1), bool))
+    with pytest.raises(TypeError):
+        bs.matmul(a, a.bfloat16(), np.ones((1, 1), bool))
     with pytest.raises(ValueError, match="table must be"):
         lut.lut_activation(a, torch.zeros(10))
+
+
+# ------------------------------------------------ the bf16 pipeline
+@pytest.mark.parametrize("shapes,want", [
+    (((8192, 5120), (5120, 8192)), "TMA"),          # scout expert GEMM
+    (((16384, 5120), (5120, 8192)), "TMA"),         # scout at 2M
+    (((8192, 5120), (5120, 16384)), "TMA"),         # scout at 2N
+    (((1000, 5100), (5100, 999)), "CP_ASYNC"),      # ragged bf16
+    (((1000, 5120), (5120, 999)), "CP_ASYNC"),      # B rows 1,998 bytes
+    (((1000, 5100), (5100, 1000)), "CP_ASYNC"),     # A rows 10,200 bytes
+])
+def test_producer_follows_the_operands_strides(shapes, want):
+    """TMA needs 16-byte row strides; the shapes alone decide here
+    (meta tensors have address 0)."""
+    a, b = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+            for s in shapes)
+    assert gd_ops.producer_for(a, b) == getattr(gd_ops, want)
+
+
+def test_producer_follows_the_operands_alignment():
+    """An operand that starts off a 16-byte boundary takes cp.async
+    even when its row stride would allow TMA."""
+    base = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:64 * 64].view(64, 64)
+    assert aligned.data_ptr() % 16 == 0
+    assert gd_ops.producer_for(aligned, aligned) == gd_ops.TMA
+    for off in (1, 4):                              # 2 and 8 bytes off
+        shifted = base[off:off + 64 * 64].view(64, 64)
+        assert gd_ops.producer_for(shifted, aligned) == gd_ops.CP_ASYNC
+        assert gd_ops.producer_for(aligned, shifted) == gd_ops.CP_ASYNC
+    # f32 operands: 16-byte rows at four elements
+    f = torch.zeros(8, 4)
+    assert gd_ops.producer_for(f, f) == gd_ops.TMA
+
+
+def test_build_hash_covers_every_shared_header(tmp_path, monkeypatch):
+    """Both GEMMs include the pipeline header; editing it (or any
+    csrc/*.cuh) renames every library, so nothing stale is loaded."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build._CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    for name in ("gemm_dataflow.cu", "block_sparse.cu"):
+        assert '#include "wgmma_pipe.cuh"' in (csrc / name).read_text()
+    monkeypatch.setattr(build, "_CSRC", csrc)
+    before = {n: build._lib_path(n) for n in build.SOURCES}
+    hdr = csrc / "wgmma_pipe.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: build._lib_path(n) for n in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
