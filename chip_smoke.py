@@ -13,7 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                bound times, and the kernel's own bitwise properties
                (a row's bits depend on its own keys only; 32-row chunks
                of the 512-token prefill at offsets 0, 32, 224 and 480
-               give the whole prefill's bits).
+               give the whole prefill's bits; the contiguous decode
+               gives the paged decode's bits).  Paged attention also at
+               ~2,000-key contexts and at Dh 64 with two row groups,
+               with the key-split grid's block counts.
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -25,9 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                counters at 0 (the path); then each kernel is held
                against its plain version (the four dataflows bit-
                identical, dead columns exactly 0, the LUT bit-identical,
-               the bf16 pipeline's TMA and cp.async producers bit-
-               identical) and timed beside its plain version, a library
-               call and its bound.
+               its scalar tail and unaligned paths too, the bf16
+               pipeline's TMA and cp.async producers bit-identical) and
+               timed beside its plain version, a library call and its
+               bound; the LUT once more with every x equal (no gather
+               spread).
 4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
                kernels' launch counters prove the path ran through them.
@@ -216,12 +221,12 @@ def _ptxas_summary(log: str):
     return out
 
 
-def _paged_case(B, T, lengths, *, seed):
-    """Inputs of one paged-attention call at qwen3-0.6b shapes: a pool
-    the size the serve phase sizes (154 pages of 16), ragged lengths,
-    distinct random pages per row."""
+def _paged_case(B, T, lengths, *, seed, P=154, H=16, KVH=8, Dh=128):
+    """Inputs of one paged-attention call, by default at qwen3-0.6b
+    shapes: a pool of P pages of 16 (154: the size the serve phase
+    sizes), ragged lengths, distinct random pages per row."""
     import torch
-    H, KVH, Dh, ps, P = 16, 8, 128, 16, 154
+    ps = 16
     n = -(-(max(lengths) + T) // ps)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -247,6 +252,23 @@ def _paged_numbers(q, kp, vp, tables, lens):
     io_bytes = 2 * q.numel() * 2 + tables.numel() * 4 + lens.numel() * 4
     flops = sum(4 * T * H * Dh * k for k in keys)
     return kv_bytes + io_bytes, flops
+
+
+def _paged_blocks(q, kp, tables, lens, split):
+    """(blocks launched, blocks with keys to read) of the kernel's grid:
+    one block per (b, kv head, row group of <= 16 query rows, key split
+    of ``split`` keys anchored at position 0); a split past its row
+    group's last key does no work."""
+    B, T, H, _ = q.shape
+    ps, KVH = kp.shape[1], kp.shape[2]
+    G, cover = H // KVH, tables.shape[1] * ps
+    groups = -(-T * G // 16)
+    work = 0
+    for ln in lens.tolist():
+        for rg in range(groups):
+            last = min(T * G, 16 * (rg + 1)) - 1
+            work += KVH * -(-min(ln + last // G + 1, cover) // split)
+    return B * KVH * groups * -(-cover // split), work
 
 
 def _sdpa_paged(q, kp, vp, tables, lens):
@@ -323,6 +345,29 @@ def _paged_bitwise(kernel, q, kp, vp, tables, lens, got) -> bool:
     return ok and torch.equal(alone, got[1:2])
 
 
+def _contiguous_equals_paged(seed) -> bool:
+    """The contiguous decode (``components.decode_attention``: the cache
+    viewed as one page of S_max = 304 keys per row, not a multiple of
+    the key split) gives the bits of the paged decode over the same keys
+    in pages of 16, at qwen3-0.6b shapes."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models.components import decode_attention
+    B, H, KVH, Dh, ps, S, pos = 8, 16, 8, 128, 16, 304, 297
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(B, S, KVH, Dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, S, KVH, Dh, generator=g, device="cuda").bfloat16()
+    q = torch.randn(B, 1, H, Dh, generator=g, device="cuda").bfloat16()
+    null = torch.zeros(1, ps, KVH, Dh, dtype=k.dtype, device="cuda")
+    kp = torch.cat([null, k.reshape(B * S // ps, ps, KVH, Dh)])
+    vp = torch.cat([null, v.reshape(B * S // ps, ps, KVH, Dh)])
+    tables = (torch.arange(B * S // ps, dtype=torch.int32, device="cuda")
+              .reshape(B, S // ps) + 1)
+    lens = torch.full((B,), pos - 1, dtype=torch.int32, device="cuda")
+    return torch.equal(decode_attention(q, k, v, pos),
+                       paged_attention(q, kp, vp, tables, lens))
+
+
 def _flash_bitwise(kernel, q, k, v, off, got) -> bool:
     """Keys past every row's causal frontier (a longer buffer) change
     no bit, and a row alone == the row in the batch."""
@@ -357,6 +402,11 @@ def phase_kernels():
     from repro_torch.kernels import paged_attention as pa
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     results = {}
+    # what this way of timing reads for a kernel that does next to
+    # nothing: one 4-byte memset, timed as the kernels below are
+    emit({"phase": "kernels", "check": "timing_floor",
+          "memset_4_bytes_ms": time_ms(lambda: flush[:1].zero_(),
+                                       flush=flush)})
 
     def record(kernel, case, got, want, bitwise, t_k, t_p, t_l, n_bytes,
                flops, **shape):
@@ -376,21 +426,41 @@ def phase_kernels():
                  "its own keys")
         results.setdefault(kernel, []).append(rec)
 
-    # paged attention: decode (T=1) and verify (T=5 = spec_k + 1)
-    for T in (1, 5):
-        lengths = [255, 17, 283, 100, 31, 200, 64, 129]
-        args = _paged_case(8, T, lengths, seed=T)
+    # paged attention: decode (T=1) and verify (T=5 = spec_k + 1) at the
+    # serve phase's contexts, verify at ~2,000-key contexts (a pool of
+    # 1,040 pages of 16 and the null page), and Dh 64 with 4 query heads
+    # per kv head (T * G = 20 rows: two row groups)
+    short = [255, 17, 283, 100, 31, 200, 64, 129]
+    long_ = [2040, 1800, 1999, 1024, 2047, 1500, 1900, 1700]
+    for case, T, lengths, P, seed, shape in (
+            ("B8_T1", 1, short, 154, 1, {}),
+            ("B8_T5", 5, short, 154, 5, {}),
+            ("B8_T5_long", 5, long_, 1041, 6, {}),
+            ("B4_T5_G4_dh64", 5, [300, 5, 130, 64], 154, 7,
+             {"H": 16, "KVH": 4, "Dh": 64})):
+        args = _paged_case(len(lengths), T, lengths, seed=seed, P=P, **shape)
         got = pa.paged_attention(*args)
         want = pa.paged_attention_plain(*args)
         bitwise = _paged_bitwise(pa.paged_attention, *args, got)
         torch.cuda.synchronize()
         n_bytes, flops = _paged_numbers(*args)
-        record("paged_attention", f"B8_T{T}", got, want, bitwise,
+        grid, working = _paged_blocks(args[0], args[1], args[3], args[4],
+                                      pa.SPLIT)
+        record("paged_attention", case, got, want, bitwise,
                time_ms(lambda: pa.paged_attention(*args), flush=flush),
                time_ms(lambda: pa.paged_attention_plain(*args), iters=5,
                        flush=flush),
                time_ms(_sdpa_paged(*args), flush=flush),
-               n_bytes, flops, B=8, T=T, lengths=lengths)
+               n_bytes, flops, B=len(lengths), T=T, H=args[0].shape[2],
+               KVH=args[1].shape[2], Dh=args[0].shape[3], lengths=lengths,
+               pool_pages=P,
+               split=pa.SPLIT, grid_blocks=grid, working_blocks=working)
+    contiguous = _contiguous_equals_paged(seed=11)
+    emit({"phase": "kernels", "check": "contiguous_decode_equals_paged",
+          "B": 8, "S_max": 304, "page_size": 16, "equal": contiguous})
+    if not contiguous:
+        fail("paged_attention: the contiguous decode gives other bits than "
+             "the paged decode over the same keys")
 
     # flash attention: whole 512-token causal prefill, and one fused
     # chunk step (B 8 x C 32, per-row offsets, ragged gathered buffer)
@@ -638,18 +708,49 @@ def phase_paper():
         fail(f"block_sparse: density 1 == output-stationary bits "
              f"{dense_bits}, fully pruned == 0 {empty_zero}")
 
-    # LUT activation: bit-identical to the plain version
+    # LUT activation: bit-identical to the plain version.  The library
+    # yardstick is the table's function called on x; for bf16 x it
+    # would return bf16, not the kernel's f32, so there is none.
     for (case, name, x), got in zip(lut_cases, lut_out):
         table = lut.table_for(name, str(x.device))
         n = x.numel()
+        t_l, note = None, ("no single PyTorch call maps bf16 x to f32 "
+                           f"{name}(x)")
+        if x.dtype == torch.float32:
+            t_l = time_ms(lambda: lut.TABLES[name](x), flush=flush)
+            note = f"lut.TABLES['{name}'](x)"
         record("lut_activation", case, got, lut.lut_plain(x, table), 0.0,
                0.0, time_ms(lambda: lut.apply_lut(x, name), flush=flush),
                time_ms(lambda: lut.lut_plain(x, table), iters=5,
                        flush=flush),
-               time_ms(lambda: lut.TABLES[name](x), flush=flush),
-               n * x.element_size() + n * 4 + lut.LUT_ENTRIES * 4, 0,
+               t_l, n * x.element_size() + n * 4 + lut.LUT_ENTRIES * 4, 0,
                BF16_FLOPS_PER_S, table=name, shape=list(x.shape),
-               dtype=str(x.dtype)[6:])
+               dtype=str(x.dtype)[6:], library=note)
+    # the kernel's scalar paths, bit for bit: a tail of 7 values (n =
+    # 1001 * 999) and x at an address no multiple of 16 bytes (a view
+    # from element 1), in f32 and bf16
+    edges = {}
+    silu = lut.table_for("silu", "cuda")
+    x_edge = _lut_x(g, 1001, 999, 3.0)
+    for dt in (torch.float32, torch.bfloat16):
+        xe = x_edge.to(dt)
+        for label, xx in (("tail", xe), ("unaligned", xe.reshape(-1)[1:])):
+            edges[f"{label}_{str(dt)[6:]}"] = torch.equal(
+                lut.lut_activation(xx, silu), lut.lut_plain(xx, silu))
+    emit({"phase": "paper", "check": "lut_scalar_paths", **edges})
+    if not all(edges.values()):
+        fail(f"lut_activation: a scalar path differs from the plain version "
+             f"{edges}")
+    # what the table gathers cost: the same kernel on the same shapes
+    # with every x equal (one table entry), beside the silu cases
+    probe = {"phase": "paper", "check": "lut_gather_probe",
+             "shape": [M, N], "x": 0.5}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((M, N), 0.5, dtype=dt, device="cuda")
+        ms = time_ms(lambda: lut.apply_lut(x, "silu"), flush=flush)
+        probe[f"constant_index_{str(dt)[6:]}_ms"] = ms
+    del x
+    emit(probe)
     del flush
     emit({"phase": "paper", "seconds": time.perf_counter() - t_phase,
           "launches": launches,

@@ -53,7 +53,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int Q_TILE = 64;     // query rows per block (16 per warp)
 constexpr int KV_TILE = 64;    // keys per online-softmax step
@@ -64,13 +68,6 @@ template <int DH>
 constexpr size_t smem_bytes() {
     // q tile, then K and V tiles, double-buffered; all bf16
     return 2 * (size_t)(Q_TILE + 4 * KV_TILE) * DH;
-}
-
-// byte offset of 16-byte chunk c of row r in a tile of DH-wide rows:
-// chunks XOR-swizzled by the row's low three bits
-template <int DH>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-    return (uint32_t)(r * DH * 2 + ((c ^ (r & 7)) << 4));
 }
 
 // rows [r0, r0 + 64) of a (rows, stride-DH-apart) bf16 matrix whose row
@@ -84,40 +81,8 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
         const int r = idx / CH, c = idx % CH;
         const bool in = r0 + r < rows;
         const __nv_bfloat16* src = g + (in ? (size_t)(r0 + r) * ld : 0) + c * 8;
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                         dst + swz<DH>(r, c)),
-                     "l"(src), "r"(in ? 16 : 0)
-                     : "memory");
+        cp_async16(dst + swz<DH>(r, c), src, in ? 16 : 0);
     }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int DH>
@@ -158,7 +123,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
         load_rows<DH>(sk, kb, kv_ld, 0, Skv);
         load_rows<DH>(sv, vb, kv_ld, 0, Skv);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cp_async_commit();
 
     // this thread's rows: r0 = 16 warp + lane / 4 and r0 + 8
     const int rq = warp * 16 + (lane >> 2);
@@ -178,10 +143,10 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                           (t + 1) * KV_TILE, Skv);
             load_rows<DH>(sv + (buf ^ 1) * TILE, vb, kv_ld,
                           (t + 1) * KV_TILE, Skv);
-            asm volatile("cp.async.commit_group;\n" ::: "memory");
-            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+            cp_async_commit();
+            cp_async_wait<1>();
         } else {
-            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+            cp_async_wait<0>();
         }
         __syncthreads();
         if (t == 0) {

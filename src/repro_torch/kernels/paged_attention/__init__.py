@@ -1,1 +1,1 @@
-from .ops import paged_attention, paged_attention_plain  # noqa: F401
+from .ops import SPLIT, paged_attention, paged_attention_plain  # noqa: F401

@@ -26,59 +26,67 @@ import torch
 
 from ..build import load
 
-__all__ = ["paged_attention", "paged_attention_plain", "KV_TILE"]
+__all__ = ["paged_attention", "paged_attention_plain", "KV_TILE",
+           "SPLIT"]
 
 #: keys per online-softmax step, anchored at position 0 — the same
 #: partition as the kernel, independent of the page size
 KV_TILE = 64
+#: keys of one split (one block of the kernel), anchored at position 0:
+#: a row's result combines its splits' partials in ascending order
+SPLIT = 128
+ROWS = 16                  # query rows (t, g) per block: one m16 tile
 NEG_INF = -1e30
 
 #: kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
 
 _fn = None
+# (device index, stream) -> int32 zeros, one per (b, kv head, row
+# group); the kernel leaves them zero after each launch
+_counters = {}
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        f = load("paged_attention").repro_paged_attention_bf16
-        f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        lib = load("paged_attention")
+        lib.repro_paged_attention_split.restype = ctypes.c_int
+        built = lib.repro_paged_attention_split()
+        if built != SPLIT:
+            raise RuntimeError(f"paged_attention kernel splits keys by "
+                               f"{built}, the wrapper by {SPLIT}")
+        f = lib.repro_paged_attention_bf16
+        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _fn = f
     return _fn
 
 
-def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
-    """The kernel's function in plain PyTorch, with the kernel's tile
-    partition (KV_TILE keys anchored at position 0) and dtype contract
-    (f32 scores and accumulation, p rounded to the value dtype before
-    P.V).  Products are summed with ``(a * b).sum(-1)`` over a fixed
-    length rather than ``matmul``: on the CPU an f32 GEMM's summation
-    order depends on the number of rows, and the port's engine-vs-oracle
-    parity needs each row's bits to depend on that row alone."""
-    B, T, H, Dh = q.shape
-    _, ps, KVH, _ = k_pages.shape
-    G = H // KVH
-    n = page_tables.shape[1]
-    cover = n * ps
-    dev = q.device
-    scale = 1.0 / math.sqrt(Dh)
-    tables = page_tables.long()
-    limit = torch.clamp(lengths.long()[:, None]
-                        + torch.arange(T, device=dev)[None] + 1,
-                        max=cover)                              # (B, T)
-    row_limit = limit.repeat_interleave(G, dim=1)               # (B, T*G)
-    n_tiles = -(-int(limit.max()) // KV_TILE)
-    R = T * G
-    qh = (q.float().reshape(B, T, KVH, G, Dh).permute(0, 2, 1, 3, 4)
-          .reshape(B, KVH, R, Dh))                   # row r = t * G + g
+def _counter_buffer(device, stream: int, size: int):
+    buf = _counters.get((device.index, stream))
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = buf
+    return buf
+
+
+def _split_partials(qh, k_pages, v_pages, tables, row_limit, s, scale):
+    """Row max m, denominator l and unnormalised output acc of split s
+    (keys s * SPLIT ..), each row over its keys in the split: the
+    online softmax over the split's KV_TILE tiles, f32 scores, p rounded
+    to the value dtype before P.V.  A row with no key in the split gets
+    m = -1e30 and garbage l and acc, which the combine never reads."""
+    B, KVH, R, Dh = qh.shape
+    ps = k_pages.shape[1]
+    cover = tables.shape[1] * ps
+    dev = qh.device
     m = torch.full((B, KVH, R), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KVH, R), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KVH, R, Dh), dtype=torch.float32, device=dev)
-    for i in range(n_tiles):
-        j = i * KV_TILE + torch.arange(KV_TILE, device=dev)
+    for j0 in range(s * SPLIT, (s + 1) * SPLIT, KV_TILE):
+        j = j0 + torch.arange(KV_TILE, device=dev)
         in_cover = (j < cover)[None, :, None, None]
         jc = j.clamp(max=cover - 1)
         pid, slot = tables[:, jc // ps], jc % ps                # (B, KV_TILE)
@@ -86,18 +94,62 @@ def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
         v = torch.where(in_cover, v_pages[pid, slot].float(), 0.0)
         k = k.permute(0, 2, 1, 3)                       # (B, KVH, KV_TILE, Dh)
         v = v.permute(0, 2, 3, 1)                       # (B, KVH, Dh, KV_TILE)
-        s = (qh[:, :, :, None, :] * k[:, :, None]).sum(-1) * scale
+        sc = (qh[:, :, :, None, :] * k[:, :, None]).sum(-1) * scale
         valid = j[None, None, :] < row_limit[:, :, None]     # (B, R, KV_TILE)
-        s = torch.where(valid[:, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
+        sc = torch.where(valid[:, None], sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
         pb = p.to(v_pages.dtype).float()
         pv = (pb[:, :, :, None, :] * v[:, :, None]).sum(-1)     # (B,KVH,R,Dh)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return m, l, acc
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
+    """The kernel's function in plain PyTorch, with the kernel's
+    partition and dtype contract: keys in splits of SPLIT anchored at
+    position 0 (KV_TILE tiles within a split), f32 scores and
+    accumulation, p rounded to the value dtype before P.V; each split's
+    partials (m, l, acc) combined per row over exactly the splits that
+    hold at least one of the row's keys, in ascending split order:
+    O = sum w_s acc_s, L = sum w_s l_s, w_s = exp(m_s - max m), and
+    out = O / L.  Products are summed with ``(a * b).sum(-1)`` over a
+    fixed length rather than ``matmul``: on the CPU an f32 GEMM's
+    summation order depends on the number of rows, and the port's
+    engine-vs-oracle parity needs each row's bits to depend on that row
+    alone."""
+    B, T, H, Dh = q.shape
+    _, ps, KVH, _ = k_pages.shape
+    G = H // KVH
+    cover = page_tables.shape[1] * ps
+    dev = q.device
+    scale = 1.0 / math.sqrt(Dh)
+    tables = page_tables.long()
+    limit = torch.clamp(lengths.long()[:, None]
+                        + torch.arange(T, device=dev)[None] + 1,
+                        max=cover)                              # (B, T)
+    row_limit = limit.repeat_interleave(G, dim=1)               # (B, T*G)
+    R = T * G
+    qh = (q.float().reshape(B, T, KVH, G, Dh).permute(0, 2, 1, 3, 4)
+          .reshape(B, KVH, R, Dh))                   # row r = t * G + g
+    parts = [_split_partials(qh, k_pages, v_pages, tables, row_limit, s,
+                             scale)
+             for s in range(-(-int(limit.max()) // SPLIT))]
+    # split s holds a key of row r iff s * SPLIT < limit; split 0 always
+    holds = [(s * SPLIT < row_limit)[:, None] for s in range(len(parts))]
+    M = parts[0][0]
+    for (m, _, _), h in zip(parts[1:], holds[1:]):
+        M = torch.where(h, torch.maximum(M, m), M)
+    w = torch.exp(parts[0][0] - M)
+    L, O = w * parts[0][1], w[..., None] * parts[0][2]
+    for (m, l, acc), h in zip(parts[1:], holds[1:]):
+        w = torch.exp(m - M)
+        L = torch.where(h, L + w * l, L)
+        O = torch.where(h[..., None], O + w[..., None] * acc, O)
+    out = O / torch.clamp(L, min=1e-30)[..., None]
     out = out.reshape(B, KVH, T, G, Dh).permute(0, 2, 1, 3, 4)
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
@@ -150,13 +202,20 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths):
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    n = page_tables.shape[1]
+    groups = B * KVH * -(-T * (H // KVH) // ROWS)
+    # split partials: per block ROWS x Dh outputs, ROWS maxima and sums
+    ws = torch.empty(groups * -(-n * ps // SPLIT) * ROWS * (Dh + 2),
+                     dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counter_buffer(q.device, stream, groups)
+    fn = _kernel()
     global launches
     launches += 1
-    err = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                    page_tables.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), B, T, H, KVH, Dh, ps,
-                    page_tables.shape[1],
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), counters.data_ptr(), B, T, H, KVH, Dh, ps, n,
+             stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")

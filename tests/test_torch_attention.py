@@ -19,7 +19,7 @@ from repro.kernels.paged_attention.ref import (paged_attention_ref,
 from repro.models.components import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels.paged_attention import (SPLIT, paged_attention,
                                                  paged_attention_plain)
 from repro_torch.models.components import decode_attention
 
@@ -213,6 +213,75 @@ def test_contiguous_decode_equals_paged_decode_bitwise():
     vp = torch.cat([torch.zeros(1, ps, KVH, Dh, dtype=v.dtype),
                     v.reshape(B * 3, ps, KVH, Dh)])
     tables = (torch.arange(B * 3, dtype=torch.int32).reshape(B, 3) + 1)
+    want = decode_attention(q, k, v, pos)
+    got = paged_attention(q, kp, vp, tables,
+                          torch.full((B,), pos - 1, dtype=torch.int32))
+    assert torch.equal(got, want)
+
+
+def test_paged_verify_rows_across_a_split_boundary():
+    """Rows of a T = 5 call that straddle a key split (lengths SPLIT - 3
+    and 2 SPLIT - 1): the early rows of the first batch row hold no key
+    of split 1, which must not reach them (its max there is -1e30, so
+    exp(s - m) = 1).  Each row equals the one-token call at lengths + t
+    bit for bit, and the call is close to the JAX verify reference."""
+    rng = np.random.default_rng(9)
+    B, T, H, KVH, Dh, ps = 2, 5, 4, 2, 16, 16
+    lengths = [SPLIT - 3, 2 * SPLIT - 1]
+    n = -(-(max(lengths) + T) // ps)
+    q, kp, vp, ids, lens = _paged_inputs(rng, B, T, H, KVH, Dh, ps,
+                                         B * n + 1, n, lengths)
+    tq, jq = _pair(q, torch.bfloat16, jnp.bfloat16)
+    tk, jk = _pair(kp, torch.bfloat16, jnp.bfloat16)
+    tv, jv = _pair(vp, torch.bfloat16, jnp.bfloat16)
+    tids, tlens = torch.from_numpy(ids), torch.from_numpy(lens)
+    full = paged_attention(tq, tk, tv, tids, tlens)
+    for t in range(T):
+        one = paged_attention(tq[:, t:t + 1], tk, tv, tids, tlens + t)
+        assert torch.equal(one[:, 0], full[:, t]), t
+    want = paged_verify_attention_ref(jq, jk, jv, jnp.asarray(ids),
+                                      jnp.asarray(lens))
+    _close(full, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_single_key_row(dtype):
+    """A row of length 0 at T = 1 attends key 0 alone: its output is
+    that key's value (exactly, in f32), as the reference has it."""
+    tdt, jdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(10)
+    B, H, KVH, Dh, ps, P, n = 2, 4, 2, 16, 8, 8, 3
+    q, kp, vp, ids, lens = _paged_inputs(rng, B, 1, H, KVH, Dh, ps, P, n,
+                                         [0, 17])
+    tq, jq = _pair(q, tdt, jdt)
+    tk, jk = _pair(kp, tdt, jdt)
+    tv, jv = _pair(vp, tdt, jdt)
+    got = paged_attention(tq, tk, tv, torch.from_numpy(ids),
+                          torch.from_numpy(lens))
+    want = paged_verify_attention_ref(jq, jk, jv, jnp.asarray(ids),
+                                      jnp.asarray(lens))
+    _close(got, want, tol)
+    v0 = tv[int(ids[0, 0]), 0]                           # (KVH, Dh)
+    if dtype == "float32":
+        assert torch.equal(got[0, 0], v0.repeat_interleave(H // KVH, 0))
+
+
+def test_contiguous_decode_equals_paged_decode_across_splits():
+    """As the test above, at a cache length that is no multiple of the
+    key split (S_max SPLIT + 24, SPLIT + 12 keys attended: two splits,
+    the second partial), with pages of 4 on the paged side."""
+    rng = np.random.default_rng(11)
+    B, H, KVH, Dh, ps = 2, 4, 2, 16, 4
+    S, pos = SPLIT + 24, SPLIT + 12
+    k = torch.from_numpy(_rand(rng, (B, S, KVH, Dh))).bfloat16()
+    v = torch.from_numpy(_rand(rng, (B, S, KVH, Dh))).bfloat16()
+    q = torch.from_numpy(_rand(rng, (B, 1, H, Dh))).bfloat16()
+    per = S // ps
+    kp = torch.cat([torch.zeros(1, ps, KVH, Dh, dtype=k.dtype),
+                    k.reshape(B * per, ps, KVH, Dh)])
+    vp = torch.cat([torch.zeros(1, ps, KVH, Dh, dtype=v.dtype),
+                    v.reshape(B * per, ps, KVH, Dh)])
+    tables = torch.arange(B * per, dtype=torch.int32).reshape(B, per) + 1
     want = decode_attention(q, k, v, pos)
     got = paged_attention(q, kp, vp, tables,
                           torch.full((B,), pos - 1, dtype=torch.int32))
