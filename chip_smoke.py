@@ -40,9 +40,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                port's whole-sequence ``apply`` on the card.
 6. **profile** a shorter serve run under ``torch.profiler``: device
                time by kernel and the device's idle share.
+7. **fleet**   the serving fleet on the serve phase's model and program
+               bundle, one line per sub-run: (a) two replicas behind
+               the prefix-affinity router (beside one engine on the same
+               trace, and profiled), (b) replicas joining, draining and
+               crashing mid-trace on a synthetic step clock (migration
+               and journal recovery), (c) the streaming front-end over an
+               elastic fleet with two weighted tenants, (d) an engine
+               drafting with a second full-width model.  Each is held to
+               the parity phase's re-score, its event streams, the
+               allocator invariants, the dispatch identity and the
+               kernels' launch counts.
 
 Then a ``{"kernels": [...]}`` line (all five kernels, launches from the
-serve and paper paths), the card's name and power limit as
+serve, fleet and paper paths), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
 one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
@@ -81,6 +92,16 @@ ATOL = RTOL = 2e-2
 TAU = 0.05
 
 N_REQUESTS, PROMPT_LEN, GEN = 16, 256, 32
+# fleet phase: the router and churn sub-runs' requests (shared-prefix
+# groups of FLEET_PREFIX + FLEET_TAIL = PROMPT_LEN tokens), the churn
+# sub-run's script on the synthetic step clock (each hits live work:
+# requests arrive at steps 0-7 and need ~15 steps each), the stream
+# sub-run's requests, and the draft sub-run's shorter requests (the
+# draft model consumes every context one token at a time)
+FLEET_REQUESTS, FLEET_GROUPS, FLEET_PREFIX, FLEET_TAIL = 24, 4, 192, 64
+CHURN_JOIN_AT, CHURN_DRAIN_AT, CHURN_CRASH_AT = 4, 8, 10
+STREAM_REQUESTS = 16
+DRAFT_REQUESTS, DRAFT_PROMPT_LEN, DRAFT_GEN = 8, 16, 8
 # chunk starts of the kernel-level chunked == whole prefill check
 CHUNK_STARTS = (0, 32, 224, 480)
 
@@ -759,14 +780,26 @@ def phase_paper():
     return results, launches
 
 
+def _launches_reset() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    fa_ops.launches = 0
+    pa_ops.launches = 0
+
+
+def _launches_read() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    return {"flash_attention": fa_ops.launches,
+            "paged_attention": pa_ops.launches}
+
+
 def phase_serve():
     """qwen3-0.6b FULL, seeded random init, 16 requests through the
     engine with the ServeOptions defaults at batch 8.  Returns what the
     parity phase and the summary need."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch.serve import serve_trace, synth_requests
     from repro_torch.models.lm import DecoderLM
     from repro_torch.serve import ServeOptions, ServePrograms
@@ -789,11 +822,9 @@ def phase_serve():
     opts = opts.sized_for(reqs)
     engine = opts.build(model, params, programs=programs)
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.launches = 0
-    pa_ops.launches = 0
+    _launches_reset()
     stats = serve_trace(engine, reqs, realtime=True)
-    launches = {"flash_attention": fa_ops.launches,
-                "paged_attention": pa_ops.launches}
+    launches = _launches_read()
     L = cfg.n_layers
     want = {"flash_attention": L * stats["n_prefill_dispatches"],
             "paged_attention": L * (stats["n_decode_steps"]
@@ -833,40 +864,54 @@ def _leaves(tree):
         yield tree
 
 
-def phase_parity(model, params, done):
-    """Re-score every served token with one whole-sequence prefill of
-    prompt + generated[:-1]: each must be within TAU of the best f32
-    logit at its position.  Exact agreement with the greedy oracle is
-    reported, not required (cuBLAS may pick its algorithm by the number
-    of rows, so a row's bf16 bits in a batched decode and in a whole
-    prefill can differ, and random-init logits sit on knife-edges)."""
+def _rescore(model, params, reqs) -> dict:
+    """Re-score every served token of ``reqs`` (all of one prompt length
+    and one generation length) with one whole-sequence prefill of
+    prompt + generated[:-1]: each token must be within TAU of the best
+    f32 logit at its position.  Exact agreement with the greedy oracle
+    is reported, not required (cuBLAS may pick its algorithm by the
+    number of rows, so a row's bf16 bits in a batched decode and in a
+    whole prefill can differ, and random-init logits sit on
+    knife-edges)."""
     import torch
     from repro_torch.serve import greedy_generate
+    plen = {len(r.prompt) for r in reqs}
+    gen = {len(r.generated) for r in reqs}
+    if len(plen) != 1 or len(gen) != 1:
+        fail(f"rescore: requests of prompt lengths {sorted(plen)} and "
+             f"generated lengths {sorted(gen)}; one of each is needed")
+    plen, gen = plen.pop(), gen.pop()
     ctx = torch.tensor(np.stack([np.concatenate(
-        [r.prompt, np.asarray(r.generated[:-1], np.int32)]) for r in done]),
+        [r.prompt, np.asarray(r.generated[:-1], np.int32)]) for r in reqs]),
         device=model.device)
-    gen = torch.tensor([r.generated for r in done], device=model.device)
+    toks = torch.tensor([r.generated for r in reqs], device=model.device)
     with torch.no_grad():
-        logits = model.apply(params, ctx)[:, PROMPT_LEN - 1:]
-    chosen = logits.gather(-1, gen.long()[..., None])[..., 0]
-    gap = logits.max(-1).values - chosen             # (B, GEN) >= 0
-    argmax_match = float((logits.argmax(-1) == gen).float().mean())
-    oracle = greedy_generate(model, params, ctx[:, :PROMPT_LEN], GEN,
-                             cache_len=PROMPT_LEN + GEN)
-    same = (oracle == gen)
+        logits = model.apply(params, ctx)[:, plen - 1:]
+    chosen = logits.gather(-1, toks.long()[..., None])[..., 0]
+    gap = logits.max(-1).values - chosen             # (B, gen) >= 0
+    oracle = greedy_generate(model, params, ctx[:, :plen], gen,
+                             cache_len=plen + gen)
+    same = (oracle == toks)
     prefix = same.long().cumprod(1).sum(1)           # tokens before a split
-    emit({"phase": "parity", "tau": TAU, "max_gap": float(gap.max()),
-          "mean_gap": float(gap.mean()),
-          "logit_std": float(logits.std()),
-          "teacher_forced_argmax_match": argmax_match,
-          "oracle_token_match": float(same.float().mean()),
-          "oracle_exact_requests": int((prefix == GEN).sum()),
-          "oracle_prefix_mean": float(prefix.float().mean()),
-          "finite": torch_isfinite(logits)})
-    if not torch_isfinite(logits):
+    return {"tau": TAU, "max_gap": float(gap.max()),
+            "mean_gap": float(gap.mean()),
+            "logit_std": float(logits.std()),
+            "teacher_forced_argmax_match": float(
+                (logits.argmax(-1) == toks).float().mean()),
+            "oracle_token_match": float(same.float().mean()),
+            "oracle_exact_requests": int((prefix == gen).sum()),
+            "oracle_prefix_mean": float(prefix.float().mean()),
+            "finite": torch_isfinite(logits)}
+
+
+def phase_parity(model, params, done):
+    """Every token the serve phase served, re-scored (``_rescore``)."""
+    rec = _rescore(model, params, done)
+    emit({"phase": "parity", **rec})
+    if not rec["finite"]:
         fail("parity: non-finite logits")
-    if float(gap.max()) > TAU:
-        fail(f"parity: a served token is {float(gap.max())} below the "
+    if rec["max_gap"] > TAU:
+        fail(f"parity: a served token is {rec['max_gap']} below the "
              f"best logit (tau {TAU})")
 
 
@@ -881,32 +926,32 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def phase_profile(model, params, programs):
-    """Where the serve time goes: 8 requests of the same shape through
-    a fresh engine under torch.profiler; device time summed by kernel
-    and by group, against the run's host wall time."""
+def _profiled_run(backend, reqs) -> dict:
+    """Serve ``reqs`` on ``backend`` under torch.profiler: device time
+    summed by kernel and by group, against the run's host wall time
+    (``seconds``: the whole call, the profiler's own work included).
+    The device events are summed straight from the trace: the
+    profiler's per-operator tables (``key_averages``) give the same sums
+    but take tens of seconds for the ~145,000 kernels a fleet of two
+    launches for four requests."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import synth_requests
-    from repro_torch.serve import ServeOptions
-    reqs = synth_requests(model.cfg, 8, PROMPT_LEN, GEN, rate=50.0, seed=2)
-    engine = ServeOptions(batch=8).sized_for(reqs).build(
-        model, params, programs=programs)
     torch.cuda.synchronize()
+    t_call = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(reqs)
+        backend.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((e.key, us / 1e3, e.count))
+        k = by_name.setdefault(e.name(), [0.0, 0])
+        k[0] += e.duration_ns() / 1e6
+        k[1] += 1
+    kernels = [(name, ms, n) for name, (ms, n) in by_name.items()]
     busy_ms = sum(k[1] for k in kernels)
     groups = {}
     for name, ms, n in kernels:
@@ -914,15 +959,309 @@ def phase_profile(model, params, programs):
         g["ms"] += ms
         g["launches"] += n
     kernels.sort(key=lambda k: -k[1])
+    st = backend.stats()
+    return {"requests": len(reqs),
+            "dispatches": int(st["n_total_dispatches"]),
+            "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms
+            else None,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "by_group": groups,
+            "top": [[name[:90], ms, n] for name, ms, n in kernels[:12]],
+            "seconds": time.perf_counter() - t_call}
+
+
+def phase_profile(model, params, programs):
+    """Where the serve time goes: 8 requests of the same shape through
+    a fresh engine under torch.profiler."""
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.serve import ServeOptions
+    reqs = synth_requests(model.cfg, 8, PROMPT_LEN, GEN, rate=50.0, seed=2)
+    engine = ServeOptions(batch=8).sized_for(reqs).build(
+        model, params, programs=programs)
+    emit({"phase": "profile", **_profiled_run(engine, reqs)})
+
+
+# ------------------------------------------------------------ fleet
+def _grouped_requests(cfg, *, seed, integer_arrivals=False):
+    """FLEET_REQUESTS requests in FLEET_GROUPS shared-prefix groups
+    (prefix FLEET_PREFIX + tail FLEET_TAIL tokens, gen GEN), request i
+    in group i % FLEET_GROUPS: Poisson arrivals at 50 req/s, or integer
+    arrivals 0..7 (three a step) for the synthetic step clock."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, cfg.vocab_size, FLEET_PREFIX, dtype=np.int32)
+                for _ in range(FLEET_GROUPS)]
+    arrivals = np.cumsum(rng.exponential(1.0 / 50.0, size=FLEET_REQUESTS))
+    reqs = []
+    for i in range(FLEET_REQUESTS):
+        tail = rng.integers(0, cfg.vocab_size, FLEET_TAIL, dtype=np.int32)
+        reqs.append(Request(
+            rid=i, prompt=np.concatenate([prefixes[i % FLEET_GROUPS], tail]),
+            max_new_tokens=GEN,
+            arrival=(float(i * 8 // FLEET_REQUESTS) if integer_arrivals
+                     else float(arrivals[i]))))
+    return reqs
+
+
+def _fleet_drive(backend, reqs, *, synthetic=False, events=None):
+    """Submit ``reqs`` and step ``backend`` until it is idle, draining
+    its stream events after every step: on the wall clock (seconds since
+    the first step, so arrivals replay in real time) or on a synthetic
+    step clock (step t runs at now = t, after ``events[t]``).  Returns
+    (tokens streamed per rid, finish events per rid, wall seconds)."""
+    import torch
+    for r in reqs:
+        backend.submit(r)
+    streamed, finishes = {}, {}
+    t, t0 = 0, time.perf_counter()
+    while True:
+        for fn in (events or {}).get(t, ()):
+            fn(backend)
+        now = float(t) if synthetic else time.perf_counter() - t0
+        more = backend.step(now=now)
+        for ev in backend.drain_events():
+            streamed.setdefault(ev.rid, []).extend(ev.tokens)
+            finishes[ev.rid] = finishes.get(ev.rid, 0) + int(ev.finished)
+        t += 1
+        if not more:
+            break
+    torch.cuda.synchronize()
+    return streamed, finishes, time.perf_counter() - t0
+
+
+def _fleet_record(sub, model, params, backend, done, n_requests, wall,
+                  peak_gb, launches, t_start, *, streamed=None,
+                  finishes=None, gates=None, **extra):
+    """Emit one sub-run's line and hold it to the fleet gates: every
+    request finished with its budget, every token within TAU of the
+    re-score, each request's events concatenate to its stream (one
+    finish event each), allocator invariants on every live replica, the
+    fleet dispatch identity, and both attention kernels launched at
+    least once a layer for every dispatch that needs them (from the
+    fleet's folded counters); then the sub-run's own ``gates``."""
+    from repro_torch.launch.serve import fleet_of
+    st = backend.stats()
+    L = model.cfg.n_layers
+    want = {"flash_attention": L * int(st["n_prefill_dispatches"]),
+            "paged_attention": L * int(st["n_decode_steps"]
+                                       + st["n_replay_steps"])}
+    engines = fleet_of(backend)[1]
+    done = sorted(done, key=lambda r: r.rid)
+    toks = sum(len(r.generated) for r in done)
+    ttfts = [r.ttft for r in done if r.ttft is not None]
+    rescore = _rescore(model, params, done)
+    checks = {
+        "all_finished": len(done) == n_requests and all(
+            len(r.generated) == r.max_new_tokens for r in done),
+        "rescore_within_tau": rescore["finite"]
+        and rescore["max_gap"] <= TAU,
+        "dispatch_identity": st["n_total_dispatches"] == (
+            st["n_prefill_dispatches"] + st["n_decode_steps"]
+            + st["n_replay_steps"] - st["n_fused_dispatches"]),
+        **{f"{k}_launched": launches[k] >= want[k] and launches[k] > 0
+           for k in want}}
+    if streamed is not None:
+        checks["events_equal_streams"] = all(
+            streamed.get(r.rid, []) == list(r.generated)
+            and finishes.get(r.rid) == 1 for r in done)
+    try:
+        for e in engines:
+            e.cache.check_invariants()
+        checks["invariants"] = True
+    except AssertionError:
+        checks["invariants"] = False
+    checks.update(gates(st) if gates else {})
+    emit({"phase": "fleet", "sub_run": sub, "requests": len(done),
+          "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+          "ttft_mean_s": float(np.mean(ttfts)) if ttfts else None,
+          "peak_mem_gb": peak_gb,
+          "kv_pool_gb_per_replica": [2 * e.cache.k_pages.numel() * 2 / 1e9
+                                     for e in engines],
+          "counters": {k: (int(v) if float(v).is_integer() else v)
+                       for k, v in st.items()},
+          "launches": launches, "launches_expected": want,
+          "rescore": rescore, **extra, "gates": checks,
+          "seconds": time.perf_counter() - t_start,
+          "card": nvidia_smi_line()})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"fleet [{sub}]: gates failed: {bad}")
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _fleet_router(model, params, programs):
+    """(a) 2 replicas behind the prefix-affinity router, realtime; the
+    same trace through one engine (reported); and 4 of its requests (one
+    a group) through a fresh 2-replica fleet and through a fresh engine,
+    each under torch.profiler (as the profile phase)."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.serve import ServeOptions
+    reqs = _grouped_requests(model.cfg, seed=3)
+    opts = ServeOptions(batch=8, replicas=2,
+                        router_policy="prefix").sized_for(
+        reqs, shared_prefix=FLEET_PREFIX)
+    torch.cuda.reset_peak_memory_stats()
+    router = opts.build(model, params, programs=programs)
+    _launches_reset()
+    streamed, finishes, wall = _fleet_drive(router, reqs)
+    launches, peak = _launches_read(), _peak_gb()
+    one = _grouped_requests(model.cfg, seed=3)
+    one_opts = ServeOptions(batch=8).sized_for(one,
+                                               shared_prefix=FLEET_PREFIX)
+    _, _, one_wall = _fleet_drive(
+        one_opts.build(model, params, programs=programs), one)
+    mine = {r.rid: r.generated for r in router.finished}
+    equal = sum(a == b for r in one for a, b in zip(r.generated,
+                                                    mine[r.rid]))
+    one_ttft = [r.ttft for r in one if r.ttft is not None]
+    prof = {}
+    for name, o in (("fleet", opts), ("one_engine", one_opts)):
+        rec = _profiled_run(o.build(model, params, programs=programs),
+                            _grouped_requests(model.cfg, seed=3)[:4])
+        prof[name] = {k: v for k, v in rec.items() if k != "top"}
+    _fleet_record(
+        "router", model, params, router, router.finished, len(reqs), wall,
+        peak, launches, t0, streamed=streamed, finishes=finishes,
+        gates=lambda st: {"affinity_hits": st["n_affinity_hits"] > 0},
+        replicas=2, policy="prefix", batch=opts.batch,
+        n_pages=opts.n_pages, n_dispatched=list(router.n_dispatched),
+        one_engine={"tok_per_s": sum(len(r.generated) for r in one)
+                    / one_wall, "wall_s": one_wall,
+                    "ttft_mean_s": float(np.mean(one_ttft))},
+        tokens_equal_to_one_engine=equal / (len(one) * GEN),
+        profile=prof)
+    return launches
+
+
+def _fleet_churn(model, params, programs):
+    """(b) 2 replicas, replica 1 crashing at its own step CHURN_CRASH_AT,
+    a third joining at step CHURN_JOIN_AT and replica 0 drained at step
+    CHURN_DRAIN_AT, on the synthetic step clock."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.serve import (FaultInjector, RequestRouter,
+                                   ServeOptions, Telemetry)
+    reqs = _grouped_requests(model.cfg, seed=4, integer_arrivals=True)
+    opts = ServeOptions(batch=8, telemetry=Telemetry()).sized_for(
+        reqs, shared_prefix=FLEET_PREFIX)
+    torch.cuda.reset_peak_memory_stats()
+
+    def mk():
+        return opts.build(model, params, programs=programs)
+
+    router = RequestRouter([mk(), FaultInjector(mk(),
+                                                crash_at=CHURN_CRASH_AT)],
+                           policy="prefix", telemetry=opts.telemetry)
+    seen = {}
+
+    def join(r):
+        seen["join"] = {"t": CHURN_JOIN_AT, "fleet_inflight": r.n_inflight,
+                        "replica_id": r.add_replica(mk())}
+
+    def drain(r):
+        seen["drain"] = {"t": CHURN_DRAIN_AT,
+                         "replica_0_inflight": r.replicas[0].n_inflight}
+        r.drain(0)
+
+    _launches_reset()
+    streamed, finishes, wall = _fleet_drive(
+        router, reqs, synthetic=True,
+        events={CHURN_JOIN_AT: [join], CHURN_DRAIN_AT: [drain]})
+    launches, peak = _launches_read(), _peak_gb()
+    _fleet_record(
+        "churn_crash", model, params, router, router.finished, len(reqs),
+        wall, peak, launches, t0, streamed=streamed, finishes=finishes,
+        gates=lambda st: {
+            "joined": st["n_joined"] >= 1,
+            "migrated": st["n_migrations"] >= 1,
+            "one_failure": st["n_failures"] == 1,
+            "recovered": st["n_recovered_requests"] >= 1,
+            "replay_covers_recovery": st["n_replay_steps"]
+            >= st["n_recovery_replayed_tokens"]},
+        crash_at_replica_step=CHURN_CRASH_AT, events=seen,
+        n_dispatched_live=list(router.n_dispatched),
+        note="TTFT in synthetic steps")
+    return launches
+
+
+def _fleet_stream(model, params, programs):
+    """(c) the streaming front-end over an elastic fleet of 1..2
+    replicas, two weighted tenants, every 4th request interactive."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.launch.serve import run_stream, synth_requests
+    from repro_torch.serve import ServeOptions
+    reqs = synth_requests(model.cfg, STREAM_REQUESTS, PROMPT_LEN, GEN,
+                          rate=50.0, seed=5)
+    opts = ServeOptions(batch=8, max_replicas=2, stream=True,
+                        tenant_weights={"gold": 3, "free": 1}).sized_for(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    _launches_reset()
+    out = run_stream(opts, model, params, reqs, programs=programs)
+    launches, peak = _launches_read(), _peak_gb()
+    fe = out["frontend"]
+    streams_ok = all(list(s) == list(s.req.generated)
+                     for s in out["streams"].values())
+    _fleet_record(
+        "stream", model, params, fe.backend, fe.completed, len(reqs),
+        out["wall_s"], peak, launches, t0,
+        gates=lambda st: {"token_streams_equal_generated": streams_ok
+                          and len(out["streams"]) == len(reqs)},
+        ttft_by_class=out["ttft_by_class"],
+        tenant_tokens=out["tenant_tokens"],
+        n_slo_preemptions=out["n_slo_preemptions"])
+    return launches
+
+
+def _fleet_draft(model, params, programs):
+    """(d) one engine drafting with a second full-width qwen3-0.6b
+    (seed 1) through ``--draft-config``, on shorter requests: the draft
+    model consumes each context one token at a time."""
+    t0 = time.perf_counter()
+    import torch
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.serve import ServeOptions
+    reqs = synth_requests(model.cfg, DRAFT_REQUESTS, DRAFT_PROMPT_LEN,
+                          DRAFT_GEN, rate=50.0, seed=6)
+    opts = ServeOptions(batch=8, spec_k=4,
+                        draft_config="qwen3-0.6b").sized_for(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    engine = opts.build(model, params, programs=programs)
+    _launches_reset()
+    streamed, finishes, wall = _fleet_drive(engine, reqs)
+    launches, peak = _launches_read(), _peak_gb()
     st = engine.stats()
-    emit({"phase": "profile", "requests": len(reqs),
-          "dispatches": int(st["n_total_dispatches"]),
-          "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-          "device_idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms
-          else None,
-          "kernel_launches": sum(k[2] for k in kernels),
-          "by_group": groups,
-          "top": [[name[:90], ms, n] for name, ms, n in kernels[:12]]})
+    _fleet_record(
+        "draft", model, params, engine, engine.finished, len(reqs), wall,
+        peak, launches, t0, streamed=streamed, finishes=finishes,
+        gates=lambda st: {"drafted": st["n_drafted"] > 0,
+                          "no_drafter_state_left":
+                          engine.drafter._slots == {}},
+        draft=type(engine.drafter).__name__, draft_seed=1,
+        prompt_len=DRAFT_PROMPT_LEN, gen=DRAFT_GEN,
+        accept_rate=float(st["accept_rate"]))
+    return launches
+
+
+def phase_fleet(model, params, programs):
+    """The serving fleet on one card, on the serve phase's model, params
+    and program bundle: (a) router, (b) churn and crash, (c) stream,
+    (d) draft model.  Returns the attention kernels' launches summed
+    over the sub-runs' measured drives."""
+    total = {"flash_attention": 0, "paged_attention": 0}
+    t0 = time.perf_counter()
+    for sub in (_fleet_router, _fleet_churn, _fleet_stream, _fleet_draft):
+        for k, n in sub(model, params, programs).items():
+            total[k] += n
+    emit({"phase": "fleet", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    return total
 
 
 def summary_line(kernel_results, launches):
@@ -959,7 +1298,7 @@ def summary_line(kernel_results, launches):
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile")) -> int:
+                 "profile", "fleet")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -996,6 +1335,9 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
             phase_parity(model, params, done)
         if "profile" in phases:
             phase_profile(model, params, programs)
+        if "fleet" in phases:
+            for k, n in phase_fleet(model, params, programs).items():
+                launches[k] += n
     if results:
         summary_line(results, launches)
     print(nvidia_smi_line(), flush=True)

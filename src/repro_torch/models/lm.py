@@ -12,6 +12,7 @@ Entry points:
 
 * ``apply``         logits over a whole sequence (whole-prompt prefill).
 * ``prefill``       last-token logits + a contiguous decode cache.
+* ``init_cache``    an empty contiguous cache (the draft model's).
 * ``decode_step``   one token against the contiguous cache.
 * ``prefill_chunk_paged`` / ``decode_step_paged`` / ``verify_step_paged``
   / ``fused_step_paged``  the serve engine's programs over the paged
@@ -160,6 +161,17 @@ class DecoderLM:
                 cache[n] = torch.cat(
                     [c, c.new_zeros(c.shape[:2] + (pad,) + c.shape[3:])], 2)
         return logits[:, -1], cache
+
+    def init_cache(self, batch: int, seq_len: int) -> dict:
+        """An empty contiguous decode cache of capacity ``seq_len``:
+        ``{"k", "v": (L, batch, seq_len, KVH, Dh) bf16, "pos": 0}`` (the
+        reference's cache layout and dtype)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        def zeros():
+            return torch.zeros(shape, dtype=torch.bfloat16,
+                               device=self.device)
+        return {"k": zeros(), "v": zeros(), "pos": 0}
 
     def decode_step(self, params, cache, tokens):
         """One lockstep decode step: tokens (B, 1) at position

@@ -37,9 +37,18 @@ parallel, made identical on purpose:
   backend's internal queue stays empty except for its own
   page-pressure preemptions).
 
-The port serves with one engine; the router, front-end and fault
-layers that also implement this protocol in the reference are not
-ported yet.
+**Failure semantics.**  A backend that has *died* raises
+``repro_torch.serve.faults.ReplicaFailure`` from every call that needs
+the process — ``step``, ``submit``, ``extract``, ``cancel``,
+``drain_events`` — while ``stats()`` (externally scraped counters)
+stays readable.  Layers composing backends must treat ReplicaFailure
+as "this replica is gone", not as a request error: the router marks
+the replica FAILED and rebuilds its requests from the recovery
+journal (serve/recovery.py).  Two optional surfaces ride the protocol:
+``degraded`` (bool — lost capacity not yet rebuilt; front-ends shed
+batch-class admissions while it is True) and ``mark_dead()`` (point of
+no return for a wrapper that can simulate death).  Absent attributes
+mean healthy/no-op.
 """
 from __future__ import annotations
 

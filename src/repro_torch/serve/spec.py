@@ -23,7 +23,8 @@ Invariants the engine relies on:
 * **Drafters never touch the paged cache.**  All page writes, COW
   forks, and rollback happen in the verify path under
   serve/kv_cache.py's discipline; a drafter only reads host-side token
-  lists.  (The reference's draft-model drafter is not ported yet.)
+  lists (and, for the draft-model flavor, its own private contiguous
+  cache).
 * **Accepted == what greedy decode would have produced.**  Acceptance
   compares the draft against the verifier's argmax at the same
   position over bit-identical context (the paged kernel computes
@@ -40,7 +41,11 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Dict, List
 
-__all__ = ["PromptLookupDrafter"]
+import torch
+
+from .step import ServePrograms, make_decode_step
+
+__all__ = ["PromptLookupDrafter", "DraftModelDrafter"]
 
 
 class PromptLookupDrafter:
@@ -148,4 +153,79 @@ class PromptLookupDrafter:
     def detach(self, slot: int) -> None:
         # the slot's cursor dies with it; its indexed n-grams live on
         # as draft sources for future requests
+        self._slots.pop(slot, None)
+
+
+class DraftModelDrafter:
+    """Draft with a second ``DecoderLM`` (``--draft-config``): each
+    DECODING slot keeps a private single-row contiguous cache for the
+    draft model, fed through the plain lockstep ``decode_step`` program
+    (``serve/step.py``'s ``make_decode_step``, whose attention is the
+    paged kernel over the cache viewed as one page).  The context is
+    streamed token by token, so there is no prefill program per prompt
+    length.
+
+    Rollback is a position reset: after a verify round rejects the tail
+    of a draft, the slot's draft cache simply rewinds ``pos`` to the
+    last *confirmed* context token it had consumed — entries past
+    ``pos`` are masked by decode attention and get overwritten in place
+    when the true continuation is fed.  The draft cache never needs
+    page bookkeeping, COW, or replay: it is advisory state, rebuilt
+    from the token list after any preemption.
+    """
+
+    def __init__(self, model, params, *, cfg_target=None,
+                 headroom: int = 8):
+        if cfg_target is not None and \
+                model.cfg.vocab_size != cfg_target.vocab_size:
+            raise ValueError(
+                f"draft vocab {model.cfg.vocab_size} != target vocab "
+                f"{cfg_target.vocab_size}: draft tokens would be "
+                "meaningless to the verifier")
+        self.model = model
+        # the projection weights in the compute dtype once (a no-op on
+        # weights that already are); exact, so the drafts are the same
+        self.params = ServePrograms(model).prepare_params(params)
+        self._decode = make_decode_step(model)
+        self.headroom = headroom
+        self._slots: Dict[int, dict] = {}   # slot -> {cache, n_fed, cap}
+
+    def _state_for(self, slot: int, req) -> dict:
+        st = self._slots.get(slot)
+        if st is None:
+            cap = len(req.prompt) + req.max_new_tokens + self.headroom
+            st = {"cache": self.model.init_cache(1, cap),
+                  "n_fed": 0, "cap": cap}
+            self._slots[slot] = st
+        return st
+
+    def _token(self, t: int) -> torch.Tensor:
+        return torch.tensor([[t]], dtype=torch.int32,
+                            device=self.model.device)
+
+    def propose(self, slot: int, req, k: int) -> List[int]:
+        if k <= 0:
+            return []
+        st = self._state_for(slot, req)
+        ctx = [int(t) for t in req.prompt] + list(req.generated)
+        # rewind past any rejected draft tokens from the last round:
+        # the cache's pos falls back to the confirmed-context frontier
+        # and the pending true tokens overwrite the stale entries
+        cache = st["cache"]
+        cache["pos"] = st["n_fed"]
+        tok = None
+        for t in ctx[st["n_fed"]:]:
+            tok, cache = self._decode(self.params, cache, self._token(t))
+        st["n_fed"] = len(ctx)
+        if tok is None:                      # nothing new to consume
+            return []
+        drafts: List[int] = []
+        budget = st["cap"] - len(ctx) - 1    # cache slots left to write
+        for _ in range(min(k, max(budget, 0))):
+            drafts.append(int(tok[0, 0]))
+            if len(drafts) < k:
+                tok, cache = self._decode(self.params, cache, tok)
+        return drafts
+
+    def detach(self, slot: int) -> None:
         self._slots.pop(slot, None)
