@@ -16,7 +16,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                give the whole prefill's bits; the contiguous decode
                gives the paged decode's bits).  Paged attention also at
                ~2,000-key contexts and at Dh 64 with two row groups,
-               with the key-split grid's block counts.
+               with the key-split grid's block counts.  Then both
+               kernels at the attention shapes of the other served
+               architectures (``ATTN_SHAPES``: G 7 and G 1 at Dh 64, G 5
+               and G 8 at Dh 128): paged at B 8 with T 1 and T 5, flash
+               on a 512-token prefill, with the same properties.
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -35,7 +39,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                spread).
 4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
-               kernels' launch counters prove the path ran through them.
+               kernels' launch counters prove the path ran through them;
+               then the engine's bitwise invariants at the model level,
+               gated (``_bitwise_invariants``: chunked == whole prefill,
+               verify at T = 1 == decode, fused == unfused) on 8 prompts
+               of mixed lengths.
 5. **parity**  every served token is re-scored teacher-forced by the
                port's whole-sequence ``apply`` on the card.
 6. **profile** a shorter serve run under ``torch.profiler``: device
@@ -51,9 +59,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the parity phase's re-score, its event streams, the
                allocator invariants, the dispatch identity and the
                kernels' launch counts.
+8. **archs**   the other architectures the port serves, one line each,
+               after the qwen3 model and fleet are freed: qwen2-0.5b and
+               stablelm-1.6b at full size, llama4-scout at full widths
+               cut to 4 of its 48 layers at capacity factor 16 (C = T),
+               each with seeded random weights through the serve phase's
+               trace, the parity phase's re-score, the launch gates and
+               the bitwise invariants, and whether a projection's row
+               bits depend on the rows of its call; for scout also
+               whether layer 0's routed experts on the first chunk equal
+               an f32 recomputation of its router.
 
 Then a ``{"kernels": [...]}`` line (all five kernels, launches from the
-serve, fleet and paper paths), the card's name and power limit as
+serve, fleet, archs and paper paths), the card's name and power limit as
 ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
 one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
@@ -63,6 +81,7 @@ the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -104,6 +123,20 @@ STREAM_REQUESTS = 16
 DRAFT_REQUESTS, DRAFT_PROMPT_LEN, DRAFT_GEN = 8, 16, 8
 # chunk starts of the kernel-level chunked == whole prefill check
 CHUNK_STARTS = (0, 32, 224, 480)
+# attention shapes (H, KVH, Dh) of the other served architectures
+ATTN_SHAPES = {"qwen2_G7_dh64": (14, 2, 64), "stablelm_G1_dh64": (32, 32, 64),
+               "scout_G5_dh128": (40, 8, 128),
+               "qwen15_G8_dh128": (64, 8, 128)}
+# archs phase: the architectures served on the card, and llama4-scout's
+# cuts (depth to fit one card; capacity factor n_experts / top_k, so C =
+# T and no token is dropped: a served token can then be re-scored by a
+# whole prefill, whose dispatch shares no rows with the engine's)
+ARCHS_ON_CARD = ("qwen2-0.5b", "stablelm-1.6b", "llama4-scout-17b-a16e")
+SCOUT_LAYERS, SCOUT_CAPACITY = 4, 16.0
+# the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
+# chunks of the serve phase's chunk size, pages of 16
+BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
+BITWISE_CHUNK = 32
 
 # paper phase.  llama4-scout's expert up-projection (tokens x d_model @
 # d_model x d_ff), the GEMM of benchmarks/kernel_dataflow.py
@@ -366,15 +399,15 @@ def _paged_bitwise(kernel, q, kp, vp, tables, lens, got) -> bool:
     return ok and torch.equal(alone, got[1:2])
 
 
-def _contiguous_equals_paged(seed) -> bool:
+def _contiguous_equals_paged(seed, H=16, KVH=8, Dh=128) -> bool:
     """The contiguous decode (``components.decode_attention``: the cache
     viewed as one page of S_max = 304 keys per row, not a multiple of
     the key split) gives the bits of the paged decode over the same keys
-    in pages of 16, at qwen3-0.6b shapes."""
+    in pages of 16, by default at qwen3-0.6b shapes."""
     import torch
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.models.components import decode_attention
-    B, H, KVH, Dh, ps, S, pos = 8, 16, 8, 128, 16, 304, 297
+    B, ps, S, pos = 8, 16, 304, 297
     g = torch.Generator(device="cuda").manual_seed(seed)
     k = torch.randn(B, S, KVH, Dh, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, S, KVH, Dh, generator=g, device="cuda").bfloat16()
@@ -447,18 +480,7 @@ def phase_kernels():
                  "its own keys")
         results.setdefault(kernel, []).append(rec)
 
-    # paged attention: decode (T=1) and verify (T=5 = spec_k + 1) at the
-    # serve phase's contexts, verify at ~2,000-key contexts (a pool of
-    # 1,040 pages of 16 and the null page), and Dh 64 with 4 query heads
-    # per kv head (T * G = 20 rows: two row groups)
-    short = [255, 17, 283, 100, 31, 200, 64, 129]
-    long_ = [2040, 1800, 1999, 1024, 2047, 1500, 1900, 1700]
-    for case, T, lengths, P, seed, shape in (
-            ("B8_T1", 1, short, 154, 1, {}),
-            ("B8_T5", 5, short, 154, 5, {}),
-            ("B8_T5_long", 5, long_, 1041, 6, {}),
-            ("B4_T5_G4_dh64", 5, [300, 5, 130, 64], 154, 7,
-             {"H": 16, "KVH": 4, "Dh": 64})):
+    def paged(case, T, lengths, P, seed, shape):
         args = _paged_case(len(lengths), T, lengths, seed=seed, P=P, **shape)
         got = pa.paged_attention(*args)
         want = pa.paged_attention_plain(*args)
@@ -476,31 +498,17 @@ def phase_kernels():
                KVH=args[1].shape[2], Dh=args[0].shape[3], lengths=lengths,
                pool_pages=P,
                split=pa.SPLIT, grid_blocks=grid, working_blocks=working)
-    contiguous = _contiguous_equals_paged(seed=11)
-    emit({"phase": "kernels", "check": "contiguous_decode_equals_paged",
-          "B": 8, "S_max": 304, "page_size": 16, "equal": contiguous})
-    if not contiguous:
-        fail("paged_attention: the contiguous decode gives other bits than "
-             "the paged decode over the same keys")
 
-    # flash attention: whole 512-token causal prefill, and one fused
-    # chunk step (B 8 x C 32, per-row offsets, ragged gathered buffer)
-    g = torch.Generator(device="cuda").manual_seed(7)
-    H, KVH, Dh = 16, 8, 128
-    cases = []
-    q = torch.randn(2, 512, H, Dh, generator=g, device="cuda").bfloat16()
-    k = torch.randn(2, 512, KVH, Dh, generator=g, device="cuda").bfloat16()
-    v = torch.randn(2, 512, KVH, Dh, generator=g, device="cuda").bfloat16()
-    off = torch.zeros(2, dtype=torch.int32, device="cuda")
-    cases.append(("prefill_B2_S512", q, k, v, off))
-    starts = [0, 32, 64, 96, 128, 160, 192, 224]
-    skv = 16 * 16 + 32                       # bucket 16 pages + chunk
-    q = torch.randn(8, 32, H, Dh, generator=g, device="cuda").bfloat16()
-    k = torch.randn(8, skv, KVH, Dh, generator=g, device="cuda").bfloat16()
-    v = torch.randn(8, skv, KVH, Dh, generator=g, device="cuda").bfloat16()
-    off = torch.tensor(starts, dtype=torch.int32, device="cuda")
-    cases.append(("chunk_B8_C32", q, k, v, off))
-    for case, q, k, v, off in cases:
+    def contiguous(label, seed, **shape):
+        same = _contiguous_equals_paged(seed, **shape)
+        emit({"phase": "kernels", "check": "contiguous_decode_equals_paged",
+              "shape": label, "B": 8, "S_max": 304, "page_size": 16,
+              **shape, "equal": same})
+        if not same:
+            fail(f"paged_attention [{label}]: the contiguous decode gives "
+                 "other bits than the paged decode over the same keys")
+
+    def flash(case, q, k, v, off):
         got = fa.flash_attention(q, k, v, q_offset=off, causal=True)
         want = fa.flash_attention_plain(q, k, v, q_offset=off, causal=True)
         bitwise = _flash_bitwise(fa.flash_attention, q, k, v, off, got)
@@ -521,8 +529,52 @@ def phase_kernels():
                    flush=flush),
                time_ms(_sdpa_flash(q, k, v, off, True), flush=flush),
                n_bytes, flops, B=q.shape[0], Sq=q.shape[1],
-               Skv=k.shape[1], q_offset=off.tolist(),
-               chunked_equals_whole=chunked)
+               Skv=k.shape[1], H=q.shape[2], KVH=k.shape[2], Dh=q.shape[3],
+               q_offset=off.tolist(), chunked_equals_whole=chunked)
+
+    def prefill_qkv(g, H, KVH, Dh):
+        q = torch.randn(2, 512, H, Dh, generator=g, device="cuda").bfloat16()
+        k = torch.randn(2, 512, KVH, Dh, generator=g, device="cuda").bfloat16()
+        v = torch.randn(2, 512, KVH, Dh, generator=g, device="cuda").bfloat16()
+        return q, k, v, torch.zeros(2, dtype=torch.int32, device="cuda")
+
+    # paged attention: decode (T=1) and verify (T=5 = spec_k + 1) at the
+    # serve phase's contexts, verify at ~2,000-key contexts (a pool of
+    # 1,040 pages of 16 and the null page), and Dh 64 with 4 query heads
+    # per kv head (T * G = 20 rows: two row groups)
+    short = [255, 17, 283, 100, 31, 200, 64, 129]
+    long_ = [2040, 1800, 1999, 1024, 2047, 1500, 1900, 1700]
+    for case, T, lengths, P, seed, shape in (
+            ("B8_T1", 1, short, 154, 1, {}),
+            ("B8_T5", 5, short, 154, 5, {}),
+            ("B8_T5_long", 5, long_, 1041, 6, {}),
+            ("B4_T5_G4_dh64", 5, [300, 5, 130, 64], 154, 7,
+             {"H": 16, "KVH": 4, "Dh": 64})):
+        paged(case, T, lengths, P, seed, shape)
+    contiguous("qwen3_G2_dh128", 11)
+
+    # flash attention: whole 512-token causal prefill, and one fused
+    # chunk step (B 8 x C 32, per-row offsets, ragged gathered buffer)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H, KVH, Dh = 16, 8, 128
+    flash("prefill_B2_S512", *prefill_qkv(g, H, KVH, Dh))
+    starts = [0, 32, 64, 96, 128, 160, 192, 224]
+    skv = 16 * 16 + 32                       # bucket 16 pages + chunk
+    q = torch.randn(8, 32, H, Dh, generator=g, device="cuda").bfloat16()
+    k = torch.randn(8, skv, KVH, Dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(8, skv, KVH, Dh, generator=g, device="cuda").bfloat16()
+    off = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    flash("chunk_B8_C32", q, k, v, off)
+
+    # the other served architectures' attention shapes: G = H / KVH of 7
+    # and 5 puts two tokens' rows into one 16-row group of the paged
+    # kernel; G 1 with 32 KV heads gives 256 row groups of one live row
+    for i, (label, (H, KVH, Dh)) in enumerate(ATTN_SHAPES.items()):
+        shape = {"H": H, "KVH": KVH, "Dh": Dh}
+        for T in (1, 5):
+            paged(f"B8_T{T}_{label}", T, short, 154, 30 + 2 * i + T, shape)
+        contiguous(label, 40 + i, **shape)
+        flash(f"prefill_B2_S512_{label}", *prefill_qkv(g, H, KVH, Dh))
     del flush
     return results
 
@@ -825,10 +877,13 @@ def phase_serve():
     _launches_reset()
     stats = serve_trace(engine, reqs, realtime=True)
     launches = _launches_read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     L = cfg.n_layers
     want = {"flash_attention": L * stats["n_prefill_dispatches"],
             "paged_attention": L * (stats["n_decode_steps"]
                                     + stats["n_replay_steps"])}
+    bitwise = _bitwise_invariants(model, params, seed=8)
+    row_bits = _row_bits(programs.prepare_params(params), cfg)
     emit({"phase": "serve", "arch": cfg.name, "n_params": n_params,
           "init_s": init_s, "requests": stats["requests"],
           "prompt_len": PROMPT_LEN, "gen": GEN, "batch": opts.batch,
@@ -839,10 +894,11 @@ def phase_serve():
           "tokens": stats["tokens"], "wall_s": stats["wall_s"],
           "tok_per_s": stats["tok_per_s"],
           "ttft_mean_s": stats["ttft_mean_s"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_mem_gb": peak_gb,
           "counters": {k: v for k, v in stats.items()
                        if k.startswith("n_") or k == "accept_rate"},
           "launches": launches, "launches_expected": want,
+          "bitwise": bitwise, "row_bits": row_bits,
           "card": nvidia_smi_line()})
     done = sorted(engine.finished, key=lambda r: r.rid)
     if len(done) != N_REQUESTS or any(len(r.generated) != GEN
@@ -853,7 +909,104 @@ def phase_serve():
         if n < want[name] or n == 0:
             fail(f"serve: {name} launched {n} times, the path's "
                  f"dispatches need {want[name]}")
+    if not _bitwise_held(bitwise):
+        fail(f"serve: a model-level bitwise invariant failed: {bitwise}")
     return model, params, programs, done, launches
+
+
+def _bitwise_invariants(model, params, *, seed) -> dict:
+    """The engine's bitwise invariants at the model level, on full-width
+    logits (``torch.equal``), for 8 prompts of BITWISE_LENS tokens:
+
+    * chunked == whole: each prompt fed as BITWISE_CHUNK-token
+      ``prefill_chunk_paged`` chunks gives the last-token logits (and
+      the K/V pages) of the same prompts as one chunk;
+    * verify at T = 1 == decode: ``verify_step_paged`` of each row's
+      next token == ``decode_step_paged`` of it, from the same pages;
+    * fused == unfused: ``fused_step_paged`` of those 8 rows verifying 5
+      tokens each and 8 new prompts ingesting a first chunk gives the
+      logits and pages of ``prefill_chunk_paged`` then
+      ``verify_step_paged`` run alone.
+
+    Returns each invariant's verdict and, where it fails, the largest
+    logit difference."""
+    import torch
+    cfg, dev = model.cfg, model.device
+    B, C, ps = len(BITWISE_LENS), BITWISE_CHUNK, 16
+    S = max(BITWISE_LENS)
+    rng = np.random.default_rng(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (2 * B, S)), **i32)
+    lens = torch.tensor(BITWISE_LENS, **i32)
+    per_row = -(-(S + 8) // ps)
+    tables = torch.arange(2 * B * per_row, **i32).reshape(2 * B, per_row) + 1
+    shape = (cfg.n_layers, 1 + 2 * B * per_row, ps, cfg.n_kv_heads,
+             cfg.head_dim)
+
+    def fresh():
+        return {n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                for n in ("k_pages", "v_pages")} | {
+            "page_tables": tables[:B].clone(), "lengths": lens.clone()}
+
+    def clone(st):
+        return {k: v.clone() for k, v in st.items()}
+
+    def verdict(a, b):
+        same = torch.equal(a, b)
+        return same, (None if same else float((a - b).abs().max()))
+
+    out = {}
+    with torch.no_grad():
+        zeros = torch.zeros(B, **i32)
+        whole, st_w = model.prefill_chunk_paged(
+            params, fresh(), prompts[:B], tables[:B], zeros, lens)
+        st_c = fresh()
+        chunked = torch.empty_like(whole)
+        for s in range(0, S, C):
+            nv = torch.clamp(lens - s, 0, C)
+            logits, st_c = model.prefill_chunk_paged(
+                params, st_c, prompts[:B, s:s + C].contiguous(),
+                tables[:B, :-(-(s + C) // ps)].contiguous(),
+                torch.full((B,), s, **i32), nv)
+            done = (lens > s) & (lens <= s + C)
+            chunked[done] = logits[done]
+        out["chunked_equals_whole"], out["chunked_max_diff"] = verdict(
+            chunked, whole)
+        out["chunked_kv_equals_whole"] = all(
+            torch.equal(st_c[n][:, 1:], st_w[n][:, 1:])
+            for n in ("k_pages", "v_pages"))
+
+        nxt = whole.argmax(-1).to(torch.int32)[:, None]
+        dec, _ = model.decode_step_paged(params, clone(st_w), nxt)
+        ver, _ = model.verify_step_paged(params, clone(st_w), nxt)
+        out["verify_t1_equals_decode"], out["verify_t1_max_diff"] = verdict(
+            ver[:, 0], dec)
+
+        d_tok = torch.cat([nxt, torch.tensor(
+            rng.integers(0, cfg.vocab_size, (B, 4)), **i32)], 1)
+        p_tok = prompts[B:, :C].contiguous()
+        p_rows = tables[B:, :-(-C // ps)].contiguous()
+        p_nv = torch.tensor(rng.integers(1, C + 1, B), **i32)
+        (fd, fp), st_f = model.fused_step_paged(
+            params, clone(st_w), d_tok, p_tok, p_rows, zeros, p_nv)
+        p_alone, st_u = model.prefill_chunk_paged(
+            params, clone(st_w), p_tok, p_rows, zeros, p_nv)
+        d_alone, st_u = model.verify_step_paged(params, st_u, d_tok)
+        d_same, d_diff = verdict(fd, d_alone)
+        p_same, p_diff = verdict(fp, p_alone)
+        kv_same = all(torch.equal(st_f[n][:, 1:], st_u[n][:, 1:])
+                      for n in ("k_pages", "v_pages"))
+        out["fused_equals_unfused"] = d_same and p_same and kv_same
+        out["fused_max_diff"] = {"decode": d_diff, "prefill": p_diff,
+                                 "kv_equal": kv_same}
+    out.update(lengths=list(BITWISE_LENS), chunk=C, page_size=ps,
+               verify_tokens=int(d_tok.shape[1]), seed=seed)
+    return out
+
+
+def _bitwise_held(bw: dict) -> bool:
+    return (bw["chunked_equals_whole"] and bw["chunked_kv_equals_whole"]
+            and bw["verify_t1_equals_decode"] and bw["fused_equals_unfused"])
 
 
 def _leaves(tree):
@@ -1264,6 +1417,215 @@ def phase_fleet(model, params, programs):
     return total
 
 
+# ------------------------------------------------------------ archs
+def _arch_config(name):
+    """(FULL config as run on the card, its cuts as {key: [published,
+    run]})."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(name)
+    if cfg.moe is None:
+        return cfg, {}
+    run = dataclasses.replace(
+        cfg, n_layers=SCOUT_LAYERS,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=SCOUT_CAPACITY))
+    return run, {"n_layers": [cfg.n_layers, SCOUT_LAYERS],
+                 "capacity_factor": [cfg.moe.capacity_factor,
+                                     SCOUT_CAPACITY]}
+
+
+def _capture_first_route():
+    """Wrap ``components.moe_route`` so that its first call's input,
+    router and expert ids are kept.  Returns (record, undo)."""
+    from repro_torch.models import components as C
+    orig, seen = C.moe_route, {}
+
+    def route(p, xf, cfg):
+        out = orig(p, xf, cfg)
+        if not seen:
+            seen.update(x=xf.clone(), router=p["router"], ids=out[2].clone())
+        return out
+    C.moe_route = route
+    return seen, lambda: setattr(C, "moe_route", orig)
+
+
+def _route_check(seen, cfg) -> dict:
+    """Layer 0's routed experts on the serve trace's first chunk against
+    the top-k of an f32 recomputation of its router logits (softmax is
+    monotone: the logits' order is the probabilities')."""
+    import torch
+    logits = seen["x"].float() @ seen["router"].float()
+    want = torch.topk(logits, cfg.moe.top_k, dim=-1).indices
+    return {"tokens": int(seen["ids"].shape[0]),
+            "routed_ids_equal_f32_router": bool(torch.equal(seen["ids"],
+                                                            want)),
+            "tokens_per_expert": torch.bincount(
+                seen["ids"][:, 0], minlength=cfg.moe.n_experts).tolist()}
+
+
+#: row counts of the probed products: decode (8), the oracle's decode
+#: (16), verify (40), a chunk (256) and a whole prefill (2,048), against
+#: the re-score's 4,096 (16 prompts of 256)
+ROW_COUNTS = (1, 8, 16, 40, 256, 2048)
+PROBE_ROWS = 4096
+
+
+def _row_bits(params, cfg) -> dict:
+    """Whether a row's bits depend on the rows it shares a call with,
+    for every product of layer 0 at this model's widths: each
+    projection ``x @ W`` in the compute dtype, an MoE's f32 router and
+    its experts' batched products (``bmm`` of (E, M, K) by (E, K, N)),
+    and the whole ``moe_block``.  The M rows from row 37 of a
+    PROBE_ROWS-row input, called alone, are held against the same rows
+    of the whole call (``torch.equal``).  Returns the row counts M at
+    which a product gave other bits, by product (empty: row-stable)."""
+    import torch
+    from repro_torch.models import components as C
+    g = torch.Generator(device=params["embed"]["tok"].device)
+    g.manual_seed(13)
+
+    def rows(k, dtype):
+        return torch.randn(PROBE_ROWS, k, generator=g,
+                           device=g.device).to(dtype)
+
+    def unstable(fn, a):
+        full = fn(a)
+        return [m for m in ROW_COUNTS
+                if not torch.equal(fn(a[..., 37:37 + m, :].contiguous()),
+                                   full[..., 37:37 + m, :])]
+
+    def layer0(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from layer0(v, path + (k,))
+            else:
+                yield "/".join(path + (k,)), v[0]
+    out = {}
+    for name, w in layer0(params["layers"]):
+        if name.endswith("router"):
+            w = w.float()
+            out[name] = unstable(lambda a: a @ w, rows(w.shape[0], w.dtype))
+        elif w.dim() == 2 and w.shape[0] > 1 and w.dtype == torch.bfloat16:
+            out[name] = unstable(lambda a: a @ w, rows(w.shape[0], w.dtype))
+        elif w.dim() == 3:
+            x = rows(w.shape[1], w.dtype)[None].expand(w.shape[0], -1, -1)
+            out[name] = unstable(lambda a: torch.bmm(a, w), x.contiguous())
+    if cfg.moe is not None:
+        ffn = dict(layer0(params["layers"]["ffn"]))
+        ffn = {k: v for k, v in ffn.items() if "/" not in k} | {
+            "shared": {k.split("/")[1]: v for k, v in ffn.items()
+                       if k.startswith("shared/")}}
+        out["moe_block"] = unstable(lambda a: C.moe_block(ffn, a, cfg)[0],
+                                    rows(cfg.d_model, torch.bfloat16)[None])
+    return out
+
+
+def _serve_arch(name):
+    """One architecture at full width on the card (``_arch_config``):
+    seeded random init, a warm-up, the serve phase's trace, the re-score,
+    the launch gates and the bitwise invariants.  Returns the attention
+    kernels' launches on the trace."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_trace, synth_requests
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serve import ServeOptions, ServePrograms
+    t0 = time.perf_counter()
+    cfg, reduced = _arch_config(name)
+    model = DecoderLM(cfg)
+    programs = ServePrograms(model)
+    torch.cuda.reset_peak_memory_stats()
+    # the projections in bf16 once, for the engines and the re-score
+    # alike (the casts are exact); their f32 originals are freed here
+    params = programs.prepare_params(model.init(seed=0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in _leaves(params))
+    opts = ServeOptions(batch=8)
+    warm = synth_requests(cfg, 2, PROMPT_LEN, 4, rate=50.0, seed=1)
+    opts.sized_for(warm).build(model, params, programs=programs).run(warm)
+    torch.cuda.synchronize()
+
+    reqs = synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
+    opts = opts.sized_for(reqs)
+    engine = opts.build(model, params, programs=programs)
+    seen, undo = (_capture_first_route() if cfg.moe is not None
+                  else (None, lambda: None))
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    _launches_reset()
+    try:
+        stats = serve_trace(engine, reqs, realtime=True)
+    finally:
+        undo()
+    launches = _launches_read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    want = {"flash_attention": L * stats["n_prefill_dispatches"],
+            "paged_attention": L * (stats["n_decode_steps"]
+                                    + stats["n_replay_steps"])}
+    done = sorted(engine.finished, key=lambda r: r.rid)
+    rescore = _rescore(model, params, done)
+    bitwise = _bitwise_invariants(model, params, seed=9)
+    full = configs.get(name)
+    rec = {"phase": "archs", "arch": cfg.name, "layers": cfg.n_layers,
+           "layers_full": full.n_layers, "reduced": reduced,
+           "n_params": n_params, "n_params_full": full.n_params(),
+           "H": cfg.n_heads, "KVH": cfg.n_kv_heads, "Dh": cfg.head_dim,
+           "init_s": init_s, "requests": stats["requests"],
+           "prompt_len": PROMPT_LEN, "gen": GEN, "batch": opts.batch,
+           "n_pages": opts.n_pages,
+           "kv_pool_gb": 2 * engine.cache.k_pages.numel() * 2 / 1e9,
+           "tokens": stats["tokens"], "wall_s": stats["wall_s"],
+           "tok_per_s": stats["tok_per_s"],
+           "ttft_mean_s": stats["ttft_mean_s"], "peak_mem_gb": peak_gb,
+           "init_peak_mem_gb": init_peak_gb,
+           "counters": {k: v for k, v in stats.items()
+                        if k.startswith("n_") or k == "accept_rate"},
+           "launches": launches, "launches_expected": want,
+           "rescore": rescore, "bitwise": bitwise}
+    if seen is not None:
+        rec["route"] = _route_check(seen, cfg)
+    rec["row_bits"] = _row_bits(params, cfg)
+    rec.update(seconds=time.perf_counter() - t0, card=nvidia_smi_line())
+    emit(rec)
+    if len(done) != N_REQUESTS or any(len(r.generated) != GEN
+                                      for r in done):
+        fail(f"archs [{cfg.name}]: {len(done)} requests finished, "
+             f"generated {[len(r.generated) for r in done]} tokens")
+    if not rescore["finite"] or rescore["max_gap"] > TAU:
+        fail(f"archs [{cfg.name}]: re-score max gap {rescore['max_gap']} "
+             f"(tau {TAU}), finite {rescore['finite']}")
+    for k, n in launches.items():
+        if n < want[k] or n == 0:
+            fail(f"archs [{cfg.name}]: {k} launched {n} times, the path's "
+                 f"dispatches need {want[k]}")
+    if not _bitwise_held(bitwise):
+        fail(f"archs [{cfg.name}]: a model-level bitwise invariant failed: "
+             f"{bitwise}")
+    return launches
+
+
+def phase_archs():
+    """The other architectures the port serves, one after the other on
+    the card (each freed before the next).  Returns the attention
+    kernels' launches summed over their serve traces."""
+    import gc
+    import torch
+    total = {"flash_attention": 0, "paged_attention": 0}
+    t0 = time.perf_counter()
+    for name in ARCHS_ON_CARD:
+        for k, n in _serve_arch(name).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "archs", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    return total
+
+
 def summary_line(kernel_results, launches):
     """One entry for each kernel whose checks and path both ran."""
     sources = {"paged_attention": ("paged_attention.cu",
@@ -1298,7 +1660,7 @@ def summary_line(kernel_results, launches):
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile", "fleet")) -> int:
+                 "profile", "fleet", "archs")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -1338,6 +1700,13 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         if "fleet" in phases:
             for k, n in phase_fleet(model, params, programs).items():
                 launches[k] += n
+        # the later phases' models need the card's memory
+        del model, params, programs, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "archs" in phases:
+        for k, n in phase_archs().items():
+            launches[k] = launches.get(k, 0) + n
     if results:
         summary_line(results, launches)
     print(nvidia_smi_line(), flush=True)

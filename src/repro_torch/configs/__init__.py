@@ -9,6 +9,10 @@ from .base import ModelConfig, MoEConfig  # noqa: F401
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_06b",
+    "qwen2-0.5b": "qwen2_05b",
+    "stablelm-1.6b": "stablelm_16b",
+    "qwen1.5-110b": "qwen15_110b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 ARCH_NAMES = tuple(_MODULES)

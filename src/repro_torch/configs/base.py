@@ -82,3 +82,14 @@ class ModelConfig:
         from ..models.base import flatten_specs
         return sum(math.prod(ps.shape)
                    for _, ps in flatten_specs(param_specs(self)))
+
+    def n_active_params(self) -> int:
+        """Parameters one token uses: an MoE layer's routed top-k and
+        shared experts, not its other routed experts."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert_ff
+        n_moe_layers = self.n_layers - m.first_dense
+        return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert

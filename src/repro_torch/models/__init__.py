@@ -1,2 +1,3 @@
-"""Models of the port (the dense GQA family of the serving path)."""
+"""Models of the port (the stacks the serving path pages: dense GQA and
+the single-device mixture of experts)."""
 from .lm import DecoderLM  # noqa: F401

@@ -5,7 +5,8 @@ A model's parameters are declared once as a nested dict of
 the reference's parameter tree so the weight bridge
 (``checkpoint/bridge.py``) is a key-for-key copy.  The initializers
 draw from the reference's *distributions* (``fan_in`` normal,
-``normal(0.02)`` embeddings, zero norm scales, f32 storage), not its
+``normal(0.02)`` embeddings, zero RMSNorm scales, one LayerNorm
+scales, zero biases, f32 storage), not its
 bits: ``jax.random`` and ``torch.Generator`` give different numbers from
 one seed.
 """
@@ -17,8 +18,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "normal", "fan_in", "zeros", "flatten_specs",
-           "init_params"]
+__all__ = ["ParamSpec", "normal", "fan_in", "zeros", "ones",
+           "flatten_specs", "init_params"]
 
 InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 
@@ -31,8 +32,9 @@ class ParamSpec:
 
 def normal(stddev: float) -> InitFn:
     def f(gen, shape, device):
+        # scaled in place: no second tensor of the leaf's size
         return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device) * stddev
+                           device=device).mul_(stddev)
     return f
 
 
@@ -46,6 +48,10 @@ def fan_in(shape: Sequence[int]) -> InitFn:
 
 def zeros(gen, shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def ones(gen, shape, device):
+    return torch.ones(shape, dtype=torch.float32, device=device)
 
 
 def flatten_specs(tree, prefix: Tuple[str, ...] = ()

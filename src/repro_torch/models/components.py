@@ -1,5 +1,8 @@
-"""Dense-model primitives of the port (the subset of
-``repro.models.components`` that qwen3-0.6b's serving path runs).
+"""Model primitives of the port: the subset of
+``repro.models.components`` that the paged serving path runs (norms,
+rotary, GQA attention with optional QKV bias, SwiGLU / GELU MLPs, the
+single-device mixture of experts, tied or untied embeddings), with the
+parameter specs of each part.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
@@ -23,10 +26,13 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
+from .base import ParamSpec, normal, ones, zeros
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "project_qkv",
-           "out_proj", "mlp_block", "embed_tokens", "unembed",
-           "decode_attention",
+__all__ = ["rms_norm", "layer_norm", "norm_specs", "apply_norm",
+           "rope_freqs", "apply_rope", "attn_specs", "project_qkv",
+           "out_proj", "mlp_specs", "mlp_block", "moe_specs",
+           "moe_capacity", "moe_route", "moe_block", "embed_specs",
+           "embed_tokens", "unembed", "decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
            "paged_verify_attention_block",
            "paged_chunk_attention_block"]
@@ -39,6 +45,33 @@ def rms_norm(x, scale, eps: float):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm scaled by ``scale`` (one-initialized), plus ``bias``
+    when given, in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def norm_specs(d: int, kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ParamSpec((d,), init=zeros)}
+    return {"scale": ParamSpec((d,), init=ones),
+            "bias": ParamSpec((d,), init=zeros)}
+
+
+def apply_norm(p, x, kind: str, eps: float):
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"], eps)
+    return layer_norm(x, p["scale"], p.get("bias"), eps)
 
 
 # ----------------------------------------------------------------- rope
@@ -67,21 +100,45 @@ def apply_rope(x, positions, *, theta: float = 1e4, fraction: float = 1.0):
 
 
 # ------------------------------------------------------------ attention
+def attn_specs(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": ParamSpec((d, h * hd)), "wk": ParamSpec((d, kvh * hd)),
+         "wv": ParamSpec((d, kvh * hd)), "wo": ParamSpec((h * hd, d))}
+    if cfg.qkv_bias:
+        p["bq"] = ParamSpec((h * hd,), init=zeros)
+        p["bk"] = ParamSpec((kvh * hd,), init=zeros)
+        p["bv"] = ParamSpec((kvh * hd,), init=zeros)
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((hd,), init=zeros)
+        p["k_norm"] = ParamSpec((hd,), init=zeros)
+    return p
+
+
 def project_qkv(p, x, cfg, positions):
-    """x: (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KVH, Dh), qk-norm and
-    RoPE applied.  ``p`` is one layer's attention parameters."""
+    """x: (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KVH, Dh), QKV bias
+    (added in the compute dtype after the product), qk-norm and RoPE
+    applied.  ``p`` is one layer's attention parameters."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, h, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, kvh, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, kvh, hd)
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, h, hd)
+    k = k.reshape(B, S, kvh, hd)
+    v = v.reshape(B, S, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
-    k = apply_rope(k, positions, theta=cfg.rope_theta,
-                   fraction=cfg.rope_fraction)
+    if cfg.rope_kind == "rope":
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -189,14 +246,113 @@ def paged_chunk_attention_block(p, x, cfg, *, positions, starts, n_valid,
 
 
 # ------------------------------------------------------------------ mlp
+def mlp_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {"w1": ParamSpec((d, f)), "b1": ParamSpec((f,), init=zeros),
+                "w2": ParamSpec((f, d)), "b2": ParamSpec((d,), init=zeros)}
+    return {"wg": ParamSpec((d, f)), "wu": ParamSpec((d, f)),
+            "wd": ParamSpec((f, d))}
+
+
 def mlp_block(p, x, cfg):
-    """SwiGLU FFN: silu(x Wg) * (x Wu) Wd in the compute dtype."""
+    """Dense FFN in the compute dtype: SwiGLU silu(x Wg) * (x Wu) Wd, or
+    GELU (tanh approximation, ``jax.nn.gelu``'s default) with biases."""
+    if cfg.mlp_kind == "gelu":
+        h = x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype)
+        h = F.gelu(h, approximate="tanh")
+        return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
     g = F.silu(x @ p["wg"].to(x.dtype))
     u = x @ p["wu"].to(x.dtype)
     return (g * u) @ p["wd"].to(x.dtype)
 
 
+# ------------------------------------------------------------------ moe
+def moe_specs(cfg) -> dict:
+    m = cfg.moe
+    d, fe, e = cfg.d_model, m.d_expert_ff, m.n_experts
+    p = {"router": ParamSpec((d, e), init=normal(0.02)),
+         "wg": ParamSpec((e, d, fe)), "wu": ParamSpec((e, d, fe)),
+         "wd": ParamSpec((e, fe, d))}
+    if m.n_shared:
+        fs = fe * m.n_shared
+        p["shared"] = {"wg": ParamSpec((d, fs)), "wu": ParamSpec((d, fs)),
+                       "wd": ParamSpec((fs, d))}
+    return p
+
+
+def moe_capacity(n_tokens: int, m) -> int:
+    """Slots per expert for a call of ``n_tokens`` rows (padding rows
+    included, as the reference counts them)."""
+    c = int(n_tokens * m.top_k / m.n_experts * m.capacity_factor)
+    return max(1, min(c, n_tokens))
+
+
+def moe_route(p, xf, cfg):
+    """Router of (T, D) tokens in f32: (probs (T, E), gate weights
+    (T, K), expert ids (T, K) int64).  The top k come from a stable
+    descending sort, so ties go to the lower expert id, as
+    ``lax.top_k``'s do."""
+    m = cfg.moe
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :m.top_k], topi[:, :m.top_k]
+    if m.normalize_router:
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return probs, topw, topi
+
+
+def moe_block(p, x, cfg):
+    """Mixture of experts on one device (the reference's
+    ``_moe_compute`` at ``ep_size = 1``).  x: (B, S, D) -> (y (B, S, D),
+    the Switch load-balance aux loss).
+
+    Every (token, choice) pair takes the next free slot of its expert in
+    token order; pairs past an expert's capacity C are dropped: they are
+    written to a spare slot C that no product reads, and read back from
+    a zero row there.  The experts' SwiGLU runs as (E, C, D) batched
+    products in the compute dtype; the gate-weighted outputs are added
+    back per token, then the shared expert's dense SwiGLU."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T, E, K = B * S, m.n_experts, m.top_k
+    C = moe_capacity(T, m)
+    xf = x.reshape(T, D)
+    probs, topw, topi = moe_route(p, xf, cfg)
+    eid = topi.reshape(-1)                                   # (T*K,)
+    gate = topw.reshape(-1)
+    tok = torch.arange(T * K, device=x.device) // K
+    onehot = F.one_hot(eid, E)
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    pos = torch.gather(pos, 1, eid[:, None])[:, 0]
+    pos = torch.where(pos < C, pos, C)                       # C: dropped
+    x_e = x.new_zeros(E, C + 1, D)
+    x_e[eid, pos] = xf[tok]
+    x_e = x_e[:, :C]
+    g = F.silu(torch.bmm(x_e, p["wg"].to(x.dtype)))
+    u = torch.bmm(x_e, p["wu"].to(x.dtype))
+    y_e = F.pad(torch.bmm(g * u, p["wd"].to(x.dtype)), (0, 0, 0, 1))
+    y_tok = y_e[eid, pos]                                    # (T*K, D)
+    y = x.new_zeros(T, D).index_add_(
+        0, tok, y_tok * gate[:, None].to(x.dtype))
+    if m.n_shared:
+        sp = p["shared"]
+        sg = F.silu(xf @ sp["wg"].to(x.dtype))
+        su = xf @ sp["wu"].to(x.dtype)
+        y = y + (sg * su) @ sp["wd"].to(x.dtype)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    return y.reshape(B, S, D), E * torch.sum(me * ce)
+
+
 # ----------------------------------------------------------- embeddings
+def embed_specs(cfg) -> dict:
+    p = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), init=normal(0.02))}
+    if not cfg.tie_embeddings:
+        p["head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+    return p
+
+
 def embed_tokens(p, tokens, cfg, dtype):
     return p["tok"][tokens.long()].to(dtype)
 
@@ -206,7 +362,8 @@ UNEMBED_ROWS = 64
 
 
 def unembed(p, x, cfg):
-    """Tied unembedding in f32: (..., D) -> (..., V).
+    """Unembedding in f32: (..., D) -> (..., V), through the tied
+    embedding table or the untied ``head``.
 
     The rows go through the f32 product in tiles of UNEMBED_ROWS, the
     last one zero-padded, so every product has the same shape.  A BLAS
@@ -221,7 +378,7 @@ def unembed(p, x, cfg):
     pad = -M % UNEMBED_ROWS
     if pad:
         x2 = torch.cat([x2, x2.new_zeros(pad, x2.shape[1])])
-    w = p["tok"].float().t()
+    w = (p["tok"].t() if cfg.tie_embeddings else p["head"]).float()
     logits = torch.empty(M + pad, w.shape[1], dtype=torch.float32,
                          device=x.device)
     for i in range(0, M + pad, UNEMBED_ROWS):

@@ -1,5 +1,7 @@
-"""Decoder-only LM of the port: the dense GQA family (qwen3) that the
-serving path runs — the counterpart of ``repro.models.lm.DecoderLM``.
+"""Decoder-only LM of the port: the scanned all-attention stacks that
+the reference serves through its paged engine (qwen3, qwen2, qwen1.5,
+stablelm, llama4-scout's MoE) — the counterpart of
+``repro.models.lm.DecoderLM``.
 
 Parameters are a nested dict of tensors laid out exactly like the
 reference's tree, with every layer's weights stacked on a leading L
@@ -29,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from . import components as C
-from .base import ParamSpec, init_params, normal, zeros
+from .base import ParamSpec, init_params
 
 __all__ = ["DecoderLM", "param_specs"]
 
@@ -37,19 +39,16 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _check_supported(cfg) -> None:
-    """The port runs the dense GQA family of the serving path; anything
+    """The port runs the stacks the reference pages (a scan of identical
+    attention blocks: ``DecoderLM.supports_paged_decode``); anything
     else raises instead of computing something else."""
     unported = {
-        "family": cfg.family != "dense",
+        "first_dense": cfg.moe is not None and cfg.moe.first_dense > 0,
         "block_pattern": set(cfg.layer_kinds) != {"attn"},
-        "moe": cfg.moe is not None,
-        "norm_kind": cfg.norm_kind != "rmsnorm",
-        "mlp_kind": cfg.mlp_kind != "swiglu",
-        "rope_kind": cfg.rope_kind != "rope",
-        "qkv_bias": cfg.qkv_bias,
+        "mrope": cfg.rope_kind == "mrope",
         "scale_embeddings": cfg.scale_embeddings,
         "logit_softcap": bool(cfg.logit_softcap),
-        "untied embeddings": not cfg.tie_embeddings,
+        "encoder-decoder": cfg.is_encoder_decoder,
     }
     missing = [k for k, bad in unported.items() if bad]
     if missing:
@@ -57,27 +56,26 @@ def _check_supported(cfg) -> None:
             f"{cfg.name}: not ported yet ({', '.join(missing)})")
 
 
+def _stack(tree, n: int):
+    """Prefix every leaf's shape with a stacked layer axis of ``n``."""
+    if isinstance(tree, ParamSpec):
+        return ParamSpec((n,) + tuple(tree.shape), tree.init)
+    return {k: _stack(v, n) for k, v in tree.items()}
+
+
 def param_specs(cfg) -> dict:
-    """The reference's parameter tree for a scanned dense stack, f32
-    storage (``param_dtype="float32"``)."""
-    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    mix = {"wq": ParamSpec((L, d, h * hd)), "wk": ParamSpec((L, d, kvh * hd)),
-           "wv": ParamSpec((L, d, kvh * hd)), "wo": ParamSpec((L, h * hd, d))}
-    if cfg.qk_norm:
-        mix["q_norm"] = ParamSpec((L, hd), init=zeros)
-        mix["k_norm"] = ParamSpec((L, hd), init=zeros)
-    return {
-        "embed": {"tok": ParamSpec((cfg.vocab_size, d), init=normal(0.02))},
-        "final_norm": {"scale": ParamSpec((d,), init=zeros)},
-        "layers": {
-            "ln1": {"scale": ParamSpec((L, d), init=zeros)},
-            "mix": mix,
-            "ln2": {"scale": ParamSpec((L, d), init=zeros)},
-            "ffn": {"wg": ParamSpec((L, d, f)), "wu": ParamSpec((L, d, f)),
-                    "wd": ParamSpec((L, f, d))},
-        },
-    }
+    """The reference's parameter tree for a scanned stack, f32 storage
+    (``param_dtype="float32"``): every block's norms, attention and FFN
+    (MLP or MoE) stacked on a leading layer axis."""
+    d = cfg.d_model
+    block = {"ln1": C.norm_specs(d, cfg.norm_kind),
+             "mix": C.attn_specs(cfg),
+             "ln2": C.norm_specs(d, cfg.norm_kind),
+             "ffn": (C.moe_specs(cfg) if cfg.moe is not None
+                     else C.mlp_specs(cfg))}
+    return {"embed": C.embed_specs(cfg),
+            "final_norm": C.norm_specs(d, cfg.norm_kind),
+            "layers": _stack(block, cfg.n_layers)}
 
 
 def _layer(tree, i: int):
@@ -104,14 +102,27 @@ class DecoderLM:
         return init_params(self.param_specs(), seed, self.device)
 
     def supports_paged_decode(self) -> bool:
-        return True
+        """The reference's condition: a scanned full-attention stack with
+        no leading dense layer and no mrope (every config the port
+        accepts meets it)."""
+        cfg = self.cfg
+        first_dense = cfg.moe.first_dense if cfg.moe is not None else 0
+        return (first_dense == 0 and set(cfg.layer_kinds) == {"attn"}
+                and cfg.rope_kind != "mrope")
 
     # ------------------------------------------------------------ blocks
     def _norm(self, p, x):
-        return C.rms_norm(x, p["scale"], self.cfg.norm_eps)
+        return C.apply_norm(p, x, self.cfg.norm_kind, self.cfg.norm_eps)
 
     def _ffn(self, lp, x):
-        return x + C.mlp_block(lp["ffn"], self._norm(lp["ln2"], x), self.cfg)
+        """The FFN sub-layer: an MoE block routes this call's rows (its
+        capacity counted over them), else the dense MLP."""
+        h = self._norm(lp["ln2"], x)
+        if self.cfg.moe is not None:
+            f, _ = C.moe_block(lp["ffn"], h, self.cfg)
+        else:
+            f = C.mlp_block(lp["ffn"], h, self.cfg)
+        return x + f
 
     def _embed(self, params, tokens):
         return C.embed_tokens(params["embed"], tokens.to(self.device),
@@ -278,7 +289,9 @@ class DecoderLM:
         decode write target) before decode writes, and the two groups
         write disjoint (page, slot) targets, so each row is bit-identical
         to its unfused counterpart (``repro.models.lm.fused_step_paged``
-        gives the disjointness argument).  Returns ((d_logits (B, T, V),
+        gives the disjointness argument).  An MoE layer routes each
+        group on its own, with its capacity counted over that group's
+        rows, as the reference does.  Returns ((d_logits (B, T, V),
         p_logits (Bp, V)), state)."""
         d_tokens, d_positions = self._paged_inputs(d_tokens,
                                                    state["lengths"])

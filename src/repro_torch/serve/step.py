@@ -73,9 +73,18 @@ def make_fused_step(model) -> Callable:
     return fused_step
 
 
-#: layer weights that enter ``x @ W`` in the compute dtype
-_MATMUL_WEIGHTS = {"mix": ("wq", "wk", "wv", "wo"),
-                   "ffn": ("wg", "wu", "wd")}
+#: layer weights that enter ``x @ W`` in the compute dtype: attention,
+#: dense MLPs (SwiGLU, GELU) and an MoE block's stacked experts and its
+#: shared expert.  The MoE router stays f32 (routing runs in f32), and
+#: so does the unembedding (``components.unembed``).
+_MATMUL_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd",
+                             "w1", "w2"})
+
+
+def _cast_matmul_weights(tree: dict, dt) -> dict:
+    return {k: (_cast_matmul_weights(v, dt) if isinstance(v, dict)
+                else v.to(dt) if k in _MATMUL_WEIGHTS else v)
+            for k, v in tree.items()}
 
 
 class ServePrograms:
@@ -92,14 +101,10 @@ class ServePrograms:
     def prepare_params(self, params):
         """Cast the projection weights to the compute dtype once, where
         every call would otherwise cast them again (the cast is exact
-        and the same either way; norm scales and the f32 embedding table
-        are left as they are)."""
-        dt = self.model.dtype
-        layers = dict(params["layers"])
-        for group, names in _MATMUL_WEIGHTS.items():
-            layers[group] = {k: (v.to(dt) if k in names else v)
-                             for k, v in layers[group].items()}
-        return {**params, "layers": layers}
+        and the same either way; norms, biases, the router and the f32
+        embedding and head are left as they are)."""
+        return {**params, "layers": _cast_matmul_weights(
+            params["layers"], self.model.dtype)}
 
 
 def greedy_generate(model, params, tokens, n_steps: int,

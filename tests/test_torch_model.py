@@ -10,8 +10,15 @@ bridge against the JAX reference on the qwen3 smoke config.
   prefill and the fused step == its two unfused halves.  (On this CPU,
   torch's bf16 matmul gives a row the same bits whatever the number of
   rows; its f32 matmul does not, so these checks run in bf16.)
+
+The checks are functions of a reference smoke config (``check_*``);
+``tests/test_torch_archs.py`` runs them on the other architectures the
+port serves.  The reference starts norm scales and biases at constants
+(0 or 1); ``reference`` perturbs them, seeded, so that each of their
+code paths moves the logits.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,24 +43,62 @@ CONTIG_TOL = 1e-4
 # paged programs at f32 compute: K/V are stored in bf16 pages on both
 # sides and p is rounded to bf16 before P.V (the page dtype), after an
 # exact softmax in the reference and an online one in the port, so a
-# K/V or p value can land one bf16 ulp (2^-8 relative) apart.
+# K/V or p value can land one bf16 ulp (2^-8 relative) apart.  The
+# error is relative to the logits' scale: an untied fan-in head gives
+# logits ~6x those of a tied 0.02-normal table, so the tolerance is
+# PAGED_TOL times the largest |logit| where that exceeds 1.  (With f32
+# pages on both sides the same programs agree to ~2e-6.)
 PAGED_TOL = 1e-2
+
+#: leaves the reference initializes to a constant
+_CONST_LEAVES = {"scale", "bias", "bq", "bk", "bv", "b1", "b2", "q_norm",
+                 "k_norm"}
 
 
 def _f32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32")
 
 
+def with_capacity(cfg, capacity_factor: float):
+    """An MoE config (either package's) at another capacity factor."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+
+
+def to_port_config(jcfg):
+    """The port's ModelConfig with every field of the reference's."""
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(configs.ModelConfig)}
+    if jcfg.moe is not None:
+        fields["moe"] = configs.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    return configs.ModelConfig(**fields)
+
+
+def _perturb(tree, rng):
+    return {k: (_perturb(v, rng) if isinstance(v, dict)
+                else v + 0.1 * rng.standard_normal(v.shape).astype(v.dtype)
+                if k in _CONST_LEAVES else v)
+            for k, v in sorted(tree.items())}
+
+
+@functools.lru_cache(maxsize=None)
+def reference(jcfg):
+    """(config, params, the params in numpy) of the reference model of
+    ``jcfg`` from PRNGKey(0), its constant leaves perturbed."""
+    tree = jax.tree.map(np.asarray,
+                        build_model(jcfg).init(jax.random.PRNGKey(0)))
+    tree = _perturb(tree, np.random.default_rng(0))
+    return jcfg, jax.tree.map(jnp.asarray, tree), tree
+
+
 @pytest.fixture(scope="module")
 def ref():
     """Reference model + params, and the same params in numpy."""
-    cfg = jconfigs.get_smoke(ARCH)
-    params = build_model(cfg).init(jax.random.PRNGKey(0))
-    return cfg, params, jax.tree.map(np.asarray, params)
+    return reference(jconfigs.get_smoke(ARCH))
 
 
 def _port(ref, dtype="float32"):
-    cfg = dataclasses.replace(configs.get_smoke(ARCH), compute_dtype=dtype)
+    cfg = dataclasses.replace(to_port_config(ref[0]), compute_dtype=dtype)
     model = DecoderLM(cfg, device="cpu")
     return model, params_from_jax(ref[2], cfg, device="cpu")
 
@@ -78,15 +123,20 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def test_bridge_is_bit_identical(ref):
-    cfg = configs.get_smoke(ARCH)
-    back = params_to_numpy(params_from_jax(ref[2], cfg, device="cpu"))
+def check_bridge(jcfg):
+    ref = reference(jcfg)
+    back = params_to_numpy(params_from_jax(ref[2], to_port_config(jcfg),
+                                           device="cpu"))
     want = dict(_leaves(ref[2]))
     got = dict(_leaves(back))
     assert got.keys() == want.keys()
     for path, arr in want.items():
         assert got[path].dtype == arr.dtype, path
         np.testing.assert_array_equal(got[path], arr, err_msg=str(path))
+
+
+def test_bridge_is_bit_identical(ref):
+    check_bridge(ref[0])
 
 
 def test_bridge_rejects_mismatched_tree(ref):
@@ -145,9 +195,9 @@ def test_n_params_and_init_distributions():
 
 
 # -------------------------------------------------- contiguous path
-def test_apply_prefill_decode_match_reference(ref):
-    jcfg = _f32(ref[0])
-    jmodel = build_model(jcfg)
+def check_contiguous_path(jcfg):
+    ref = reference(jcfg)
+    jmodel = build_model(_f32(jcfg))
     model, params = _port(ref)
     toks = _tokens(1, (2, 21), jcfg.vocab_size)
     want, _ = jmodel.apply(ref[1], {"tokens": jnp.asarray(toks)},
@@ -168,6 +218,10 @@ def test_apply_prefill_decode_match_reference(ref):
         _close(log, jlog, CONTIG_TOL)
         tok = np.array(jnp.argmax(jlog, -1), np.int32)[:, None]
         assert np.array_equal(log.argmax(-1).numpy(), tok[:, 0])
+
+
+def test_apply_prefill_decode_match_reference(ref):
+    check_contiguous_path(ref[0])
 
 
 # ------------------------------------------------------- paged path
@@ -193,13 +247,18 @@ def _both_states(k, v, tables, lengths):
     return jst, tst
 
 
+def _close_paged(got, want):
+    _close(got, want, PAGED_TOL * max(1.0, float(np.abs(want).max())))
+
+
 def _close_pages(tst, jst):
     for n in ("k_pages", "v_pages"):
         _close(tst[n], jst[n], PAGED_TOL)
 
 
-def test_paged_programs_match_reference(ref):
-    jcfg = _f32(ref[0])
+def check_paged_programs(jcfg):
+    ref = reference(jcfg)
+    jcfg = _f32(jcfg)
     jmodel = build_model(jcfg)
     model, params = _port(ref)
     rng = np.random.default_rng(2)
@@ -220,7 +279,7 @@ def test_paged_programs_match_reference(ref):
         params, tst, torch.from_numpy(ptoks),
         torch.from_numpy(tables[:, :2].copy()), torch.from_numpy(starts),
         torch.from_numpy(n_valid))
-    _close(tl[:2], jl[:2], PAGED_TOL)
+    _close_paged(tl[:2], jl[:2])
     assert np.array_equal(tl[:2].argmax(-1).numpy(),
                           np.asarray(jnp.argmax(jl[:2], -1)))
     _close_pages(tst, jst)
@@ -239,7 +298,7 @@ def test_paged_programs_match_reference(ref):
                                                jnp.asarray(dtoks))
             tl, tst = model.verify_step_paged(params, tst,
                                               torch.from_numpy(dtoks))
-        _close(tl, jl, PAGED_TOL)
+        _close_paged(tl, jl)
         assert np.array_equal(tl.argmax(-1).numpy(),
                               np.asarray(jnp.argmax(jl, -1)))
         _close_pages(tst, jst)
@@ -262,16 +321,20 @@ def test_paged_programs_match_reference(ref):
         params, tst, torch.from_numpy(dtoks), torch.from_numpy(ptoks),
         torch.from_numpy(ptab), torch.tensor([0], dtype=torch.int32),
         torch.tensor([6], dtype=torch.int32))
-    _close(td[:2], jd[:2], PAGED_TOL)
-    _close(tp, jp, PAGED_TOL)
+    _close_paged(td[:2], jd[:2])
+    _close_paged(tp, jp)
     assert np.array_equal(td[:2].argmax(-1).numpy(),
                           np.asarray(jnp.argmax(jd[:2], -1)))
     _close_pages(tst, jst)
 
 
+def test_paged_programs_match_reference(ref):
+    check_paged_programs(ref[0])
+
+
 # ------------------------------------- bitwise invariants in the port
-def test_chunked_prefill_equals_whole_prefill_bitwise(ref):
-    model, params = _port(ref, "bfloat16")
+def check_chunked_prefill_equals_whole(jcfg):
+    model, params = _port(reference(jcfg), "bfloat16")
     cfg = model.cfg
     ps, C = 8, 16
     a = torch.from_numpy(_tokens(11, (40,), cfg.vocab_size))
@@ -305,8 +368,12 @@ def test_chunked_prefill_equals_whole_prefill_bitwise(ref):
     assert torch.equal(pages, cache_a["k"][:, 0])
 
 
-def test_fused_step_equals_unfused_bitwise(ref):
-    model, params = _port(ref, "bfloat16")
+def test_chunked_prefill_equals_whole_prefill_bitwise(ref):
+    check_chunked_prefill_equals_whole(ref[0])
+
+
+def check_fused_equals_unfused(jcfg):
+    model, params = _port(reference(jcfg), "bfloat16")
     progs = ServePrograms(model)
     params = progs.prepare_params(params)
     cfg = model.cfg
@@ -337,3 +404,7 @@ def test_fused_step_equals_unfused_bitwise(ref):
         for n in ("k_pages", "v_pages"):
             # page 0 is the null page: masked writes of both groups
             assert torch.equal(st[n][:, 1:], fused[n][:, 1:]), (order, n)
+
+
+def test_fused_step_equals_unfused_bitwise(ref):
+    check_fused_equals_unfused(ref[0])

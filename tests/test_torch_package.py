@@ -83,8 +83,8 @@ def test_entry_points_default_to_the_gpu():
 def test_unported_configs_raise():
     import dataclasses
     cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
-                              qkv_bias=True)
-    with pytest.raises(NotImplementedError, match="qkv_bias"):
+                              scale_embeddings=True)
+    with pytest.raises(NotImplementedError, match="scale_embeddings"):
         DecoderLM(cfg, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get("rwkv6-3b")
