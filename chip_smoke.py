@@ -19,8 +19,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                with the key-split grid's block counts.  Then both
                kernels at the attention shapes of the other served
                architectures (``ATTN_SHAPES``: G 7 and G 1 at Dh 64, G 5
-               and G 8 at Dh 128): paged at B 8 with T 1 and T 5, flash
-               on a 512-token prefill, with the same properties.
+               and G 8 at Dh 128, and the families' G 1 and G 7 at
+               Dh 128): paged at B 8 with T 1 and T 5, flash on a
+               512-token prefill, with the same properties.  Then the
+               families' new cases: flash with a 2,048-key window at Dh
+               256 (recurrentgemma), flash without a causal mask over
+               whisper's 1,500 frames (encoder and cross-attention),
+               paged at Dh 256 over a 2,048-key ring, and flash at one
+               query row as the families' decode steps run it
+               (``components.flash_decode_attention``: deepseek,
+               qwen2-vl and whisper over a longer cache, recurrentgemma
+               over its wrapped ring, whisper's cross-attention), each
+               row also against the plain version over the linear
+               history and bit for bit against the same row of the
+               whole prefill.
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -36,16 +48,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                pipeline's TMA and cp.async producers bit-identical) and
                timed beside its plain version, a library call and its
                bound; the LUT once more with every x equal (no gather
-               spread).
+               spread).  Then the dataflow GEMM as the serving path runs
+               it (``components.linear``) at the projection shapes of
+               qwen3's ``attn/wq`` and ``ffn/wd`` and scout's
+               ``mix/wk`` at 8, 40, 256 and 2,048 rows, with the
+               producer each took and whether a row's bits depend on the
+               row count.
 4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
                kernels' launch counters prove the path ran through them;
                then the engine's bitwise invariants at the model level,
                gated (``_bitwise_invariants``: chunked == whole prefill,
                verify at T = 1 == decode, fused == unfused) on 8 prompts
-               of mixed lengths.
+               of mixed lengths, and every product of layer 0 and the
+               unembedding row-stable (``_row_bits``, gated).
 5. **parity**  every served token is re-scored teacher-forced by the
-               port's whole-sequence ``apply`` on the card.
+               port's whole-sequence ``apply`` on the card, and held
+               token for token against the port's ``greedy_generate``
+               (engine == oracle, gated).
 6. **profile** a shorter serve run under ``torch.profiler``: device
                time by kernel and the device's idle share.
 7. **fleet**   the serving fleet on the serve phase's model and program
@@ -64,15 +84,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                stablelm-1.6b at full size, llama4-scout at full widths
                cut to 4 of its 48 layers at capacity factor 16 (C = T),
                each with seeded random weights through the serve phase's
-               trace, the parity phase's re-score, the launch gates and
-               the bitwise invariants, and whether a projection's row
-               bits depend on the rows of its call; for scout also
-               whether layer 0's routed experts on the first chunk equal
-               an f32 recomputation of its router.
+               trace, the parity phase's re-score and engine == oracle,
+               the launch gates, the bitwise invariants and the row-bits
+               gate; for scout also whether layer 0's routed experts on
+               the first chunk equal an f32 recomputation of its router.
+9. **families** the five families the reference serves only through
+               its lockstep path, one after the other at full published
+               widths (seeded random weights, projections stored bf16 as
+               they are drawn): deepseek-moe-16b, qwen2-vl-7b,
+               whisper-tiny, recurrentgemma-2b and rwkv6-3b, each through
+               the ``--naive`` loop (``launch.serve.run_naive``) on 8
+               prompts of the reference's synthetic batch, gated on
+               every row finishing, the TAU re-score, decode extending
+               prefill, the row-bits gate and the kernels' launch
+               counts; each row's tokens against the same prompt alone
+               through ``greedy_generate`` are a reading, and so, for
+               recurrentgemma and rwkv6, is the gap between the prompt
+               forms of their recurrences (the associative RG-LRU scan,
+               the chunked and the step-by-step WKV) and the decode
+               step's, in f32 and in bf16 (``_scan_forms``).
+               These families do not page: their decode steps run the
+               flash kernel at one query row, which gives decode the
+               bits of the whole prefill's row.
 
 Then a ``{"kernels": [...]}`` line (all five kernels, launches from the
-serve, fleet, archs and paper paths), the card's name and power limit as
-``nvidia-smi`` reports them, and as the last line
+serve, fleet, archs, families and paper paths), the card's name and
+power limit as ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
 one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
 Without a GPU, or without the rest of the repository beside this file,
@@ -126,13 +163,44 @@ CHUNK_STARTS = (0, 32, 224, 480)
 # attention shapes (H, KVH, Dh) of the other served architectures
 ATTN_SHAPES = {"qwen2_G7_dh64": (14, 2, 64), "stablelm_G1_dh64": (32, 32, 64),
                "scout_G5_dh128": (40, 8, 128),
-               "qwen15_G8_dh128": (64, 8, 128)}
+               "qwen15_G8_dh128": (64, 8, 128),
+               "deepseek_G1_dh128": (16, 16, 128),
+               "qwen2vl_G7_dh128": (28, 4, 128)}
+# the families' new attention cases: recurrentgemma's local attention
+# (H 10, KVH 1, Dh 256, a 2,048-key window) and whisper-tiny's
+# attention without a causal mask (H 6, Dh 64, 1,500 frames)
+RG_HEADS, RG_DH, RG_WINDOW = (10, 1), 256, 2048
+WHISPER_HEADS, WHISPER_DH, WHISPER_FRAMES = 6, 64, 1500
 # archs phase: the architectures served on the card, and llama4-scout's
 # cuts (depth to fit one card; capacity factor n_experts / top_k, so C =
 # T and no token is dropped: a served token can then be re-scored by a
 # whole prefill, whose dispatch shares no rows with the engine's)
 ARCHS_ON_CARD = ("qwen2-0.5b", "stablelm-1.6b", "llama4-scout-17b-a16e")
 SCOUT_LAYERS, SCOUT_CAPACITY = 4, 16.0
+# families phase: the five lockstep-only families at full widths, with
+# their prompt lengths (qwen2-vl: 256 patch positions + 64 text tokens;
+# whisper: a 64-token decoder prompt over 1,500 stub frames;
+# recurrentgemma: one 2,048-key window, the reference's S % window
+# contract), 8 rows and GEN tokens each.  deepseek-moe runs at capacity
+# factor 11 (its published 1.25 drops tokens by which rows share a
+# call): int(T * 6 / 64 * 11) >= T, so C = T.  64 / 6 = 10.67 would
+# give C = T - 1 at T = 2,048 from the float rounding of the product.
+FAMILIES_ON_CARD = (("deepseek-moe-16b", 256), ("qwen2-vl-7b", 320),
+                    ("whisper-tiny", 64), ("recurrentgemma-2b", 2048),
+                    ("rwkv6-3b", 256))
+FAMILY_ROWS = 8
+DEEPSEEK_CAPACITY = 11.0
+# decode extends prefill: the reference's own tolerance
+# (tests/test_smoke_archs.py), on EXTEND_ROWS rows
+EXTEND_TOL, EXTEND_ROWS = 4e-2, 2
+# the scan-forms reading of the RG-LRU and RWKV6 stacks: rows, and the
+# last prompt positions whose logits are compared
+SCAN_ROWS, SCAN_LAST = 2, 8
+# paper phase: the projections of the serving path (K, N) at these row
+# counts (decode, verify, a chunk, a whole prefill)
+PROJ_SHAPES = {"qwen3_attn_wq": (1024, 2048), "qwen3_ffn_wd": (3072, 1024),
+               "scout_mix_wk": (5120, 1024)}
+PROJ_ROWS = (8, 40, 256, 2048)
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -347,14 +415,15 @@ def _sdpa_paged(q, kp, vp, tables, lens):
     return call
 
 
-def _flash_numbers(q, k, v, q_offset, causal):
+def _flash_numbers(q, k, v, q_offset, causal, window=None):
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     keys = []
     for b in range(B):
         off = int(q_offset[b])
         for i in range(Sq):
-            keys.append(min(Skv, off + i + 1) if causal else Skv)
+            n = min(Skv, off + i + 1) if causal else Skv
+            keys.append(min(n, window) if window else n)
     kmax = [min(Skv, int(q_offset[b]) + Sq) if causal else Skv
             for b in range(B)]
     kv_bytes = sum(kmax) * KVH * Dh * 2 * 2
@@ -363,7 +432,7 @@ def _flash_numbers(q, k, v, q_offset, causal):
     return kv_bytes + io_bytes, flops
 
 
-def _sdpa_flash(q, k, v, q_offset, causal):
+def _sdpa_flash(q, k, v, q_offset, causal, window=None):
     import torch
     import torch.nn.functional as F
     B, Sq = q.shape[:2]
@@ -374,8 +443,11 @@ def _sdpa_flash(q, k, v, q_offset, causal):
     mask = None
     if causal:
         qpos = q_offset.long()[:, None] + torch.arange(Sq, device=q.device)
-        mask = (torch.arange(Skv, device=q.device)[None, None]
-                <= qpos[:, :, None])[:, None]
+        j = torch.arange(Skv, device=q.device)[None, None]
+        mask = j <= qpos[:, :, None]
+        if window:
+            mask = mask & (j > qpos[:, :, None] - window)
+        mask = mask[:, None]
 
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -422,18 +494,27 @@ def _contiguous_equals_paged(seed, H=16, KVH=8, Dh=128) -> bool:
                        paged_attention(q, kp, vp, tables, lens))
 
 
-def _flash_bitwise(kernel, q, k, v, off, got) -> bool:
-    """Keys past every row's causal frontier (a longer buffer) change
-    no bit, and a row alone == the row in the batch."""
+def _flash_bitwise(kernel, q, k, v, off, got, causal=True,
+                   window=None) -> bool:
+    """A row alone == the row in the batch; causal: keys past every
+    row's causal frontier (a longer buffer) change no bit; not causal:
+    rows 32..63 called alone over the same keys == those rows of the
+    whole call."""
     import torch
-    pad = torch.randn_like(k[:, :64])
-    longer = kernel(q, torch.cat([k, pad], 1), torch.cat([v, pad], 1),
-                    q_offset=off, causal=True)
-    alone = kernel(q[1:2], k[1:2], v[1:2], q_offset=off[1:2], causal=True)
-    return torch.equal(longer, got) and torch.equal(alone, got[1:2])
+    kw = dict(causal=causal, window=window)
+    alone = kernel(q[1:2], k[1:2], v[1:2], q_offset=off[1:2], **kw)
+    ok = torch.equal(alone, got[1:2])
+    if causal:
+        pad = torch.randn_like(k[:, :64])
+        longer = kernel(q, torch.cat([k, pad], 1), torch.cat([v, pad], 1),
+                        q_offset=off, **kw)
+        return ok and torch.equal(longer, got)
+    rows = kernel(q[:, 32:64].contiguous(), k, v, q_offset=off, **kw)
+    return ok and torch.equal(rows, got[:, 32:64])
 
 
-def _flash_chunked_equals_whole(kernel, q, k, v, whole) -> bool:
+def _flash_chunked_equals_whole(kernel, q, k, v, whole,
+                                window=None) -> bool:
     """Each row of a 32-row call at q_offset s over the first s + 32
     keys equals the same row of the whole prefill, for s in CHUNK_STARTS:
     chunked == whole prefill, held by the kernel itself."""
@@ -444,7 +525,7 @@ def _flash_chunked_equals_whole(kernel, q, k, v, whole) -> bool:
                          device=q.device)
         part = kernel(q[:, s:s + 32].contiguous(),
                       k[:, :s + 32].contiguous(), v[:, :s + 32].contiguous(),
-                      q_offset=off, causal=True)
+                      q_offset=off, causal=True, window=window)
         ok = ok and torch.equal(part, whole[:, s:s + 32])
     return ok
 
@@ -454,6 +535,7 @@ def phase_kernels():
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import components as Cm
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     results = {}
     # what this way of timing reads for a kernel that does next to
@@ -499,6 +581,24 @@ def phase_kernels():
                pool_pages=P,
                split=pa.SPLIT, grid_blocks=grid, working_blocks=working)
 
+    def ring_case(case, args, shape):
+        """Paged attention over pages of a whole ring each."""
+        got = pa.paged_attention(*args)
+        want = pa.paged_attention_plain(*args)
+        bitwise = _paged_bitwise(pa.paged_attention, *args, got)
+        torch.cuda.synchronize()
+        n_bytes, flops = _paged_numbers(*args)
+        grid, working = _paged_blocks(args[0], args[1], args[3], args[4],
+                                      pa.SPLIT)
+        record("paged_attention", case, got, want, bitwise,
+               time_ms(lambda: pa.paged_attention(*args), flush=flush),
+               time_ms(lambda: pa.paged_attention_plain(*args), iters=3,
+                       flush=flush),
+               time_ms(_sdpa_paged(*args), flush=flush),
+               n_bytes, flops, B=args[0].shape[0], T=1, **shape,
+               lengths=args[4].tolist(), page_size=args[1].shape[1],
+               split=pa.SPLIT, grid_blocks=grid, working_blocks=working)
+
     def contiguous(label, seed, **shape):
         same = _contiguous_equals_paged(seed, **shape)
         emit({"phase": "kernels", "check": "contiguous_decode_equals_paged",
@@ -508,29 +608,90 @@ def phase_kernels():
             fail(f"paged_attention [{label}]: the contiguous decode gives "
                  "other bits than the paged decode over the same keys")
 
-    def flash(case, q, k, v, off):
-        got = fa.flash_attention(q, k, v, q_offset=off, causal=True)
-        want = fa.flash_attention_plain(q, k, v, q_offset=off, causal=True)
-        bitwise = _flash_bitwise(fa.flash_attention, q, k, v, off, got)
+    def flash(case, q, k, v, off, causal=True, window=None, bitwise=None,
+              **extra):
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention(q, k, v, q_offset=off, **kw)
+        want = fa.flash_attention_plain(q, k, v, q_offset=off, **kw)
+        if bitwise is None:
+            bitwise = _flash_bitwise(fa.flash_attention, q, k, v, off, got,
+                                     **kw)
         chunked = None
         if case.startswith("prefill"):
             chunked = _flash_chunked_equals_whole(fa.flash_attention, q, k,
-                                                  v, got)
+                                                  v, got, window)
             if not chunked:
                 fail(f"flash_attention [{case}]: a 32-row chunk gives other "
                      "bits than the same rows of the whole prefill")
         torch.cuda.synchronize()
-        n_bytes, flops = _flash_numbers(q, k, v, off.tolist(), True)
+        n_bytes, flops = _flash_numbers(q, k, v, off.tolist(), causal,
+                                        window)
         record("flash_attention", case, got, want, bitwise,
                time_ms(lambda: fa.flash_attention(q, k, v, q_offset=off,
-                                                  causal=True), flush=flush),
+                                                  **kw), flush=flush),
                time_ms(lambda: fa.flash_attention_plain(
-                   q, k, v, q_offset=off, causal=True), iters=3,
+                   q, k, v, q_offset=off, **kw), iters=3,
                    flush=flush),
-               time_ms(_sdpa_flash(q, k, v, off, True), flush=flush),
+               time_ms(_sdpa_flash(q, k, v, off, causal, window),
+                       flush=flush),
                n_bytes, flops, B=q.shape[0], Sq=q.shape[1],
                Skv=k.shape[1], H=q.shape[2], KVH=k.shape[2], Dh=q.shape[3],
-               q_offset=off.tolist(), chunked_equals_whole=chunked)
+               q_offset=off.tolist(), causal=causal, window=window,
+               chunked_equals_whole=chunked, **extra)
+
+    def decode_row(case, q, k, v, pos, *, s_max=None, window=None,
+                   causal=True):
+        """Row ``pos`` of q (B 8, L, H, Dh) over the keys k, v (B, Lk,
+        KVH, Dh) as a family's decode step computes it: causal, through
+        ``components.flash_decode_attention`` over a cache of s_max slots
+        (the slots past pos hold other keys) or over a ring of ``window``
+        slots (slot = position % window); not causal (cross-attention),
+        one query row over every key.  Held against the plain version on
+        the kernel's inputs (``flash``) and over the linear history, and
+        bitwise against row pos of the whole call over the linear
+        history and against the row alone."""
+        B, kv_shape = q.shape[0], k.shape[2:]
+        qd = q[:, pos:pos + 1].contiguous()
+        zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+        whole = fa.flash_attention(q, k, v, q_offset=zeros, causal=causal,
+                                   window=window)
+        if not causal:
+            kc, vc, ka, va, off = k, v, k, v, 0
+
+            def step(qq, kk, vv):
+                return fa.flash_attention(qq, kk, vv, q_offset=0,
+                                          causal=False)
+        else:
+            if window is None:
+                kc = torch.cat([k, rnd(B, s_max - pos - 1, *kv_shape)], 1)
+                vc = torch.cat([v, rnd(B, s_max - pos - 1, *kv_shape)], 1)
+            else:
+                kc, vc = rnd(B, window, *kv_shape), rnd(B, window, *kv_shape)
+                held = torch.arange(max(0, pos + 1 - window), pos + 1,
+                                    device="cuda")
+                kc[:, held % window] = k[:, held]
+                vc[:, held % window] = v[:, held]
+            ka, va, off = Cm.flash_decode_layout(kc, vc, pos, window)
+
+            def step(qq, kk, vv):
+                return Cm.flash_decode_attention(qq, kk, vv, pos,
+                                                 window=window)
+        got = step(qd, kc, vc)
+        lin_off = torch.full((B,), pos if causal else 0, dtype=torch.int32,
+                             device="cuda")
+        lin_err, lin_ok = max_err(got, fa.flash_attention_plain(
+            qd, k, v, q_offset=lin_off, causal=causal, window=window))
+        checks = {"row_of_whole_call": torch.equal(got[:, 0], whole[:, pos]),
+                  "row_alone": torch.equal(step(qd[1:2], kc[1:2], vc[1:2]),
+                                           got[1:2])}
+        if not lin_ok:
+            fail(f"flash_attention [{case}]: the decode row is {lin_err} "
+                 "from the plain version over the linear history")
+        offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+        flash(case, qd, ka.contiguous(), va.contiguous(), offs, causal,
+              window, bitwise=all(checks.values()), pos=pos,
+              cache_slots=kc.shape[1], plain_linear_max_abs_err=lin_err,
+              **checks)
 
     def prefill_qkv(g, H, KVH, Dh):
         q = torch.randn(2, 512, H, Dh, generator=g, device="cuda").bfloat16()
@@ -575,6 +736,60 @@ def phase_kernels():
             paged(f"B8_T{T}_{label}", T, short, 154, 30 + 2 * i + T, shape)
         contiguous(label, 40 + i, **shape)
         flash(f"prefill_B2_S512_{label}", *prefill_qkv(g, H, KVH, Dh))
+
+    # the families' new cases.  recurrentgemma: a 2,048-token prefill
+    # under its 2,048-key window at Dh 256 (G 10), and its decode over
+    # the ring (the contiguous cache of 2,048 slots viewed as one page a
+    # row, every slot written); whisper-tiny: the encoder's attention
+    # over 1,500 frames and the decoder's cross-attention of a 64-token
+    # prompt over them, without a causal mask
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    (H, KVH), Dh, W = RG_HEADS, RG_DH, RG_WINDOW
+    zeros2 = torch.zeros(2, dtype=torch.int32, device="cuda")
+    flash(f"prefill_B2_S{W}_window{W}_dh{Dh}", rnd(2, W, H, Dh),
+          rnd(2, W, KVH, Dh), rnd(2, W, KVH, Dh), zeros2, window=W)
+    ring = {"H": H, "KVH": KVH, "Dh": Dh}
+    args = (rnd(8, 1, H, Dh), rnd(8, W, KVH, Dh), rnd(8, W, KVH, Dh),
+            torch.arange(8, dtype=torch.int32, device="cuda")[:, None],
+            torch.full((8,), W - 1, dtype=torch.int32, device="cuda"))
+    ring_case(f"B8_T1_ring{W}_dh{Dh}", args, ring)
+    H, Dh, F_ = WHISPER_HEADS, WHISPER_DH, WHISPER_FRAMES
+    zeros8 = torch.zeros(8, dtype=torch.int32, device="cuda")
+    k, v = rnd(8, F_, H, Dh), rnd(8, F_, H, Dh)
+    flash(f"encoder_B8_S{F_}_dh{Dh}", rnd(8, F_, H, Dh), k, v, zeros8,
+          causal=False)
+    q64 = rnd(8, 64, H, Dh)
+    flash(f"cross_B8_Sq64_Skv{F_}_dh{Dh}", q64, k, v, zeros8, causal=False)
+
+    # the families' decode rows (B 8, Sq 1) as their decode steps run
+    # them: deepseek G 1 and qwen2-vl G 7 at Dh 128 and whisper's
+    # self-attention at the last step's position (prompt + GEN - 2) over
+    # a cache of prompt + GEN slots; recurrentgemma's 2,048-slot ring at
+    # the last step's position and at one whose window starts in the
+    # third key tile; whisper's cross-attention of one row over the
+    # 1,500 frames
+    prompts = dict(FAMILIES_ON_CARD)
+    for label, (H, KVH, Dh), arch in (
+            ("deepseek_G1_dh128", ATTN_SHAPES["deepseek_G1_dh128"],
+             "deepseek-moe-16b"),
+            ("qwen2vl_G7_dh128", ATTN_SHAPES["qwen2vl_G7_dh128"],
+             "qwen2-vl-7b"),
+            ("whisper_self_G1_dh64", (WHISPER_HEADS, WHISPER_HEADS,
+                                      WHISPER_DH), "whisper-tiny")):
+        pos = prompts[arch] + GEN - 2
+        decode_row(f"decode_B8_{label}_pos{pos}", rnd(8, pos + 1, H, Dh),
+                   rnd(8, pos + 1, KVH, Dh), rnd(8, pos + 1, KVH, Dh), pos,
+                   s_max=prompts[arch] + GEN)
+    (H, KVH), Dh = RG_HEADS, RG_DH
+    for pos in (W + GEN - 2, W + 2 * 64 + 24):
+        decode_row(f"decode_B8_ring{W}_dh{Dh}_pos{pos}",
+                   rnd(8, pos + 1, H, Dh), rnd(8, pos + 1, KVH, Dh),
+                   rnd(8, pos + 1, KVH, Dh), pos, window=W)
+    H, Dh = WHISPER_HEADS, WHISPER_DH
+    decode_row(f"decode_cross_B8_Skv{F_}_dh{Dh}", q64, k, v, 63,
+               causal=False)
     del flush
     return results
 
@@ -824,6 +1039,7 @@ def phase_paper():
         probe[f"constant_index_{str(dt)[6:]}_ms"] = ms
     del x
     emit(probe)
+    _projection_cases(g, flush, record)
     del flush
     emit({"phase": "paper", "seconds": time.perf_counter() - t_phase,
           "launches": launches,
@@ -832,18 +1048,102 @@ def phase_paper():
     return results, launches
 
 
+#: the kernels of the serving path, whose launches the main-path runs
+#: count (the attention kernels and, since the projections moved onto
+#: it, the dataflow GEMM)
+PATH_KERNELS = ("flash_attention", "paged_attention", "gemm_dataflow")
+
+
+def _ops(name):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}.ops")
+
+
+def _projection_cases(g, flush, record) -> None:
+    """The dataflow GEMM as the serving path calls it: a projection
+    ``components.linear(x, W)`` of PROJ_ROWS rows, bf16, at PROJ_SHAPES;
+    the kernel (f32 out) against its plain version, ``torch.matmul``
+    (bf16 out, what a library projection returns) and the byte /
+    operation bound, with the producer it took and whether the first M
+    rows of a 2,048-row call give the bits of an M-row call (gated)."""
+    import torch
+    from repro_torch.kernels import gemm_dataflow as gd
+    from repro_torch.kernels.gemm_dataflow import ops as gd_ops
+    from repro_torch.models import components as C
+    for label, (K, N) in PROJ_SHAPES.items():
+        w = torch.randn(K, N, generator=g, device="cuda").bfloat16()
+        big = torch.randn(max(PROJ_ROWS), K, generator=g,
+                          device="cuda").bfloat16()
+        full = C.linear(big, w)
+        for M in PROJ_ROWS:
+            x = big[:M]
+            stable = torch.equal(C.linear(x, w), full[:M])
+            if not stable:
+                fail(f"gemm_dataflow [{label}, M {M}]: a row's bits depend "
+                     "on the row count of its call")
+            t_k = time_ms(lambda: gd.matmul(x, w), flush=flush)
+            t_l = time_ms(lambda: torch.matmul(x, w), flush=flush)
+            record("gemm_dataflow", f"proj_{label}_M{M}", gd.matmul(x, w),
+                   gd.matmul_plain(x, w), GEMM_ATOL, GEMM_RTOL, t_k,
+                   time_ms(lambda: gd.matmul_plain(x, w), iters=3,
+                           flush=flush),
+                   t_l, (M * K + K * N) * 2 + M * N * 4, 2 * M * N * K,
+                   BF16_FLOPS_PER_S, dataflow="output_stationary", M=M, K=K,
+                   N=N, dtype="bfloat16",
+                   producer=("tma" if gd_ops.producer_for(x, w) == gd_ops.TMA
+                             else "cp_async"),
+                   linear_ms=time_ms(lambda: C.linear(x, w), flush=flush),
+                   rows_stable_vs_2048=stable,
+                   kernel_over_library=t_k / t_l)
+
+
 def _launches_reset() -> None:
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    fa_ops.launches = 0
-    pa_ops.launches = 0
+    for name in PATH_KERNELS:
+        _ops(name).launches = 0
 
 
 def _launches_read() -> dict:
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    return {"flash_attention": fa_ops.launches,
-            "paged_attention": pa_ops.launches}
+    return {name: _ops(name).launches for name in PATH_KERNELS}
+
+
+def _n_products(model, *, decode: bool = False) -> int:
+    """The ``components.linear`` calls of one forward of ``model`` over
+    its layers: every 2D projection of every layer (routers and the f32
+    products included, the MoE experts' batched weights and the
+    embedding not), RWKV6's token-mix map as its 5 slices.  With
+    ``decode``, a whisper decode step's (the encoder and the cross
+    K/V run once, at prefill)."""
+    from repro_torch.models.base import flatten_specs
+    n = 0
+    for path, spec in flatten_specs(model.param_specs()):
+        shape, name = spec.init_shape, path[-1]
+        if (path[0] == "embed" or name in ("conv_w", "u", "ln_x_scale",
+                                           "ln_x_bias")):
+            continue
+        if decode and (path[0].startswith("enc_") or (
+                path[1:2] == ("cross_attn",) and name in ("wk", "wv"))):
+            continue
+        stacked = path[0] == "layers"
+        per_layer = shape[1:] if stacked else shape
+        count = shape[0] if stacked else 1
+        if name == "tm_w2":
+            n += 5 * count
+        elif len(per_layer) == 2:
+            n += count
+    return n
+
+
+def _launch_gates(model, st) -> dict:
+    """What the serving engine's dispatches (folded counters ``st``)
+    must have launched at the least: flash once a layer for each
+    prefill dispatch, paged once a layer for each decode or replay
+    step, the dataflow GEMM once a projection for each dispatch."""
+    L = model.cfg.n_layers
+    return {"flash_attention": L * int(st["n_prefill_dispatches"]),
+            "paged_attention": L * int(st["n_decode_steps"]
+                                       + st["n_replay_steps"]),
+            "gemm_dataflow": _n_products(model)
+            * int(st["n_total_dispatches"])}
 
 
 def phase_serve():
@@ -878,12 +1178,9 @@ def phase_serve():
     stats = serve_trace(engine, reqs, realtime=True)
     launches = _launches_read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    L = cfg.n_layers
-    want = {"flash_attention": L * stats["n_prefill_dispatches"],
-            "paged_attention": L * (stats["n_decode_steps"]
-                                    + stats["n_replay_steps"])}
+    want = _launch_gates(model, stats)
     bitwise = _bitwise_invariants(model, params, seed=8)
-    row_bits = _row_bits(programs.prepare_params(params), cfg)
+    row_bits = _row_bits(model, programs.prepare_params(params))
     emit({"phase": "serve", "arch": cfg.name, "n_params": n_params,
           "init_s": init_s, "requests": stats["requests"],
           "prompt_len": PROMPT_LEN, "gen": GEN, "batch": opts.batch,
@@ -911,6 +1208,7 @@ def phase_serve():
                  f"dispatches need {want[name]}")
     if not _bitwise_held(bitwise):
         fail(f"serve: a model-level bitwise invariant failed: {bitwise}")
+    _row_bits_gate("serve", row_bits)
     return model, params, programs, done, launches
 
 
@@ -1021,11 +1319,13 @@ def _rescore(model, params, reqs) -> dict:
     """Re-score every served token of ``reqs`` (all of one prompt length
     and one generation length) with one whole-sequence prefill of
     prompt + generated[:-1]: each token must be within TAU of the best
-    f32 logit at its position.  Exact agreement with the greedy oracle
-    is reported, not required (cuBLAS may pick its algorithm by the
-    number of rows, so a row's bf16 bits in a batched decode and in a
-    whole prefill can differ, and random-init logits sit on
-    knife-edges)."""
+    f32 logit at its position; and every served token against the
+    port's ``greedy_generate`` on the same prompts (engine == oracle:
+    ``oracle_token_match`` 1.0, which ``_oracle_gate`` requires, as the
+    reference's engine tests do).  The whole prefill is held to TAU,
+    not to equality: its attention runs the flash kernel where the
+    engine's decode runs the paged one, and random-init logits sit on
+    knife-edges."""
     import torch
     from repro_torch.serve import greedy_generate
     plen = {len(r.prompt) for r in reqs}
@@ -1066,6 +1366,16 @@ def phase_parity(model, params, done):
     if rec["max_gap"] > TAU:
         fail(f"parity: a served token is {rec['max_gap']} below the "
              f"best logit (tau {TAU})")
+    _oracle_gate("parity", rec)
+
+
+def _oracle_gate(where: str, rec: dict) -> None:
+    """Engine == greedy oracle: every served token equals the port's
+    lockstep ``greedy_generate`` on the same prompt."""
+    if rec["oracle_token_match"] != 1.0:
+        fail(f"{where}: engine != greedy oracle: "
+             f"{rec['oracle_exact_requests']} requests exact, token "
+             f"match {rec['oracle_token_match']}")
 
 
 def _kernel_group(name: str) -> str:
@@ -1195,10 +1505,7 @@ def _fleet_record(sub, model, params, backend, done, n_requests, wall,
     fleet's folded counters); then the sub-run's own ``gates``."""
     from repro_torch.launch.serve import fleet_of
     st = backend.stats()
-    L = model.cfg.n_layers
-    want = {"flash_attention": L * int(st["n_prefill_dispatches"]),
-            "paged_attention": L * int(st["n_decode_steps"]
-                                       + st["n_replay_steps"])}
+    want = _launch_gates(model, st)
     engines = fleet_of(backend)[1]
     done = sorted(done, key=lambda r: r.rid)
     toks = sum(len(r.generated) for r in done)
@@ -1407,7 +1714,7 @@ def phase_fleet(model, params, programs):
     and program bundle: (a) router, (b) churn and crash, (c) stream,
     (d) draft model.  Returns the attention kernels' launches summed
     over the sub-runs' measured drives."""
-    total = {"flash_attention": 0, "paged_attention": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     t0 = time.perf_counter()
     for sub in (_fleet_router, _fleet_churn, _fleet_stream, _fleet_draft):
         for k, n in sub(model, params, programs).items():
@@ -1470,17 +1777,47 @@ ROW_COUNTS = (1, 8, 16, 40, 256, 2048)
 PROBE_ROWS = 4096
 
 
-def _row_bits(params, cfg) -> dict:
+def _probe_layers(params):
+    """(name, parameters) of the first layer of each kind in a
+    parameter tree: ``layers[0]`` of a stacked stack, a leading
+    ``dense_layer_0``, the first unscanned ``layer_NN`` of each block
+    kind, whisper's ``enc_00`` and ``dec_00``."""
+    out, kinds = [], set()
+    for name in sorted(params):
+        node = params[name]
+        if name == "layers":
+            out.append(("layers/0", {k: _layer0(v) for k, v in node.items()}))
+        elif name.startswith(("dense_layer_", "enc_", "dec_", "layer_")) \
+                and "ln1" in node:
+            kind = (name.split("_")[0], tuple(sorted(node.get("mix", node))))
+            if kind not in kinds:
+                kinds.add(kind)
+                out.append((name, node))
+    return out
+
+
+def _layer0(tree):
+    if isinstance(tree, dict):
+        return {k: _layer0(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def _row_bits(model, params) -> dict:
     """Whether a row's bits depend on the rows it shares a call with,
-    for every product of layer 0 at this model's widths: each
-    projection ``x @ W`` in the compute dtype, an MoE's f32 router and
-    its experts' batched products (``bmm`` of (E, M, K) by (E, K, N)),
-    and the whole ``moe_block``.  The M rows from row 37 of a
+    for every product of the first layer of each kind (``_probe_layers``)
+    at this model's widths, called as the model calls it: each
+    projection through ``components.linear`` in the dtype its weight is
+    stored in (bf16 projections, f32 routers and gates), RWKV6's token
+    mix per slice, an MoE's experts' batched products (``bmm`` of (E, M,
+    K) by (E, K, N)) and the whole ``moe_block``; and the f32
+    unembedding (``components.unembed``).  The M rows from row 37 of a
     PROBE_ROWS-row input, called alone, are held against the same rows
     of the whole call (``torch.equal``).  Returns the row counts M at
-    which a product gave other bits, by product (empty: row-stable)."""
+    which a product gave other bits, by product (all empty:
+    row-stable)."""
     import torch
     from repro_torch.models import components as C
+    cfg = model.cfg
     g = torch.Generator(device=params["embed"]["tok"].device)
     g.manual_seed(13)
 
@@ -1494,30 +1831,48 @@ def _row_bits(params, cfg) -> dict:
                 if not torch.equal(fn(a[..., 37:37 + m, :].contiguous()),
                                    full[..., 37:37 + m, :])]
 
-    def layer0(tree, path=()):
+    def leaves(tree, path=()):
         for k, v in tree.items():
             if isinstance(v, dict):
-                yield from layer0(v, path + (k,))
+                yield from leaves(v, path + (k,))
             else:
-                yield "/".join(path + (k,)), v[0]
+                yield path + (k,), v
+    skip = {"conv_w", "u", "ln_x_scale", "ln_x_bias"}
     out = {}
-    for name, w in layer0(params["layers"]):
-        if name.endswith("router"):
-            w = w.float()
-            out[name] = unstable(lambda a: a @ w, rows(w.shape[0], w.dtype))
-        elif w.dim() == 2 and w.shape[0] > 1 and w.dtype == torch.bfloat16:
-            out[name] = unstable(lambda a: a @ w, rows(w.shape[0], w.dtype))
-        elif w.dim() == 3:
-            x = rows(w.shape[1], w.dtype)[None].expand(w.shape[0], -1, -1)
-            out[name] = unstable(lambda a: torch.bmm(a, w), x.contiguous())
-    if cfg.moe is not None:
-        ffn = dict(layer0(params["layers"]["ffn"]))
-        ffn = {k: v for k, v in ffn.items() if "/" not in k} | {
-            "shared": {k.split("/")[1]: v for k, v in ffn.items()
-                       if k.startswith("shared/")}}
-        out["moe_block"] = unstable(lambda a: C.moe_block(ffn, a, cfg)[0],
-                                    rows(cfg.d_model, torch.bfloat16)[None])
+    for layer, tree in _probe_layers(params):
+        for path, w in leaves(tree):
+            name = "/".join((layer,) + path)
+            if path[-1] in skip or w.dim() < 2 or w.shape[0] == 1:
+                continue
+            if path[-1] == "tm_w2":
+                for i in range(w.shape[0]):
+                    out[f"{name}[{i}]"] = unstable(
+                        lambda a: C.linear(a, w[i]), rows(w.shape[1],
+                                                           w.dtype))
+            elif w.dim() == 2:
+                out[name] = unstable(lambda a: C.linear(a, w),
+                                     rows(w.shape[0], w.dtype))
+            else:                             # (E, K, N) experts
+                x = rows(w.shape[1], w.dtype)[None].expand(w.shape[0], -1,
+                                                           -1)
+                out[name] = unstable(lambda a: torch.bmm(a, w),
+                                     x.contiguous())
+        ffn = tree.get("ffn", {})
+        if "router" in ffn:
+            out[f"{layer}/moe_block"] = unstable(
+                lambda a: C.moe_block(ffn, a, cfg)[0],
+                rows(cfg.d_model, torch.bfloat16)[None])
+    out["unembed"] = unstable(
+        lambda a: C.unembed(params["embed"], a, cfg),
+        rows(cfg.d_model, torch.float32))
     return out
+
+
+def _row_bits_gate(where: str, row_bits: dict) -> None:
+    bad = {k: v for k, v in row_bits.items() if v}
+    if bad:
+        fail(f"{where}: a product's row bits depend on the rows of its "
+             f"call: {bad}")
 
 
 def _serve_arch(name):
@@ -1562,10 +1917,7 @@ def _serve_arch(name):
         undo()
     launches = _launches_read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    L = cfg.n_layers
-    want = {"flash_attention": L * stats["n_prefill_dispatches"],
-            "paged_attention": L * (stats["n_decode_steps"]
-                                    + stats["n_replay_steps"])}
+    want = _launch_gates(model, stats)
     done = sorted(engine.finished, key=lambda r: r.rid)
     rescore = _rescore(model, params, done)
     bitwise = _bitwise_invariants(model, params, seed=9)
@@ -1588,7 +1940,7 @@ def _serve_arch(name):
            "rescore": rescore, "bitwise": bitwise}
     if seen is not None:
         rec["route"] = _route_check(seen, cfg)
-    rec["row_bits"] = _row_bits(params, cfg)
+    rec["row_bits"] = _row_bits(model, params)
     rec.update(seconds=time.perf_counter() - t0, card=nvidia_smi_line())
     emit(rec)
     if len(done) != N_REQUESTS or any(len(r.generated) != GEN
@@ -1598,6 +1950,7 @@ def _serve_arch(name):
     if not rescore["finite"] or rescore["max_gap"] > TAU:
         fail(f"archs [{cfg.name}]: re-score max gap {rescore['max_gap']} "
              f"(tau {TAU}), finite {rescore['finite']}")
+    _oracle_gate(f"archs [{cfg.name}]", rescore)
     for k, n in launches.items():
         if n < want[k] or n == 0:
             fail(f"archs [{cfg.name}]: {k} launched {n} times, the path's "
@@ -1605,6 +1958,7 @@ def _serve_arch(name):
     if not _bitwise_held(bitwise):
         fail(f"archs [{cfg.name}]: a model-level bitwise invariant failed: "
              f"{bitwise}")
+    _row_bits_gate(f"archs [{cfg.name}]", rec["row_bits"])
     return launches
 
 
@@ -1614,7 +1968,7 @@ def phase_archs():
     kernels' launches summed over their serve traces."""
     import gc
     import torch
-    total = {"flash_attention": 0, "paged_attention": 0}
+    total = dict.fromkeys(PATH_KERNELS, 0)
     t0 = time.perf_counter()
     for name in ARCHS_ON_CARD:
         for k, n in _serve_arch(name).items():
@@ -1626,8 +1980,304 @@ def phase_archs():
     return total
 
 
-def summary_line(kernel_results, launches):
-    """One entry for each kernel whose checks and path both ran."""
+# ------------------------------------------------------------ families
+def _family_config(name):
+    """(FULL config as run on the card, its cuts as {key: [published,
+    run]}): deepseek-moe at DEEPSEEK_CAPACITY; every width and depth as
+    published."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(name)
+    if cfg.moe is None:
+        return cfg, {}
+    run = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DEEPSEEK_CAPACITY))
+    return run, {"capacity_factor": [cfg.moe.capacity_factor,
+                                     DEEPSEEK_CAPACITY]}
+
+
+def _family_launch_gates(model, gen: int) -> dict:
+    """What one lockstep run (a prefill, then gen - 1 decode steps)
+    launches at the least.  These families do not page, so a decode
+    step's attention runs the flash kernel at one query row
+    (``components.flash_decode_attention``): flash once an attention
+    layer at prefill and at every step (whisper: its encoder layers
+    once, its decoder's self- and cross-attention at prefill and at
+    every step), paged never; the dataflow GEMM once a projection at
+    prefill and once a projection a step."""
+    cfg, steps = model.cfg, gen - 1
+    if cfg.is_encoder_decoder:
+        flash = cfg.n_encoder_layers + 2 * cfg.n_layers * (1 + steps)
+    else:
+        attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+        flash = attn * (1 + steps)
+    return {"flash_attention": flash, "paged_attention": 0,
+            "gemm_dataflow": _n_products(model)
+            + _n_products(model, decode=True) * steps}
+
+
+def _with_tokens(model, batch, tokens):
+    """``batch`` with ``tokens`` (B, S') in place of its prompt: text
+    M-RoPE positions to S', and, for a local-attention stack, the tokens
+    padded with id 0 to a multiple of the window (the reference's
+    S % window contract; causality keeps the padding out of every
+    earlier position)."""
+    import torch
+    import torch.nn.functional as F
+    cfg = model.cfg
+    if "local_attn" in cfg.layer_kinds:
+        tokens = F.pad(tokens, (0, -tokens.shape[1] % cfg.local_window))
+    out = dict(batch, tokens=tokens.contiguous())
+    if "mrope_positions" in batch:
+        B, S = tokens.shape
+        out["mrope_positions"] = torch.arange(
+            S, dtype=torch.int32, device=tokens.device)[None, None].expand(
+                B, 3, S)
+    return out
+
+
+def _rescore_family(model, params, batch, tokens) -> dict:
+    """Each generated token against a teacher-forced whole ``apply`` of
+    prompt + tokens[:, :-1]: within TAU of the best f32 logit at its
+    position (logits only at the generated positions)."""
+    import torch
+    plen, gen = batch["tokens"].shape[1], tokens.shape[1]
+    ctx = torch.cat([batch["tokens"], tokens[:, :-1]], 1)
+    with torch.no_grad():
+        h = model.apply(params, _with_tokens(model, batch, ctx),
+                        want_hidden=True)[:, plen - 1:plen - 1 + gen]
+        logits = model.logits(params, h)
+    chosen = logits.gather(-1, tokens.long()[..., None])[..., 0]
+    gap = logits.max(-1).values - chosen
+    return {"tau": TAU, "max_gap": float(gap.max()),
+            "mean_gap": float(gap.mean()),
+            "logit_std": float(logits.std()),
+            "teacher_forced_argmax_match": float(
+                (logits.argmax(-1) == tokens).float().mean()),
+            "finite": torch_isfinite(logits)}
+
+
+def _decode_extends_prefill(model, params, batch, tokens) -> dict:
+    """decode_step(prefill(x), t) against apply(x + t) at position S on
+    EXTEND_ROWS rows, t each row's first generated token: within
+    EXTEND_TOL (the reference's ``test_decode_step_extends_consistently``)."""
+    import torch
+    x = {k: v[:EXTEND_ROWS].contiguous() for k, v in batch.items()}
+    t = tokens[:EXTEND_ROWS, :1].contiguous()
+    S = x["tokens"].shape[1]
+    with torch.no_grad():
+        _, cache = model.prefill(params, x, max_len=S + 1)
+        got, _ = model.decode_step(params, cache, t)
+        ext = _with_tokens(model, x, torch.cat([x["tokens"], t], 1))
+        want = model.logits(params, model.apply(params, ext,
+                                                want_hidden=True)[:, S])
+    err, ok = max_err(got, want, EXTEND_TOL, EXTEND_TOL)
+    d = (got - want).abs()
+    return {"rows": EXTEND_ROWS, "max_abs_err": err, "tol": EXTEND_TOL,
+            "ok": ok, "diff_std": float(d.std()),
+            "beyond_tol": int((d > EXTEND_TOL + EXTEND_TOL * want.abs()
+                               ).sum()),
+            "compared": d.numel()}
+
+
+def _scan_forms(model, params, batch, tokens) -> dict:
+    """A reading for a stack with RG-LRU or RWKV6 blocks: the prompt's
+    recurrence against the decode step's, at full width.
+    * ``layer0_f32``: the first recurrent layer's recurrence over the
+      prompt on that layer's own input (all FAMILY_ROWS rows), f32
+      outputs before any rounding: the prefill's form (RG-LRU: the
+      associative scan; RWKV6: the reference's chunked WKV) against the
+      decode step's operations token by token; max |difference| and
+      max |output|.
+    RWKV6 only (its prefill runs step by step unless ``wkv_prefill=
+    "chunked"``), the two forms through the whole model:
+    * ``bf16_*``: the served model: the largest logit difference over
+      the last SCAN_LAST prompt positions of SCAN_ROWS rows, and decode
+      extends prefill (EXTEND_TOL) after a chunked prefill;
+    * ``f32_*``: the same difference in an f32 model on the same seed's
+      weights before the bf16 cast, and the bf16 model's distance from
+      it."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import rglru as R
+    from repro_torch.models import rwkv6 as W
+    from repro_torch.models.components import linear
+    cfg, dev = model.cfg, model.device
+    x = {k: v[:SCAN_ROWS].contiguous() for k, v in batch.items()}
+    out = {"rows": SCAN_ROWS, "positions": SCAN_LAST}
+
+    def last_logits(m, p):
+        h = m.apply(p, x, want_hidden=True)[:, -SCAN_LAST:]
+        return m.logits(p, h)
+
+    with torch.no_grad():
+        tok = batch["tokens"]
+        kind, _, lp = next(b for b in model._blocks(params)
+                           if b[0] in ("rglru", "rwkv"))
+        h = model._norm(lp["ln1"], model._embed(params, tok))
+        mix = lp["mix"]
+        if kind == "rglru":
+            u, _ = R.causal_conv1d(linear(h, mix["w_in"]), mix["conv_w"],
+                                   mix["conv_b"])
+            u = u.float()
+            prompt = R.rglru_scan(mix, u)[0]
+            steps, hs = [], torch.zeros_like(u[:, 0])
+            for t in range(u.shape[1]):
+                o, hs = R.rglru_step(mix, u[:, t:t + 1], hs)
+                steps.append(o)
+            steps = torch.cat(steps, 1)
+        else:
+            r, k, v, lw, u, _ = W.wkv_inputs(mix, h, cfg)
+            prompt = W.wkv_chunked(r, k, v, lw, u)[0]
+            steps = W.wkv_scan(r, k, v, lw, u)[0]
+        out["layer0_f32"] = {
+            "kind": kind, "rows": tok.shape[0],
+            "max_abs_diff": float((prompt - steps).abs().max()),
+            "max_abs_out": float(steps.abs().max())}
+        del prompt, steps
+        if kind == "rwkv":
+            chunked = build_model(cfg, device=dev, wkv_prefill="chunked")
+            s16 = last_logits(model, params)
+            out["bf16_step_vs_chunked"] = float(
+                (s16 - last_logits(chunked, params)).abs().max())
+            out["bf16_chunked_decode_extends_prefill"] = (
+                _decode_extends_prefill(chunked, params, batch,
+                                        tokens)["max_abs_err"])
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            m32 = build_model(cfg32, device=dev)
+            p32 = m32.init(seed=0)
+            s32 = last_logits(m32, p32)
+            out["f32_step_vs_chunked"] = float((s32 - last_logits(
+                build_model(cfg32, device=dev, wkv_prefill="chunked"),
+                p32)).abs().max())
+            out["bf16_step_vs_f32_step"] = float((s16 - s32).abs().max())
+            out["f32_logit_std"] = float(s32.std())
+            del p32
+    return out
+
+
+def _producers(params) -> dict:
+    """The producer the dataflow GEMM's bf16 pipeline takes for each
+    bf16 projection of the probed layers (``_probe_layers``), with the
+    rows of a fresh activation."""
+    import torch
+    from repro_torch.kernels.gemm_dataflow import ops as gd_ops
+    out = {}
+    for layer, tree in _probe_layers(params):
+        stack = [((layer,), tree)]
+        while stack:
+            path, node = stack.pop()
+            for k, w in node.items():
+                if isinstance(w, dict):
+                    stack.append((path + (k,), w))
+                elif w.dtype == torch.bfloat16 and w.dim() >= 2:
+                    w2 = w[0] if w.dim() == 3 else w
+                    x = torch.empty(8, w2.shape[0], dtype=w.dtype,
+                                    device=w.device)
+                    out["/".join(path + (k,))] = (
+                        "tma" if gd_ops.producer_for(x, w2) == gd_ops.TMA
+                        else "cp_async")
+    return out
+
+
+def _serve_family(name: str, prompt_len: int) -> dict:
+    """One lockstep-only family at full widths on the card: seeded random
+    init with the projections stored bf16 as they are drawn, a warm-up,
+    the ``--naive`` loop on FAMILY_ROWS prompts of the reference's
+    synthetic batch for GEN tokens, then its gates (every row finished,
+    the TAU re-score, decode extends prefill, the row-bits gate, the
+    launch counts) and readings (peaks, tok/s, each row against the
+    same prompt alone through ``greedy_generate``).  Returns the path
+    kernels' launches of the measured run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import run_naive, synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate
+    from repro_torch.serve.step import projection_cast
+    t0 = time.perf_counter()
+    cfg, reduced = _family_config(name)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, cast=projection_cast(model.dtype))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = _peak_gb()
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = synthetic_batch(cfg, FAMILY_ROWS, prompt_len, device="cuda")
+    with torch.no_grad():
+        run_naive(model, params, {k: v[:1] for k, v in batch.items()}, 2)
+        torch.cuda.reset_peak_memory_stats()
+        _launches_reset()
+        run = run_naive(model, params, batch, GEN)
+        launches = _launches_read()
+        peak_gb = _peak_gb()
+        tokens = run["tokens"]
+        alone = [torch.equal(greedy_generate(
+            model, params, {k: v[b:b + 1] for k, v in batch.items()}, GEN,
+            cache_len=prompt_len + GEN)[0], tokens[b])
+            for b in range(FAMILY_ROWS)]
+    want = _family_launch_gates(model, GEN)
+    rescore = _rescore_family(model, params, batch, tokens)
+    extend = _decode_extends_prefill(model, params, batch, tokens)
+    row_bits = _row_bits(model, params)
+    scan_forms = (_scan_forms(model, params, batch, tokens)
+                  if {"rglru", "rwkv"} & set(cfg.layer_kinds) else None)
+    full = configs.get(name)
+    gates = {
+        "all_finished": tuple(tokens.shape) == (FAMILY_ROWS, GEN),
+        "rescore_within_tau": rescore["finite"]
+        and rescore["max_gap"] <= TAU,
+        "decode_extends_prefill": extend["ok"],
+        "row_bits_stable": not any(row_bits.values()),
+        **{f"{k}_launched": launches[k] >= want[k]
+           and (launches[k] > 0 or want[k] == 0) for k in want}}
+    emit({"phase": "families", "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.n_layers, "layers_full": full.n_layers,
+          "reduced": reduced, "n_params": n_params,
+          "n_params_full": full.n_params(), "d_model": cfg.d_model,
+          "H": cfg.n_heads, "KVH": cfg.n_kv_heads, "Dh": cfg.head_dim,
+          "rows": FAMILY_ROWS, "prompt_len": prompt_len, "gen": GEN,
+          "init_s": init_s, "init_peak_mem_gb": init_peak_gb,
+          "peak_mem_gb": peak_gb, "prefill_s": run["prefill_s"],
+          "decode_s": run["decode_s"], "tok_per_s": run["tok_per_s"],
+          "decode_tok_per_s": run["decode_tok_per_s"],
+          "batched_equals_alone": sum(alone),
+          "launches": launches, "launches_expected": want,
+          "rescore": rescore, "decode_extends_prefill": extend,
+          "row_bits": row_bits, "scan_forms": scan_forms,
+          "producers": _producers(params),
+          "gates": gates, "seconds": time.perf_counter() - t0,
+          "card": nvidia_smi_line()})
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"families [{cfg.name}]: gates failed: {bad}")
+    return launches
+
+
+def phase_families():
+    """The five lockstep-only families one after the other on the card
+    (each freed before the next).  Returns the path kernels' launches
+    summed over their measured runs."""
+    import gc
+    import torch
+    total = dict.fromkeys(PATH_KERNELS, 0)
+    t0 = time.perf_counter()
+    for name, prompt_len in FAMILIES_ON_CARD:
+        for k, n in _serve_family(name, prompt_len).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    return total
+
+
+def summary_line(kernel_results, launches, by_phase):
+    """One entry for each kernel whose checks and path both ran, its
+    launches summed over the phases that ran it (``launches_by_phase``:
+    the paper path's and each main-path phase's)."""
     sources = {"paged_attention": ("paged_attention.cu",
                                    "paged_attention/kernel.py:89", "B8_T5"),
                "flash_attention": ("flash_attention.cu",
@@ -1655,12 +2305,13 @@ def summary_line(kernel_results, launches):
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"], "case": case})
+                    "library_ms": main["library_ms"], "case": case,
+                    "launches_by_phase": by_phase.get(name, {})})
     emit({"kernels": out})
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile", "fleet", "archs")) -> int:
+                 "profile", "fleet", "archs", "families")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -1681,7 +2332,12 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results, launches = {}, {}
+    results, launches, by_phase = {}, {}, {}
+
+    def count(new, phase):
+        for k, n in new.items():
+            launches[k] = launches.get(k, 0) + n
+            by_phase.setdefault(k, {})[phase] = n
     if "env" in phases:
         phase_env()
     if "kernels" in phases:
@@ -1689,26 +2345,26 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
     if "paper" in phases:
         paper_results, paper_launches = phase_paper()
         results.update(paper_results)
-        launches.update(paper_launches)
+        count(paper_launches, "paper")
     if "serve" in phases:
         model, params, programs, done, served = phase_serve()
-        launches.update(served)
+        count(served, "serve")
         if "parity" in phases:
             phase_parity(model, params, done)
         if "profile" in phases:
             phase_profile(model, params, programs)
         if "fleet" in phases:
-            for k, n in phase_fleet(model, params, programs).items():
-                launches[k] += n
+            count(phase_fleet(model, params, programs), "fleet")
         # the later phases' models need the card's memory
         del model, params, programs, done
         gc.collect()
         torch.cuda.empty_cache()
     if "archs" in phases:
-        for k, n in phase_archs().items():
-            launches[k] = launches.get(k, 0) + n
+        count(phase_archs(), "archs")
+    if "families" in phases:
+        count(phase_families(), "families")
     if results:
-        summary_line(results, launches)
+        summary_line(results, launches, by_phase)
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

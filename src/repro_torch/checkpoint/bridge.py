@@ -1,10 +1,13 @@
 """The reference's parameter tree <-> the port's parameters.
 
 The port lays its parameters out exactly like the reference's tree
-(``repro.models.lm.DecoderLM.param_specs``: layers stacked on axis 0,
-as ``lax.scan`` consumes them), so the bridge is a key-for-key copy
-that checks every key and shape against the port's own specs.  bf16
-leaves (numpy's ``ml_dtypes`` bfloat16) keep their bits.
+(``repro.models.lm.DecoderLM.param_specs``: a scanned stack on axis 0
+of ``layers``, as ``lax.scan`` consumes it, ``dense_layer_N`` and
+unscanned ``layer_NN`` blocks; whisper's ``enc_NN`` / ``dec_NN``), so
+the bridge is a key-for-key copy that checks every key and shape
+against the port's own specs (the shape each initializer makes: RWKV6's
+stacked ``w0`` is one value a layer in both packages).  bf16 leaves
+(numpy's ``ml_dtypes`` bfloat16) keep their bits.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.base import flatten_specs
-from ..models.lm import param_specs
+from ..models import param_specs
 
 __all__ = ["params_from_jax", "params_to_numpy", "to_tensor"]
 
@@ -57,9 +60,9 @@ def params_from_jax(tree, cfg, device=None) -> dict:
     out: dict = {}
     for path, ps in specs:
         arr = _get(tree, path)
-        if tuple(np.shape(arr)) != tuple(ps.shape):
+        if tuple(np.shape(arr)) != ps.init_shape:
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, "
-                             f"expected {ps.shape}")
+                             f"expected {ps.init_shape}")
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

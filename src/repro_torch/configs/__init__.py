@@ -1,6 +1,5 @@
-"""Architecture registry of the port: ``--arch <id>`` resolves here.
-
-Only the architectures the port runs are registered."""
+"""Architecture registry of the port: ``--arch <id>`` resolves here,
+for every architecture the reference builds."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +12,11 @@ _MODULES = {
     "stablelm-1.6b": "stablelm_16b",
     "qwen1.5-110b": "qwen15_110b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-tiny": "whisper_tiny",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -78,7 +78,7 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Total parameter count, from the port's own parameter specs."""
-        from ..models.lm import param_specs
+        from ..models import param_specs
         from ..models.base import flatten_specs
         return sum(math.prod(ps.shape)
                    for _, ps in flatten_specs(param_specs(self)))

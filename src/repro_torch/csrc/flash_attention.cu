@@ -25,7 +25,22 @@
 // accumulator fragments, and P is rounded to bf16 and packed straight
 // into the A fragments of the P V product (V read with ldmatrix.trans):
 // no score tile touches shared memory.  80 KB of shared memory a block
-// at Dh 128: two blocks per SM.
+// at Dh 128: two blocks per SM; 160 KB and one block at Dh 256.
+//
+// Head dims 64, 128 and 256.  At Dh 256 (recurrentgemma's local
+// attention) a warp's output accumulator alone is 128 f32 registers, so
+// the Q fragments are not kept in registers for the sweep but read
+// again from shared memory (ldmatrix) at every k16 step of Q K^T, and
+// one 160 KB block runs per SM; the arithmetic is the same.
+//
+// Sliding window (``window`` > 0): key j is visible to the query at
+// position p only if also j > p - window (the reference's mask).  The
+// sweep starts at the first tile any row of the q tile can see; a row
+// whose window starts in a later tile sees fully masked tiles first,
+// where its max stays -1e30 and p = 1 (its l and O are sums of
+// garbage), and the first tile with one of its keys multiplies both by
+// alpha = exp(-1e30 - m) = 0 exactly, so the row ends with the bits it
+// would have had starting at that tile.
 //
 // Summation structure (what makes chunked == whole prefill bitwise in
 // the port): keys are walked in tiles of KV_TILE anchored at absolute
@@ -86,17 +101,18 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, DH > 128 ? 1 : 2)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                        const __nv_bfloat16* __restrict__ k,   // (B,Skv,KVH,DH)
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ q_offset,      // (B,)
                        __nv_bfloat16* __restrict__ out,       // (B,Sq,H,DH)
                        int Sq, int Skv, int H, int KVH, int causal,
-                       float scale) {
+                       int window, float scale) {
     constexpr int KS = DH / 16;        // k16 steps of Q K^T
     constexpr int ND = DH / 8;         // n8 tiles of the output
     constexpr int TILE = KV_TILE * DH * 2;
+    constexpr bool Q_REGS = DH <= 128; // Q fragments kept in registers
 
     const int q0 = blockIdx.x * Q_TILE;
     const int h = blockIdx.y;
@@ -113,15 +129,18 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
     int kend = Skv;        // last key any row of this tile can see
     if (causal) kend = min(Skv, qoff + min(q0 + Q_TILE, Sq));
     const int ntiles = (kend + KV_TILE - 1) / KV_TILE;
+    // first tile any row of this tile can see (its first row's window)
+    const int tbeg = window > 0 ? max(0, qoff + q0 - window + 1) / KV_TILE
+                                : 0;
 
     const size_t kv_ld = (size_t)KVH * DH;
     const __nv_bfloat16* kb = k + ((size_t)b * Skv * KVH + kvh) * DH;
     const __nv_bfloat16* vb = v + ((size_t)b * Skv * KVH + kvh) * DH;
     load_rows<DH>(sq, q + ((size_t)b * Sq * H + h) * DH, (size_t)H * DH, q0,
                   Sq);
-    if (ntiles > 0) {
-        load_rows<DH>(sk, kb, kv_ld, 0, Skv);
-        load_rows<DH>(sv, vb, kv_ld, 0, Skv);
+    if (tbeg < ntiles) {
+        load_rows<DH>(sk, kb, kv_ld, tbeg * KV_TILE, Skv);
+        load_rows<DH>(sv, vb, kv_ld, tbeg * KV_TILE, Skv);
     }
     cp_async_commit();
 
@@ -134,10 +153,10 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
     for (int n = 0; n < ND; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    uint32_t qf[KS][4];
+    uint32_t qf[Q_REGS ? KS : 1][4];
 
-    for (int t = 0; t < ntiles; ++t) {
-        const int buf = t & 1;
+    for (int t = tbeg; t < ntiles; ++t) {
+        const int buf = (t - tbeg) & 1;
         if (t + 1 < ntiles) {
             load_rows<DH>(sk + (buf ^ 1) * TILE, kb, kv_ld,
                           (t + 1) * KV_TILE, Skv);
@@ -149,12 +168,14 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
             cp_async_wait<0>();
         }
         __syncthreads();
-        if (t == 0) {
+        if constexpr (Q_REGS) {
+            if (t == tbeg) {
 #pragma unroll
-            for (int ks = 0; ks < KS; ++ks)
-                ldsm_x4(sq + swz<DH>(warp * 16 + (lane & 15),
-                                     2 * ks + (lane >> 4)),
-                        qf[ks]);
+                for (int ks = 0; ks < KS; ++ks)
+                    ldsm_x4(sq + swz<DH>(warp * 16 + (lane & 15),
+                                         2 * ks + (lane >> 4)),
+                            qf[ks]);
+            }
         }
         const uint32_t kt = sk + buf * TILE, vt = sv + buf * TILE;
 
@@ -166,6 +187,15 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
             for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
+            uint32_t qa[4];
+            if constexpr (Q_REGS) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+            } else {
+                ldsm_x4(sq + swz<DH>(warp * 16 + (lane & 15),
+                                     2 * ks + (lane >> 4)),
+                        qa);
+            }
 #pragma unroll
             for (int n = 0; n < 8; n += 2) {
                 uint32_t bk[4];
@@ -173,8 +203,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                 ldsm_x4(kt + swz<DH>((n + (m >> 1)) * 8 + (lane & 7),
                                      2 * ks + (m & 1)),
                         bk);
-                mma(s[n], qf[ks], bk[0], bk[1]);
-                mma(s[n + 1], qf[ks], bk[2], bk[3]);
+                mma(s[n], qa, bk[0], bk[1]);
+                mma(s[n + 1], qa, bk[2], bk[3]);
             }
         }
 
@@ -189,11 +219,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
             for (int e = 0; e < 2; ++e) {
                 const int j = j0 + 8 * n + 2 * (lane & 3) + e;
                 const bool in = j < Skv;
-                s[n][e] = in && (!causal || j <= qpos0) ? s[n][e] * scale
-                                                        : NEG_INF;
-                s[n][e + 2] = in && (!causal || j <= qpos1)
-                                  ? s[n][e + 2] * scale
-                                  : NEG_INF;
+                const bool v0 = in && (!causal || j <= qpos0) &&
+                                (window <= 0 || j > qpos0 - window);
+                const bool v1 = in && (!causal || j <= qpos1) &&
+                                (window <= 0 || j > qpos1 - window);
+                s[n][e] = v0 ? s[n][e] * scale : NEG_INF;
+                s[n][e + 2] = v1 ? s[n][e + 2] * scale : NEG_INF;
                 mx0 = fmaxf(mx0, s[n][e]);
                 mx1 = fmaxf(mx1, s[n][e + 2]);
             }
@@ -267,7 +298,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const int* q_offset,
            void* out, int B, int Sq, int Skv, int H, int KVH, int causal,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
     const size_t smem = smem_bytes<DH>();
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<DH>,
@@ -278,23 +309,29 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), q_offset,
-        static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KVH, causal,
+        static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KVH, causal, window,
         1.0f / sqrtf((float)DH));
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// window: 0 for none, else keys j > position - window only.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_bf16(
         const void* q, const void* k, const void* v, const void* q_offset,
         void* out, int B, int Sq, int Skv, int H, int KVH, int Dh,
-        int causal, void* stream) {
+        int causal, int window, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     auto qo = static_cast<const int*>(q_offset);
     if (Dh == 64)
-        return launch<64>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal, s);
+        return launch<64>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+                          window, s);
     if (Dh == 128)
-        return launch<128>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal, s);
+        return launch<128>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+                           window, s);
+    if (Dh == 256)
+        return launch<256>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+                           window, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -70,7 +70,10 @@
 // over ~2,000 keys against a 0.017 ms bound; the per-row-group design
 // this replaces (synchronous loads into f32 shared memory, FMA
 // products) took 0.0755 / 0.0468 / 0.459 ms.  112 registers a thread
-// at Dh 128.
+// at Dh 128.  At Dh 256 (recurrentgemma's ring of 2,048 keys) the Q
+// fragments take 64 registers and the K/V double buffer 128 KB of
+// shared memory, so one block runs per SM with up to 255 registers a
+// thread.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -135,7 +138,7 @@ __device__ __forceinline__ void load_kv(uint32_t dk, uint32_t dv,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 4)
+__global__ void __launch_bounds__(THREADS, DH > 128 ? 1 : 4)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,        // (B,T,H,DH)
                        const __nv_bfloat16* __restrict__ k_pages,  // (P,ps,KVH,DH)
                        const __nv_bfloat16* __restrict__ v_pages,
@@ -541,6 +544,9 @@ extern "C" int repro_paged_attention_bf16(
                           T, H, KVH, ps, n, s);
     if (Dh == 128)
         return launch<128>(q, k_pages, v_pages, tb, ln, out, ws, counters, B,
+                           T, H, KVH, ps, n, s);
+    if (Dh == 256)
+        return launch<256>(q, k_pages, v_pages, tb, ln, out, ws, counters, B,
                            T, H, KVH, ps, n, s);
     return (int)cudaErrorInvalidValue;
 }

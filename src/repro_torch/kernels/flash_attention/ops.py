@@ -1,15 +1,15 @@
 """Blocked attention with an online softmax (whole-prompt and chunked
 prefill): the CUDA kernel's wrapper and its plain PyTorch version.
 
-``flash_attention(q, k, v, q_offset=0, causal=True)``:
+``flash_attention(q, k, v, q_offset=0, causal=True, window=None)``:
 
-* q ``(B, Sq, H, Dh)``; k/v ``(B, Skv, KVH, Dh)``; ``q_offset`` an int
-  or a ``(B,)`` int32 tensor — query i of row b sits at absolute
-  position ``q_offset[b] + i``.
-* Key j is visible to that query iff ``j < Skv`` and, if causal,
-  ``j <= q_offset[b] + i``: the function of
+* q ``(B, Sq, H, Dh)``; k/v ``(B, Skv, KVH, Dh)``, Dh 64, 128 or 256;
+  ``q_offset`` an int or a ``(B,)`` int32 tensor — query i of row b
+  sits at absolute position ``p = q_offset[b] + i``.
+* Key j is visible to that query iff ``j < Skv``, if causal ``j <= p``,
+  and with a ``window`` ``j > p - window``: the function of
   ``repro.models.components.flash_attention`` (per-row offset, ragged
-  Skv, GQA with kv head ``h // (H // KVH)``).
+  Skv, sliding window, GQA with kv head ``h // (H // KVH)``).
 * Keys are walked in fixed KV_TILE tiles anchored at position 0, so a
   row's result depends only on its own keys and offset: attention over
   a longer padded buffer with the same leading keys is bit-identical.
@@ -42,7 +42,7 @@ def _kernel():
     global _fn
     if _fn is None:
         f = load("flash_attention").repro_flash_attention_bf16
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _fn = f
@@ -60,30 +60,51 @@ def _offsets(q_offset, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(q_offset), dtype=torch.int32, device=device)
 
 
-def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True):
+#: query rows the plain version takes at once (bounds its temporaries)
+PLAIN_ROWS = 256
+
+
+def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True,
+                          window=None):
     """The kernel's function in plain PyTorch, with the kernel's tile
     partition and dtype contract (f32 scores and accumulation, p rounded
     to the value dtype before P.V).  Products are summed with
     ``(a * b).sum(-1)`` over a fixed length rather than ``matmul``: on
     the CPU an f32 GEMM's summation order depends on the number of rows,
     and chunked == whole prefill needs each row's bits to depend on that
-    row alone."""
+    row alone.  Query rows go PLAIN_ROWS at a time (a row's result does
+    not depend on the others)."""
+    B, Sq = q.shape[:2]
+    offs = _offsets(q_offset, B, q.device)
+    outs = [_plain_rows(q[:, i:i + PLAIN_ROWS], k, v, offs + i, causal,
+                        window)
+            for i in range(0, Sq, PLAIN_ROWS)]
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat(outs, 1) if outs else torch.empty_like(q)
+
+
+def _plain_rows(q, k, v, offs, causal, window):
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     dev = q.device
     scale = 1.0 / math.sqrt(Dh)
-    q_pos = (_offsets(q_offset, B, dev).long()[:, None]
-             + torch.arange(Sq, device=dev)[None])               # (B, Sq)
+    q_pos = offs.long()[:, None] + torch.arange(Sq, device=dev)[None]
     kend = Skv
     if causal and Sq:
         kend = min(Skv, int(q_pos.max()) + 1)
+    # the first tile any row sees: earlier tiles are masked for every
+    # row, and starting later gives the same bits (see the kernel)
+    kbeg = 0
+    if window is not None and Sq:
+        kbeg = max(0, int(q_pos.min()) - window + 1) // KV_TILE * KV_TILE
     qh = q.float().reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)
     m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((B, KVH, G, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KVH, G, Sq, Dh), dtype=torch.float32, device=dev)
-    for j0 in range(0, kend, KV_TILE):
+    for j0 in range(kbeg, kend, KV_TILE):
         j = j0 + torch.arange(KV_TILE, device=dev)
         in_kv = j < Skv
         jc = j.clamp(max=Skv - 1)
@@ -95,6 +116,8 @@ def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True):
         mask = in_kv[None, None, :]
         if causal:
             mask = mask & (j[None, None, :] <= q_pos[..., None])
+        if window is not None:
+            mask = mask & (j[None, None, :] > q_pos[..., None] - window)
         mask = mask.expand(B, Sq, KV_TILE)
         s = torch.where(mask[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -120,12 +143,15 @@ def _check(q, k, v):
         raise ValueError(f"H={H} is not a multiple of KVH={k.shape[2]}")
 
 
-def flash_attention(q, k, v, q_offset=0, causal: bool = True):
+def flash_attention(q, k, v, q_offset=0, causal: bool = True,
+                    window=None):
     """See the module docstring.  Returns ``(B, Sq, H, Dh)`` in q's
     dtype."""
     _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, q_offset, causal)
+        return flash_attention_plain(q, k, v, q_offset, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, Dh = q.shape
@@ -145,8 +171,8 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True):
         # int32 tables are read one value at a time
         if dt == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if Dh not in (64, 128):
-        raise ValueError(f"head_dim {Dh} unsupported (64 or 128)")
+    if Dh not in (64, 128, 256):
+        raise ValueError(f"head_dim {Dh} unsupported (64, 128 or 256)")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
@@ -154,7 +180,7 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True):
     launches += 1
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     qo.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KVH, Dh,
-                    int(causal),
+                    int(causal), int(window or 0),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "

@@ -197,8 +197,8 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths):
         # int32 tables are read one value at a time
         if dt == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if Dh not in (64, 128):
-        raise ValueError(f"head_dim {Dh} unsupported (64 or 128)")
+    if Dh not in (64, 128, 256):
+        raise ValueError(f"head_dim {Dh} unsupported (64, 128 or 256)")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out

@@ -17,10 +17,20 @@ per-request token streams, SLO classes (every 4th request is
 interactive), and ``--tenant-weights`` fair sharing.  On one GPU every
 replica shares the card.
 
+``--naive`` runs the lockstep loop instead (``run_naive``: one batched
+prefill of a synthetic batch, then one decode step at a time against
+the contiguous cache), the only way the reference serves the families
+that do not page (deepseek-moe's leading dense layer, qwen2-vl's
+M-RoPE, whisper's encoder-decoder, recurrentgemma, rwkv6); the engine
+refuses them, as the reference's does.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --smoke --device cpu --naive
+
 Runs on the GPU; ``--device cpu`` (with ``--smoke``) runs the plain
 PyTorch versions of the kernels on the CPU instead.  Weights are a
-random init from seed 0.  The reference launcher's ``--naive`` loop and
-its deprecated ``run_engine`` shim are not ported, nor is ``--tp``.
+random init from seed 0.  The reference launcher's deprecated
+``run_engine`` shim is not ported, nor is ``--tp``.
 """
 from __future__ import annotations
 
@@ -31,11 +41,13 @@ import numpy as np
 import torch
 
 from .. import configs
-from ..models.lm import DecoderLM
+from ..models import build_model
 from ..serve import Request, ServeOptions
+from ..serve.step import greedy, make_decode_step
 
-__all__ = ["synth_requests", "fleet_of", "backend_device", "serve_trace",
-           "run_stream", "main"]
+__all__ = ["synth_requests", "synthetic_batch", "fleet_of",
+           "backend_device", "serve_trace", "run_stream", "run_naive",
+           "main"]
 
 
 def synth_requests(cfg, n: int, prompt_len: int, gen: int,
@@ -60,6 +72,62 @@ def synth_requests(cfg, n: int, prompt_len: int, gen: int,
         reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=gen,
                             arrival=float(arrivals[i])))
     return reqs
+
+
+def synthetic_batch(cfg, batch: int, seq: int, *, seed: int = 0,
+                    step: int = 0, device=None) -> dict:
+    """The reference's synthetic batch, draw for draw
+    (``repro.data.pipeline.SyntheticPipeline(cfg, batch, seq,
+    seed).device_batch(step)`` on one host): markov-ish ``tokens`` and,
+    where the family takes them, stub ``frames`` (whisper),
+    ``mrope_positions`` (text positions, all three ids = t) and
+    ``patch_embeds`` (qwen2-vl); float inputs as bf16, as the
+    reference's ``device_batch`` casts them."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 0]))
+    v = cfg.vocab_size
+    base = rng.integers(0, v, size=(batch, 1), dtype=np.int32)
+    drift = rng.integers(0, 17, size=(batch, seq), dtype=np.int32)
+    tokens = ((base + np.cumsum(drift, axis=1)) % v).astype(np.int32)
+    out = {"tokens": torch.from_numpy(tokens)}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    if cfg.rope_kind == "mrope":
+        out["mrope_positions"] = torch.arange(seq, dtype=torch.int32)[
+            None, None].expand(batch, 3, seq).contiguous()
+    if cfg.n_patches:
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return {k: (t.to(device) if t.dtype == torch.int32
+                else t.to(device=device, dtype=torch.bfloat16))
+            for k, t in out.items()}
+
+
+def run_naive(model, params, batch: dict, gen: int) -> dict:
+    """The lockstep loop (the reference launcher's ``run_naive``): one
+    prefill of the whole batch with ``gen`` tokens of decode headroom,
+    then ``gen - 1`` decode steps of every row together, greedy.
+    Returns the generated tokens (B, gen) int32 and the prefill and
+    decode wall times (each ending in a device synchronize)."""
+    device = model.device
+    step = make_decode_step(model)
+    B, S = batch["tokens"].shape
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, batch, max_len=S + gen)
+    tok = greedy(last)[:, None]
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        tok, cache = step(params, cache, tok)
+        out.append(tok)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, 1), "prefill_s": t_prefill,
+            "decode_s": dt,
+            "decode_tok_per_s": B * (gen - 1) / max(dt, 1e-9),
+            "tok_per_s": B * gen / max(t_prefill + dt, 1e-9)}
 
 
 def fleet_of(backend):
@@ -204,6 +272,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--naive", action="store_true",
+                    help="lockstep greedy loop instead of the engine "
+                         "(batch --batch, the only path of the families "
+                         "that do not page)")
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens of system prompt shared by every "
@@ -223,14 +295,25 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = (configs.get_smoke if args.smoke else configs.get)(args.arch)
-    model = DecoderLM(cfg, device=args.device)
+    model = build_model(cfg, device=args.device)
     params = model.init(seed=0)
+    where = (torch.cuda.get_device_name(model.device)
+             if model.device.type == "cuda" else "cpu")
+    if args.naive:
+        stats = run_naive(model, params, synthetic_batch(
+            cfg, args.batch, args.prompt_len, device=model.device),
+            args.gen)
+        print(f"[{where}] prefill {args.batch}x{args.prompt_len} in "
+              f"{stats['prefill_s']:.2f}s; decoded {args.gen} tokens/seq "
+              f"in {stats['decode_s']:.2f}s "
+              f"({stats['decode_tok_per_s']:.1f} tok/s)")
+        print("generated ids (first seq):",
+              stats["tokens"][0, :16].tolist(), "...")
+        return stats
     reqs = synth_requests(cfg, args.requests, args.prompt_len, args.gen,
                           args.rate, prefix_len=args.shared_prefix)
     opts = ServeOptions.from_args(args).sized_for(
         reqs, shared_prefix=args.shared_prefix)
-    where = (torch.cuda.get_device_name(model.device)
-             if model.device.type == "cuda" else "cpu")
 
     if args.stream:
         stats = run_stream(opts, model, params, reqs, smoke=args.smoke)

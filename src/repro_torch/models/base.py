@@ -6,7 +6,7 @@ the reference's parameter tree so the weight bridge
 (``checkpoint/bridge.py``) is a key-for-key copy.  The initializers
 draw from the reference's *distributions* (``fan_in`` normal,
 ``normal(0.02)`` embeddings, zero RMSNorm scales, one LayerNorm
-scales, zero biases, f32 storage), not its
+scales, zero biases, uniform gates and mixes, f32 storage), not its
 bits: ``jax.random`` and ``torch.Generator`` give different numbers from
 one seed.
 """
@@ -18,8 +18,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "normal", "fan_in", "zeros", "ones",
-           "flatten_specs", "init_params"]
+__all__ = ["ParamSpec", "normal", "fan_in", "zeros", "ones", "uniform",
+           "linspace_first_axis", "flatten_specs", "init_params"]
 
 InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 
@@ -28,6 +28,18 @@ InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 class ParamSpec:
     shape: tuple
     init: Optional[InitFn] = None     # None -> fan_in(shape); f32 storage
+    #: a weight that enters its product in f32 (a router, RG-LRU's
+    #: gates, RWKV6's decay projection): never cast to the compute dtype
+    f32: bool = False
+
+    @property
+    def init_shape(self) -> tuple:
+        """The shape of the tensor the initializer makes: ``shape``,
+        except for ``linspace_first_axis``, which makes its first axis
+        only (as the reference's does)."""
+        if getattr(self.init, "first_axis_only", False):
+            return tuple(self.shape[:1])
+        return tuple(self.shape)
 
 
 def normal(stddev: float) -> InitFn:
@@ -44,6 +56,25 @@ def fan_in(shape: Sequence[int]) -> InitFn:
     exactly as the reference's ``models/base.py:fan_in`` counts it)."""
     fi = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
     return normal(1.0 / math.sqrt(max(fi, 1)))
+
+
+def uniform(lo: float = 0.0, hi: float = 1.0) -> InitFn:
+    def f(gen, shape, device):
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device).mul_(hi - lo).add_(lo)
+    return f
+
+
+def linspace_first_axis(lo: float, hi: float) -> InitFn:
+    """``linspace(lo, hi, shape[0])`` of shape ``(shape[0],)`` only: the
+    reference draws RWKV6's decay offset ``w0`` so, and when the leaf is
+    stacked over layers that gives one offset per layer (a scalar each,
+    broadcast over the channels), not one per channel."""
+    def f(gen, shape, device):
+        return torch.linspace(lo, hi, shape[0], dtype=torch.float32,
+                              device=device)
+    f.first_axis_only = True
+    return f
 
 
 def zeros(gen, shape, device):
@@ -65,9 +96,13 @@ def flatten_specs(tree, prefix: Tuple[str, ...] = ()
         yield from flatten_specs(tree[k], prefix + (k,))
 
 
-def init_params(spec_tree, seed: int, device: torch.device) -> dict:
+def init_params(spec_tree, seed: int, device: torch.device,
+                cast: Optional[Callable] = None) -> dict:
     """Initialize a ParamSpec tree from one seeded generator on
-    ``device``, leaves drawn in sorted-path order."""
+    ``device``, leaves drawn in sorted-path order.  ``cast(path, spec,
+    tensor)``, when given, maps each leaf as soon as it is drawn (the
+    serving programs' bf16 projections, so that a large model never
+    holds all of its f32 weights at once); the draws do not change."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     out: dict = {}
@@ -76,5 +111,6 @@ def init_params(spec_tree, seed: int, device: torch.device) -> dict:
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = init(gen, tuple(ps.shape), device)
+        leaf = init(gen, tuple(ps.shape), device)
+        node[path[-1]] = leaf if cast is None else cast(path, ps, leaf)
     return out

@@ -1,17 +1,19 @@
-"""Model primitives of the port: the subset of
-``repro.models.components`` that the paged serving path runs (norms,
-rotary, GQA attention with optional QKV bias, SwiGLU / GELU MLPs, the
-single-device mixture of experts, tied or untied embeddings), with the
-parameter specs of each part.
+"""Model primitives of the port: ``repro.models.components`` (norms,
+rotary and M-RoPE, sinusoidal positions, GQA attention with optional
+QKV bias, sliding-window and cross attention, SwiGLU / GELU MLPs, the
+single-device mixture of experts, tied or untied embeddings with the
+optional scale and logit soft-cap), with the parameter specs of each
+part.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
 weights stored f32 and cast to it at use, norms / RoPE / softmax / the
 unembedding in f32, attention with bf16 operands and f32 accumulation.
-Attention itself goes through the port's kernels
-(``kernels/flash_attention``, ``kernels/paged_attention``); the
-projections ``x @ W`` stay ``torch.matmul``, as the reference leaves
-them to XLA.
+Attention goes through the port's kernels (``kernels/flash_attention``,
+``kernels/paged_attention``), and every projection ``x @ W`` through
+``linear``: on the card the dataflow GEMM (``kernels/gemm_dataflow``,
+output-stationary), whose fixed 128-tiles and ascending k give a row
+the same bits whatever the number of rows in its call.
 
 Paged blocks write K/V into the page pool **in place** (the reference
 returns updated pages functionally).  The fused step's write/read
@@ -21,24 +23,85 @@ writes, and the two groups' write targets are disjoint.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention.ops import KV_TILE as FLASH_TILE
 from ..kernels.flash_attention import flash_attention
+from ..kernels.gemm_dataflow import Dataflow
+from ..kernels.gemm_dataflow import matmul as gemm_matmul
 from ..kernels.paged_attention import paged_attention
 from .base import ParamSpec, normal, ones, zeros
 
-__all__ = ["rms_norm", "layer_norm", "norm_specs", "apply_norm",
-           "rope_freqs", "apply_rope", "attn_specs", "project_qkv",
-           "out_proj", "mlp_specs", "mlp_block", "moe_specs",
+__all__ = ["linear", "row_sum", "rms_norm", "layer_norm", "norm_specs",
+           "apply_norm", "group_norm_heads", "rope_freqs", "apply_rope", "apply_mrope",
+           "sinusoid_pos", "sinusoid_pos_at", "attn_specs", "project_qkv",
+           "out_proj", "attention_block", "cross_attention_block",
+           "encode_cross_kv", "mlp_specs", "mlp_block", "moe_specs",
            "moe_capacity", "moe_route", "moe_block", "embed_specs",
            "embed_tokens", "unembed", "decode_attention",
+           "flash_decode_layout", "flash_decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
            "paged_verify_attention_block",
            "paged_chunk_attention_block"]
 
 
+# ---------------------------------------------------------- projection
+def linear(x, w, bias=None):
+    """``x @ w`` (+ ``bias``) in x's dtype: the one product every
+    projection of the port goes through.  x ``(..., K)``, w ``(K, N)``
+    (cast to x's dtype), bias ``(N,)`` added in x's dtype after the
+    product (the reference's order).
+
+    On the card the rows go through the dataflow GEMM kernel
+    (output-stationary: 128 x 128 x 128 tiles chosen by nothing but K
+    and N, k summed in ascending order, no split and no atomics), whose
+    f32 result is rounded once to x's dtype: a row has the same bits
+    whether its call has 1 row or 4,096.  A library GEMM picks its
+    kernel, and with it the summation order, by the shape, so the
+    engine's 8-row decode and the oracle's 16-row decode would not give
+    a row the same K/V.  On the CPU it is ``x @ w``."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu":
+        y = x @ w
+    else:
+        lead = x.shape[:-1]
+        y = gemm_matmul(x.reshape(-1, x.shape[-1]), w,
+                        Dataflow.OUTPUT_STATIONARY)
+        y = y.to(x.dtype).reshape(*lead, w.shape[1])
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
 # ---------------------------------------------------------------- norms
+def row_sum(x, dim: int = -1):
+    """Sum over ``dim`` (kept, size 1) by halving: zero-pad to a power
+    of two, then add the upper half onto the lower one until one value
+    is left.  Every step is elementwise, so a row's sum is the same
+    fixed tree of f32 additions whatever the other rows of the call: a
+    library reduction picks its split of the work, and with it the
+    order of the additions, by the number of rows (measured on the card:
+    a LayerNorm row's bits at 2 or 8 rows differed from the same row in
+    a 4,096-row call), which made a decode step's rows differ from the
+    prefill's."""
+    n = x.shape[dim]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [0, p - n]
+        x = F.pad(x, pad)
+    while p > 1:
+        p //= 2
+        x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
+    return x
+
+
+def row_mean(x, dim: int = -1):
+    return row_sum(x, dim) / x.shape[dim]
+
+
 def rms_norm(x, scale, eps: float):
     """RMSNorm scaled by ``1 + scale`` (zero-initialized scale), in f32."""
     dt = x.dtype
@@ -49,11 +112,14 @@ def rms_norm(x, scale, eps: float):
 
 def layer_norm(x, scale, bias, eps: float):
     """LayerNorm scaled by ``scale`` (one-initialized), plus ``bias``
-    when given, in f32."""
+    when given, in f32.  Its mean and variance sum with ``row_sum``:
+    ``torch.mean`` gave a row other bits at 2 or 8 rows than in a
+    4,096-row call at widths 2,048 and 5,120 on the card, where it gave
+    RMSNorm's mean of squares the same bits at every row count."""
     dt = x.dtype
     x = x.float()
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    mu = row_mean(x)
+    var = row_mean(torch.square(x - mu))
     y = (x - mu) * torch.rsqrt(var + eps)
     y = y * scale.float()
     if bias is not None:
@@ -72,6 +138,17 @@ def apply_norm(p, x, kind: str, eps: float):
     if kind == "rmsnorm":
         return rms_norm(x, p["scale"], eps)
     return layer_norm(x, p["scale"], p.get("bias"), eps)
+
+
+def group_norm_heads(x, scale, bias, eps: float):
+    """GroupNorm with one group per head; x (B, S, H, Dh), in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = row_mean(x)
+    var = row_mean(torch.square(x - mu))
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(dt)
 
 
 # ----------------------------------------------------------------- rope
@@ -99,6 +176,49 @@ def apply_rope(x, positions, *, theta: float = 1e4, fraction: float = 1.0):
     return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
+def apply_mrope(x, positions, *, theta: float, sections: tuple):
+    """Multimodal RoPE (Qwen2-VL): positions (B, 3, S) carry the
+    (temporal, height, width) ids; the Dh / 2 frequency slots are split
+    into ``sections``, each rotated by its own position id."""
+    dh = x.shape[-1]
+    half = dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    freqs = rope_freqs(dh, theta, x.device)                  # (half,)
+    owner = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))             # (half,)
+    pos = positions.float()                                  # (B, 3, S)
+    ang = pos[:, owner].permute(0, 2, 1) * freqs             # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _sinusoid(pos, d: int):
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=pos.device)
+                    * (-math.log(10000.0) / d))
+    ang = pos.float()[:, None] * div
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                     device=pos.device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoid_pos(seq: int, d: int, device):
+    """Sinusoidal embeddings of positions 0 .. seq - 1: (seq, d) f32."""
+    return _sinusoid(torch.arange(seq, device=device), d)
+
+
+def sinusoid_pos_at(pos, d: int):
+    """Sinusoidal embedding at dynamic positions; pos (B,) -> (B, d)."""
+    return _sinusoid(pos, d)
+
+
 # ------------------------------------------------------------ attention
 def attn_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
@@ -115,26 +235,24 @@ def attn_specs(cfg) -> dict:
     return p
 
 
-def project_qkv(p, x, cfg, positions):
+def project_qkv(p, x, cfg, positions, mrope_positions=None):
     """x: (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KVH, Dh), QKV bias
-    (added in the compute dtype after the product), qk-norm and RoPE
-    applied.  ``p`` is one layer's attention parameters."""
+    (added in the compute dtype after the product), qk-norm and RoPE or
+    M-RoPE applied.  ``p`` is one layer's attention parameters."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, h, hd)
-    k = k.reshape(B, S, kvh, hd)
-    v = v.reshape(B, S, kvh, hd)
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, h, hd)
+    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, kvh, hd)
+    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_kind == "rope":
+    if cfg.rope_kind == "mrope":
+        q = apply_mrope(q, mrope_positions, theta=cfg.rope_theta,
+                        sections=cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, theta=cfg.rope_theta,
+                        sections=cfg.mrope_sections)
+    elif cfg.rope_kind == "rope":
         q = apply_rope(q, positions, theta=cfg.rope_theta,
                        fraction=cfg.rope_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
@@ -145,8 +263,69 @@ def project_qkv(p, x, cfg, positions):
 def out_proj(p, out):
     """(B, S, H, Dh) attention output -> (B, S, D)."""
     B, S = out.shape[:2]
-    out = out.reshape(B, S, -1)
-    return out @ p["wo"].to(out.dtype)
+    return linear(out.reshape(B, S, -1), p["wo"])
+
+
+def attention_block(p, x, cfg, *, positions, causal: bool = True,
+                    window=None, mrope_positions=None, cache=None,
+                    cache_pos=None, paged: bool):
+    """The attention sub-layer on the contiguous path (the reference's
+    ``attention_block``).  Returns (out (B, S, D), kv).
+
+    Without ``cache`` (prefill): attention over the sequence through the
+    flash kernel (causal or not, with the sliding ``window`` of local
+    attention), and kv = this layer's {"k", "v"} in the compute dtype.
+    With ``cache`` ({"k", "v"}: (B, S_max, KVH, Dh)), one decode step at
+    position ``cache_pos``: the token's K/V is written into the cache in
+    place and attention runs over it.  A windowed layer's cache is a
+    ring of ``window`` slots (the prefill keeps its last ``window``
+    keys): the token goes to slot ``cache_pos % window``.
+
+    ``paged`` is the model's ``supports_paged_decode()``.  A decode
+    step of a model the engine serves runs the paged kernel, as the
+    engine's decode does, so this lockstep path is its bit-for-bit
+    oracle; any other model's runs the flash kernel at one query row
+    (``flash_decode_attention``), which gives the bits of the same row
+    of a whole prefill: decode extends prefill exactly."""
+    q, k, v = project_qkv(p, x, cfg, positions, mrope_positions)
+    if cache is None:
+        if window is not None and x.shape[1] % window:
+            # the reference's local_attention contract
+            raise ValueError(f"local attention needs S % window == 0, got "
+                             f"S = {x.shape[1]}, window = {window}")
+        out = flash_attention(q, k, v, q_offset=0, causal=causal,
+                              window=window)
+        return out_proj(p, out), {"k": k, "v": v}
+    kc, vc = cache["k"], cache["v"]
+    ring = window is not None and kc.shape[1] == window
+    slot = cache_pos % window if ring else cache_pos
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    if paged and window is None:
+        out = decode_attention(q, kc, vc, cache_pos + 1)
+    else:
+        out = flash_decode_attention(q, kc, vc, cache_pos, window=window)
+    return out_proj(p, out), cache
+
+
+def cross_attention_block(p, x, enc_kv, cfg):
+    """Decoder cross-attention (whisper); ``enc_kv`` = (k, v) of the
+    encoder output, (B, S_enc, KVH, Dh) each, attended whole (not
+    causal) through the flash kernel."""
+    B, S, _ = x.shape
+    q = linear(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv
+    out = flash_attention(q.contiguous(), k, v, q_offset=0, causal=False)
+    return out_proj(p, out)
+
+
+def encode_cross_kv(p, enc_out, cfg):
+    """The cross-attention K/V of one decoder layer from the encoder
+    output (B, S_enc, D): computed once per prompt."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    return (linear(enc_out, p["wk"]).reshape(shape).contiguous(),
+            linear(enc_out, p["wv"]).reshape(shape).contiguous())
 
 
 def decode_attention(q, k_cache, v_cache, pos: int):
@@ -161,6 +340,34 @@ def decode_attention(q, k_cache, v_cache, pos: int):
     tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
     lengths = torch.full((B,), pos - 1, dtype=torch.int32, device=q.device)
     return paged_attention(q, k_cache, v_cache, tables, lengths)
+
+
+def flash_decode_layout(k_cache, v_cache, pos: int, window=None):
+    """(k, v, q_offset) that ``flash_decode_attention`` gives the flash
+    kernel for the query at position ``pos``: a contiguous cache as it
+    is, or a ring of ``window`` slots that has wrapped laid out in
+    position order from the start of the 64-key tile that holds its
+    oldest position (earlier slots of that tile hold newer keys, which
+    the window masks)."""
+    if window is not None and k_cache.shape[1] == window and pos >= window:
+        base = (pos + 1 - window) // FLASH_TILE * FLASH_TILE
+        idx = torch.arange(base, pos + 1, device=k_cache.device) % window
+        return k_cache[:, idx], v_cache[:, idx], pos - base
+    return k_cache, v_cache, pos
+
+
+def flash_decode_attention(q, k_cache, v_cache, pos: int, window=None):
+    """The query at position ``pos`` (q (B, 1, H, Dh)) against a
+    contiguous cache holding positions 0 .. pos (B, S_max, KVH, Dh), or
+    against a ring of ``window`` slots holding the last ``window``
+    positions at slot position % window, through the flash kernel.
+
+    The kernel walks keys in tiles anchored at position 0 (a ring's
+    layout keeps that anchoring), so the row gets the bits of row
+    ``pos`` of a whole prefill over the same keys."""
+    k, v, off = flash_decode_layout(k_cache, v_cache, pos, window)
+    return flash_attention(q, k, v, q_offset=off, causal=True,
+                           window=window)
 
 
 def chunk_scatter_targets(starts, n_valid, table_rows, n_tokens: int,
@@ -246,8 +453,10 @@ def paged_chunk_attention_block(p, x, cfg, *, positions, starts, n_valid,
 
 
 # ------------------------------------------------------------------ mlp
-def mlp_specs(cfg) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg, d_ff=None) -> dict:
+    """A dense FFN of width ``d_ff`` (default ``cfg.d_ff``; a leading
+    dense layer of an MoE stack takes ``moe.dense_d_ff``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_kind == "gelu":
         return {"w1": ParamSpec((d, f)), "b1": ParamSpec((f,), init=zeros),
                 "w2": ParamSpec((f, d)), "b2": ParamSpec((d,), init=zeros)}
@@ -259,19 +468,17 @@ def mlp_block(p, x, cfg):
     """Dense FFN in the compute dtype: SwiGLU silu(x Wg) * (x Wu) Wd, or
     GELU (tanh approximation, ``jax.nn.gelu``'s default) with biases."""
     if cfg.mlp_kind == "gelu":
-        h = x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype)
-        h = F.gelu(h, approximate="tanh")
-        return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
-    g = F.silu(x @ p["wg"].to(x.dtype))
-    u = x @ p["wu"].to(x.dtype)
-    return (g * u) @ p["wd"].to(x.dtype)
+        h = F.gelu(linear(x, p["w1"], p["b1"]), approximate="tanh")
+        return linear(h, p["w2"], p["b2"])
+    g = F.silu(linear(x, p["wg"]))
+    return linear(g * linear(x, p["wu"]), p["wd"])
 
 
 # ------------------------------------------------------------------ moe
 def moe_specs(cfg) -> dict:
     m = cfg.moe
     d, fe, e = cfg.d_model, m.d_expert_ff, m.n_experts
-    p = {"router": ParamSpec((d, e), init=normal(0.02)),
+    p = {"router": ParamSpec((d, e), init=normal(0.02), f32=True),
          "wg": ParamSpec((e, d, fe)), "wu": ParamSpec((e, d, fe)),
          "wd": ParamSpec((e, fe, d))}
     if m.n_shared:
@@ -294,7 +501,7 @@ def moe_route(p, xf, cfg):
     descending sort, so ties go to the lower expert id, as
     ``lax.top_k``'s do."""
     m = cfg.moe
-    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    probs = torch.softmax(linear(xf.float(), p["router"]), dim=-1)
     topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = topw[:, :m.top_k], topi[:, :m.top_k]
     if m.normalize_router:
@@ -312,7 +519,8 @@ def moe_block(p, x, cfg):
     written to a spare slot C that no product reads, and read back from
     a zero row there.  The experts' SwiGLU runs as (E, C, D) batched
     products in the compute dtype; the gate-weighted outputs are added
-    back per token, then the shared expert's dense SwiGLU."""
+    back per token in choice order, then the shared expert's dense
+    SwiGLU."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, K = B * S, m.n_experts, m.top_k
@@ -332,14 +540,19 @@ def moe_block(p, x, cfg):
     g = F.silu(torch.bmm(x_e, p["wg"].to(x.dtype)))
     u = torch.bmm(x_e, p["wu"].to(x.dtype))
     y_e = F.pad(torch.bmm(g * u, p["wd"].to(x.dtype)), (0, 0, 0, 1))
-    y_tok = y_e[eid, pos]                                    # (T*K, D)
-    y = x.new_zeros(T, D).index_add_(
-        0, tok, y_tok * gate[:, None].to(x.dtype))
+    # each token's K gate-weighted outputs summed in choice order, one
+    # rounded add at a time from zero (the reference's scatter-add
+    # order); an atomic index_add_ would sum them in whatever order
+    # the card's threads arrive, so a row's bits would depend on the
+    # other rows of its call and differ between runs
+    y_k = (y_e[eid, pos] * gate[:, None].to(x.dtype)).reshape(T, K, D)
+    y = x.new_zeros(T, D)
+    for k in range(K):
+        y = y + y_k[:, k]
     if m.n_shared:
         sp = p["shared"]
-        sg = F.silu(xf @ sp["wg"].to(x.dtype))
-        su = xf @ sp["wu"].to(x.dtype)
-        y = y + (sg * su) @ sp["wd"].to(x.dtype)
+        sg = F.silu(linear(xf, sp["wg"]))
+        y = y + linear(sg * linear(xf, sp["wu"]), sp["wd"])
     me = probs.mean(dim=0)
     ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
     return y.reshape(B, S, D), E * torch.sum(me * ce)
@@ -354,7 +567,10 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(p, tokens, cfg, dtype):
-    return p["tok"][tokens.long()].to(dtype)
+    x = p["tok"][tokens.long()].to(dtype)
+    if cfg.scale_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
 
 
 #: rows per unembedding product (see ``unembed``)
@@ -363,7 +579,8 @@ UNEMBED_ROWS = 64
 
 def unembed(p, x, cfg):
     """Unembedding in f32: (..., D) -> (..., V), through the tied
-    embedding table or the untied ``head``.
+    embedding table or the untied ``head``, soft-capped as
+    ``c tanh(logits / c)`` when the config sets ``logit_softcap``.
 
     The rows go through the f32 product in tiles of UNEMBED_ROWS, the
     last one zero-padded, so every product has the same shape.  A BLAS
@@ -384,4 +601,8 @@ def unembed(p, x, cfg):
     for i in range(0, M + pad, UNEMBED_ROWS):
         torch.matmul(x2[i:i + UNEMBED_ROWS], w,
                      out=logits[i:i + UNEMBED_ROWS])
-    return logits[:M].reshape(*lead, -1)
+    logits = logits[:M].reshape(*lead, -1)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits

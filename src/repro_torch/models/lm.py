@@ -1,14 +1,20 @@
-"""Decoder-only LM of the port: the scanned all-attention stacks that
-the reference serves through its paged engine (qwen3, qwen2, qwen1.5,
-stablelm, llama4-scout's MoE) — the counterpart of
-``repro.models.lm.DecoderLM``.
+"""Decoder-only LM of the port, the counterpart of
+``repro.models.lm.DecoderLM``: every stack the reference builds as a
+decoder — the scanned attention stacks it serves through its paged
+engine (qwen3, qwen2, qwen1.5, stablelm, llama4-scout's MoE) and the
+stacks it runs only on the contiguous-cache (lockstep) path:
+deepseek-moe's leading dense layer before a scanned MoE stack,
+qwen2-vl's M-RoPE with the patch-embedding stub, recurrentgemma's
+unscanned (RG-LRU, RG-LRU, local attention) pattern with scaled
+embeddings and soft-capped logits, and RWKV6's attention-free stack.
 
 Parameters are a nested dict of tensors laid out exactly like the
-reference's tree, with every layer's weights stacked on a leading L
-axis (the reference's ``lax.scan`` layout), so the weight bridge
-(``checkpoint/bridge.py``) is a key-for-key copy.  A Python loop over
-layers takes the place of ``lax.scan``; each layer reads views of the
-stacked tensors.
+reference's tree, so the weight bridge (``checkpoint/bridge.py``) is a
+key-for-key copy: a stack of identical blocks is stacked on a leading
+axis under ``layers`` (the reference's ``lax.scan`` layout), leading
+dense layers are ``dense_layer_N``, and a heterogeneous stack is
+unscanned, one ``layer_NN`` each.  A Python loop over layers takes the
+place of ``lax.scan``; each layer reads views of the stacked tensors.
 
 Entry points:
 
@@ -18,19 +24,27 @@ Entry points:
 * ``decode_step``   one token against the contiguous cache.
 * ``prefill_chunk_paged`` / ``decode_step_paged`` / ``verify_step_paged``
   / ``fused_step_paged``  the serve engine's programs over the paged
-  KV pool (``serve/kv_cache.py``).
+  KV pool (``serve/kv_cache.py``), for the stacks that page
+  (``supports_paged_decode``).
+
+``apply`` and ``prefill`` take a (B, S) token tensor or, as the
+reference does, a batch dict with ``tokens`` and optionally
+``patch_embeds`` (B, n_patches, D) and ``mrope_positions`` (B, 3, S).
 
 Caches and page pools are updated **in place** (the reference returns
 new arrays); each program returns the state it was given.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from ..device import resolve_device
 from . import components as C
+from . import rglru as R
+from . import rwkv6 as W
 from .base import ParamSpec, init_params
 
 __all__ = ["DecoderLM", "param_specs"]
@@ -38,44 +52,63 @@ __all__ = ["DecoderLM", "param_specs"]
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _check_supported(cfg) -> None:
-    """The port runs the stacks the reference pages (a scan of identical
-    attention blocks: ``DecoderLM.supports_paged_decode``); anything
-    else raises instead of computing something else."""
-    unported = {
-        "first_dense": cfg.moe is not None and cfg.moe.first_dense > 0,
-        "block_pattern": set(cfg.layer_kinds) != {"attn"},
-        "mrope": cfg.rope_kind == "mrope",
-        "scale_embeddings": cfg.scale_embeddings,
-        "logit_softcap": bool(cfg.logit_softcap),
-        "encoder-decoder": cfg.is_encoder_decoder,
-    }
-    missing = [k for k, bad in unported.items() if bad]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet ({', '.join(missing)})")
-
-
 def _stack(tree, n: int):
     """Prefix every leaf's shape with a stacked layer axis of ``n``."""
     if isinstance(tree, ParamSpec):
-        return ParamSpec((n,) + tuple(tree.shape), tree.init)
+        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape))
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
-def param_specs(cfg) -> dict:
-    """The reference's parameter tree for a scanned stack, f32 storage
-    (``param_dtype="float32"``): every block's norms, attention and FFN
-    (MLP or MoE) stacked on a leading layer axis."""
+def _first_dense(cfg) -> int:
+    return cfg.moe.first_dense if cfg.moe is not None else 0
+
+
+def _scanned(cfg) -> bool:
+    """The reference's rule: the layers after the leading dense ones
+    are stacked iff they are all of one kind."""
+    return len(set(cfg.layer_kinds[_first_dense(cfg):])) == 1
+
+
+def _block_specs(cfg, kind: str, use_moe: bool, dense_ff=None) -> dict:
     d = cfg.d_model
-    block = {"ln1": C.norm_specs(d, cfg.norm_kind),
-             "mix": C.attn_specs(cfg),
-             "ln2": C.norm_specs(d, cfg.norm_kind),
-             "ffn": (C.moe_specs(cfg) if cfg.moe is not None
-                     else C.mlp_specs(cfg))}
-    return {"embed": C.embed_specs(cfg),
-            "final_norm": C.norm_specs(d, cfg.norm_kind),
-            "layers": _stack(block, cfg.n_layers)}
+    if kind in ("attn", "local_attn"):
+        mix = C.attn_specs(cfg)
+    elif kind == "rglru":
+        mix = R.rglru_block_specs(cfg)
+    elif kind == "rwkv":
+        mix = W.rwkv_time_specs(cfg)
+    else:
+        raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+    if kind == "rwkv":
+        ffn = W.rwkv_ffn_specs(cfg)
+    elif use_moe:
+        ffn = C.moe_specs(cfg)
+    else:
+        ffn = C.mlp_specs(cfg, dense_ff)
+    return {"ln1": C.norm_specs(d, cfg.norm_kind), "mix": mix,
+            "ln2": C.norm_specs(d, cfg.norm_kind), "ffn": ffn}
+
+
+def param_specs(cfg) -> dict:
+    """The reference's parameter tree, f32 storage
+    (``param_dtype="float32"``): a scanned stack under ``layers`` (each
+    leaf on a leading layer axis) after ``dense_layer_N`` leading dense
+    layers (width ``moe.dense_d_ff``), or one ``layer_NN`` per layer."""
+    kinds, fd = cfg.layer_kinds, _first_dense(cfg)
+    specs = {"embed": C.embed_specs(cfg),
+             "final_norm": C.norm_specs(cfg.d_model, cfg.norm_kind)}
+    if _scanned(cfg):
+        specs["layers"] = _stack(
+            _block_specs(cfg, kinds[-1], cfg.moe is not None),
+            cfg.n_layers - fd)
+        for i in range(fd):
+            specs[f"dense_layer_{i}"] = _block_specs(
+                cfg, kinds[i], False, cfg.moe.dense_d_ff)
+    else:
+        for i, kind in enumerate(kinds):
+            specs[f"layer_{i:02d}"] = _block_specs(
+                cfg, kind, cfg.moe is not None and i >= fd)
+    return specs
 
 
 def _layer(tree, i: int):
@@ -86,29 +119,60 @@ def _layer(tree, i: int):
 
 
 class DecoderLM:
-    def __init__(self, cfg, device=None):
-        _check_supported(cfg)
+    """``wkv_prefill`` chooses the form of an RWKV6 prompt: "step" (the
+    decode step's operations token by token, so a decode step extends a
+    prefill bit for bit) or "chunked" (the reference's chunked-parallel
+    WKV; see ``models/rwkv6.py``)."""
+
+    def __init__(self, cfg, device=None, wkv_prefill: str = "step"):
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             "with repro_torch.models.build_model")
+        for kind in set(cfg.layer_kinds):
+            _block_specs(cfg, kind, False)       # raises on an unknown kind
+        if wkv_prefill not in ("step", "chunked"):
+            raise ValueError(f"wkv_prefill must be 'step' or 'chunked', "
+                             f"got {wkv_prefill!r}")
         self.cfg = cfg
+        self.wkv_chunked = wkv_prefill == "chunked"
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
+        self.first_dense = _first_dense(cfg)
+        self.scanned = _scanned(cfg)
 
     # ------------------------------------------------------------ params
     def param_specs(self) -> dict:
         return param_specs(self.cfg)
 
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int = 0, cast=None) -> dict:
         """Seeded random parameters on the model's device (the
-        reference's distributions, not its bits)."""
-        return init_params(self.param_specs(), seed, self.device)
+        reference's distributions, not its bits); ``cast`` as in
+        ``base.init_params``."""
+        return init_params(self.param_specs(), seed, self.device, cast)
 
     def supports_paged_decode(self) -> bool:
         """The reference's condition: a scanned full-attention stack with
-        no leading dense layer and no mrope (every config the port
-        accepts meets it)."""
+        no leading dense layer and no M-RoPE.  The others run on the
+        contiguous-cache path only."""
         cfg = self.cfg
-        first_dense = cfg.moe.first_dense if cfg.moe is not None else 0
-        return (first_dense == 0 and set(cfg.layer_kinds) == {"attn"}
+        return (self.scanned and self.first_dense == 0
+                and set(cfg.layer_kinds) == {"attn"}
                 and cfg.rope_kind != "mrope")
+
+    def _blocks(self, params):
+        """(kind, uses MoE, parameters) of every layer, in order."""
+        cfg, fd = self.cfg, self.first_dense
+        kinds = cfg.layer_kinds
+        if self.scanned:
+            for i in range(fd):
+                yield kinds[i], False, params[f"dense_layer_{i}"]
+            for i in range(cfg.n_layers - fd):
+                yield kinds[-1], cfg.moe is not None, _layer(
+                    params["layers"], i)
+        else:
+            for i, kind in enumerate(kinds):
+                yield (kind, cfg.moe is not None and i >= fd,
+                       params[f"layer_{i:02d}"])
 
     # ------------------------------------------------------------ blocks
     def _norm(self, p, x):
@@ -124,87 +188,159 @@ class DecoderLM:
             f = C.mlp_block(lp["ffn"], h, self.cfg)
         return x + f
 
+    def _block(self, kind, use_moe, p, x, *, positions, mrope, cache,
+               pos):
+        """One block on the contiguous path: prefill (``cache`` None)
+        or one decode step at ``pos``.  Returns (x, the layer's cache)."""
+        cfg = self.cfg
+        h = self._norm(p["ln1"], x)
+        part = (lambda name: None) if cache is None else cache.get
+        if kind in ("attn", "local_attn"):
+            window = cfg.local_window if kind == "local_attn" else None
+            mix, kv = C.attention_block(
+                p["mix"], h, cfg, positions=positions, window=window,
+                mrope_positions=mrope, cache=part("kv"), cache_pos=pos,
+                paged=self.supports_paged_decode())
+            if window is not None and cache is None:   # prefill -> ring
+                kv = {n: t[:, -window:].contiguous() for n, t in kv.items()}
+            new = {"kv": kv}
+        elif kind == "rglru":
+            mix, rec = R.rglru_block(p["mix"], h, cfg, state=part("rec"))
+            new = {"rec": rec}
+        else:
+            mix, att = W.rwkv_time_block(p["mix"], h, cfg,
+                                         state=part("att"),
+                                         chunked=self.wkv_chunked)
+            new = {"att": att}
+        x = x + mix
+        h = self._norm(p["ln2"], x)
+        if kind == "rwkv":
+            f, new["ffn"] = W.rwkv_channel_block(p["ffn"], h, cfg,
+                                                 state=part("ffn"))
+        elif use_moe:
+            f, _ = C.moe_block(p["ffn"], h, cfg)
+        else:
+            f = C.mlp_block(p["ffn"], h, cfg)
+        return x + f, new
+
     def _embed(self, params, tokens):
         return C.embed_tokens(params["embed"], tokens.to(self.device),
                               self.cfg, self.dtype)
 
+    def logits(self, params, h):
+        """f32 logits of final-norm hidden states (..., D)."""
+        return C.unembed(params["embed"], h, self.cfg)
+
     def _logits(self, params, x):
-        x = self._norm(params["final_norm"], x)
-        return C.unembed(params["embed"], x, self.cfg)
+        return self.logits(params, self._norm(params["final_norm"], x))
 
     # ------------------------------------------------- contiguous path
-    def apply(self, params, tokens, *, want_cache: bool = False):
-        """Whole-sequence forward.  tokens: (B, S) -> logits (B, S, V)
-        f32; with ``want_cache`` also the per-layer K/V as a decode
-        cache ``{"k", "v": (L, B, S, KVH, Dh), "pos": S}``."""
-        cfg = self.cfg
-        tokens = tokens.to(self.device)
+    def _batch(self, batch):
+        """(tokens (B, S), patch embeddings or None, M-RoPE positions or
+        None) on the model's device.  Without ``mrope_positions`` an
+        M-RoPE model takes text positions (all three ids = t), as a
+        decode step does."""
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        B, S = tokens.shape
+        pe = batch.get("patch_embeds") if self.cfg.n_patches else None
+        if pe is not None:
+            pe = torch.as_tensor(pe, device=self.device)
+        mrope = None
+        if self.cfg.rope_kind == "mrope":
+            mrope = batch.get("mrope_positions")
+            mrope = (torch.arange(S, device=self.device)[None, None]
+                     .expand(B, 3, S) if mrope is None
+                     else torch.as_tensor(mrope, device=self.device))
+        return tokens, pe, mrope
+
+    def _forward(self, params, batch):
+        """Final-norm hidden states (B, S, D) and every layer's cache."""
+        tokens, pe, mrope = self._batch(batch)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         x = self._embed(params, tokens)
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            h = self._norm(lp["ln1"], x)
-            q, k, v = C.project_qkv(lp["mix"], h, cfg, positions)
-            out = C.flash_attention(q, k, v, q_offset=0, causal=True)
-            x = x + C.out_proj(lp["mix"], out)
-            x = self._ffn(lp, x)
-            if want_cache:
-                ks.append(k)
-                vs.append(v)
-        logits = self._logits(params, x)
-        if want_cache:
-            return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                            "pos": S}
-        return logits
+        if pe is not None:
+            # the VLM stub frontend: precomputed patch embeddings replace
+            # the leading placeholder tokens
+            x[:, :pe.shape[1]] = pe.to(self.dtype)
+        caches = []
+        for kind, use_moe, p in self._blocks(params):
+            x, c = self._block(kind, use_moe, p, x, positions=positions,
+                               mrope=mrope, cache=None, pos=None)
+            caches.append(c)
+        return self._norm(params["final_norm"], x), caches
 
-    def prefill(self, params, tokens, *, max_len: Optional[int] = None):
-        """Forward + contiguous decode cache.  Returns (last-token
-        logits (B, V), cache); ``max_len`` > S pads the cache with
-        decode headroom."""
-        logits, cache = self.apply(params, tokens, want_cache=True)
-        S = tokens.shape[1]
+    def apply(self, params, batch, *, want_hidden: bool = False):
+        """Whole-sequence forward: logits (B, S, V) f32, or with
+        ``want_hidden`` the final-norm hidden states (B, S, D) (whose
+        rows ``logits`` turns into logits)."""
+        h, _ = self._forward(params, batch)
+        return h if want_hidden else self.logits(params, h)
+
+    def prefill(self, params, batch, *, max_len: Optional[int] = None):
+        """Forward + contiguous decode cache.  Returns (last-token logits
+        (B, V), cache ``{"layers": [one per layer], "pos": S}``);
+        ``max_len`` > S pads the full-attention caches with decode
+        headroom (ring buffers and recurrent states are fixed-size)."""
+        h, caches = self._forward(params, batch)
+        S = h.shape[1]
         if max_len is not None and max_len > S:
-            pad = max_len - S
-            for n in ("k", "v"):
-                c = cache[n]
-                cache[n] = torch.cat(
-                    [c, c.new_zeros(c.shape[:2] + (pad,) + c.shape[3:])], 2)
-        return logits[:, -1], cache
+            for kind, c in zip(self.cfg.layer_kinds, caches):
+                if kind == "attn":
+                    c["kv"] = {n: torch.cat([t, t.new_zeros(
+                        (t.shape[0], max_len - S) + t.shape[2:])], 1)
+                        for n, t in c["kv"].items()}
+        return self.logits(params, h[:, -1:])[:, 0], {"layers": caches,
+                                                      "pos": S}
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
-        """An empty contiguous decode cache of capacity ``seq_len``:
-        ``{"k", "v": (L, batch, seq_len, KVH, Dh) bf16, "pos": 0}`` (the
-        reference's cache layout and dtype)."""
+        """An empty contiguous decode cache of capacity ``seq_len`` (the
+        reference's layout and dtypes: bf16 K/V, local attention a ring
+        of min(window, seq_len) slots, recurrent states)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-        def zeros():
-            return torch.zeros(shape, dtype=torch.bfloat16,
-                               device=self.device)
-        return {"k": zeros(), "v": zeros(), "pos": 0}
+        dev = self.device
+
+        def zeros(shape, dtype=torch.bfloat16):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def layer(kind):
+            if kind in ("attn", "local_attn"):
+                s = (seq_len if kind == "attn"
+                     else min(cfg.local_window, seq_len))
+                shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+                return {"kv": {"k": zeros(shape), "v": zeros(shape)}}
+            if kind == "rglru":
+                return {"rec": {n: zeros(*sd) for n, sd in
+                                R.rglru_state_shapes(cfg, batch).items()}}
+            st = {n: zeros(*sd) for n, sd in
+                  W.rwkv_state_shapes(cfg, batch).items()}
+            return {"att": {"shift": st["att_shift"], "wkv": st["wkv"]},
+                    "ffn": {"shift": st["ffn_shift"]}}
+        return {"layers": [layer(k) for k in cfg.layer_kinds], "pos": 0}
 
     def decode_step(self, params, cache, tokens):
         """One lockstep decode step: tokens (B, 1) at position
-        ``cache["pos"]``.  Writes this token's K/V into the cache in
-        place; returns (logits (B, V), cache) with ``pos`` advanced."""
+        ``cache["pos"]``.  Attention layers write this token's K/V into
+        the cache in place; recurrent layers replace their state.
+        Returns (logits (B, V), cache) with ``pos`` advanced."""
         cfg = self.cfg
         pos = int(cache["pos"])
-        tokens = tokens.to(self.device)
+        tokens = torch.as_tensor(tokens, device=self.device)
         B = tokens.shape[0]
         positions = torch.full((B, 1), pos, dtype=torch.long,
                                device=self.device)
+        # text-only decode: all three M-RoPE ids advance with t
+        mrope = (torch.full((B, 3, 1), pos, dtype=torch.long,
+                            device=self.device)
+                 if cfg.rope_kind == "mrope" else None)
         x = self._embed(params, tokens)
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            h = self._norm(lp["ln1"], x)
-            q, k, v = C.project_qkv(lp["mix"], h, cfg, positions)
-            kc, vc = cache["k"][i], cache["v"][i]
-            kc[:, pos] = k[:, 0].to(kc.dtype)
-            vc[:, pos] = v[:, 0].to(vc.dtype)
-            out = C.decode_attention(q, kc, vc, pos + 1)
-            x = x + C.out_proj(lp["mix"], out)
-            x = self._ffn(lp, x)
+        layers = cache["layers"]
+        for i, (kind, use_moe, p) in enumerate(self._blocks(params)):
+            x, layers[i] = self._block(kind, use_moe, p, x,
+                                       positions=positions, mrope=mrope,
+                                       cache=layers[i], pos=pos)
         cache["pos"] = pos + 1
         return self._logits(params, x)[:, 0], cache
 

@@ -1,0 +1,133 @@
+"""Griffin recurrent block of the port: causal conv1d + RG-LRU, the
+counterpart of ``repro.models.rglru`` (arXiv:2402.19427).
+
+The RG-LRU is a gated diagonal linear recurrence
+
+    r_t = sigmoid(x_t Wr + br)          (recurrence gate)
+    i_t = sigmoid(x_t Wi + bi)          (input gate)
+    log a_t = -c * softplus(L) * r_t    (c = 8, L learned)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+computed in f32.  A prompt runs an associative scan (``rglru_scan``:
+log2(S) doubling steps, the form of the reference's
+``lax.associative_scan``), a decode step one step of the recurrence
+(``rglru_step``): the same recurrence, its f32 products in another
+order.  At recurrentgemma-2b's full widths the two agree to 1.2e-7 on
+the first layer's input, and a decode step extends a prefill bit for
+bit (``chip_smoke.py``'s families phase on an H100).  The recurrence is
+plain PyTorch, as in the reference (jnp, no Pallas kernel); the
+projections go through ``components.linear``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import components as C
+from .base import ParamSpec, normal, uniform, zeros
+
+__all__ = ["C_FACTOR", "CONV_WIDTH", "rglru_block_specs", "rglru_scan",
+           "rglru_step", "causal_conv1d", "rglru_block",
+           "rglru_state_shapes"]
+
+C_FACTOR = 8.0
+CONV_WIDTH = 4
+
+
+def rglru_block_specs(cfg) -> dict:
+    d, w = cfg.d_model, cfg.lru_width
+    return {
+        "w_gate": ParamSpec((d, w)),
+        "w_in": ParamSpec((d, w)),
+        "conv_w": ParamSpec((CONV_WIDTH, w), init=normal(0.1)),
+        "conv_b": ParamSpec((w,), init=zeros),
+        "wr": ParamSpec((w, w), f32=True),
+        "br": ParamSpec((w,), init=zeros),
+        "wi": ParamSpec((w, w), f32=True),
+        "bi": ParamSpec((w,), init=zeros),
+        # Lambda so that a = sigmoid(L)^c spreads over (0.9, 0.999)
+        "lam": ParamSpec((w,), init=uniform(0.38, 0.8)),
+        "w_out": ParamSpec((w, d)),
+    }
+
+
+def _gates(p, x):
+    """x: (..., W) f32 -> (log_a, gated_x), both f32."""
+    r = torch.sigmoid(C.linear(x, p["wr"], p["br"]))
+    i = torch.sigmoid(C.linear(x, p["wi"], p["bi"]))
+    log_a = -C_FACTOR * F.softplus(p["lam"].float()) * r
+    a2 = torch.exp(2.0 * log_a)
+    gx = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x)
+    return log_a, gx
+
+
+def rglru_scan(p, x):
+    """x: (B, S, W) -> (h (B, S, W) in x's dtype, final h (B, W) f32):
+    ``h_t = a_t h_{t-1} + gx_t`` from h = 0 as an associative scan, each
+    doubling step combining every position's (a, b) with the one ``d``
+    earlier, (a1, b1) then (a2, b2) -> (a1 a2, b1 a2 + b2)."""
+    log_a, gx = _gates(p, x.float())
+    a, h = torch.exp(log_a), gx
+    d = 1
+    while d < x.shape[1]:
+        h = h + a * F.pad(h[:, :-d], (0, 0, d, 0))
+        a = a * F.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+        d *= 2
+    return h.to(x.dtype), h[:, -1]
+
+
+def rglru_step(p, x, h_prev):
+    """x: (B, 1, W); h_prev: (B, W) f32 -> (out (B, 1, W), h (B, W))."""
+    log_a, gx = _gates(p, x[:, 0].float())
+    h = torch.exp(log_a) * h_prev + gx
+    return h[:, None].to(x.dtype), h
+
+
+def _taps(frames, w, b):
+    """sum_i frames[i] w[i] + b in f32, taps added in order (the same
+    operations for a prompt and a decode step)."""
+    wf = w.float()
+    y = frames[0].float() * wf[0]
+    for i in range(1, CONV_WIDTH):
+        y = y + frames[i].float() * wf[i]
+    return y + b.float()
+
+
+def causal_conv1d(x, w, b, state=None):
+    """Depthwise causal conv of width CONV_WIDTH, in f32.  x: (B, S, W).
+    With ``state`` (B, CONV_WIDTH - 1, W) one decode step (S == 1):
+    returns (y, new state); else (y, None)."""
+    if state is not None:
+        buf = torch.cat([state.to(x.dtype), x], dim=1)       # (B, 4, W)
+        y = _taps([buf[:, i] for i in range(CONV_WIDTH)], w, b)
+        return y[:, None].to(x.dtype), buf[:, 1:]
+    S = x.shape[1]
+    pad = F.pad(x, (0, 0, CONV_WIDTH - 1, 0))
+    y = _taps([pad[:, i:i + S] for i in range(CONV_WIDTH)], w, b)
+    return y.to(x.dtype), None
+
+
+def rglru_block(p, x, cfg, *, state=None):
+    """The Griffin recurrent block.  x: (B, S, D); ``state`` (decode):
+    {"conv": (B, 3, W), "h": (B, W) f32}.  Returns (out (B, S, D), the
+    state after the last token)."""
+    gate = F.gelu(C.linear(x, p["w_gate"]), approximate="tanh")
+    u = C.linear(x, p["w_in"])
+    if state is None:
+        conv = u[:, -(CONV_WIDTH - 1):]
+        u, _ = causal_conv1d(u, p["conv_w"], p["conv_b"])
+        h, h_last = rglru_scan(p, u)
+    else:
+        u, conv = causal_conv1d(u, p["conv_w"], p["conv_b"],
+                                state=state["conv"])
+        h, h_last = rglru_step(p, u, state["h"])
+    out = C.linear(gate * h, p["w_out"])
+    return out, {"conv": conv, "h": h_last}
+
+
+def rglru_state_shapes(cfg, batch: int) -> dict:
+    """{name: (shape, dtype)} of a decode state (the reference's
+    ``rglru_state_specs``)."""
+    w = cfg.lru_width
+    return {"conv": ((batch, CONV_WIDTH - 1, w), torch.bfloat16),
+            "h": ((batch, w), torch.float32)}

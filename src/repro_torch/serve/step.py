@@ -21,9 +21,12 @@ from typing import Callable
 
 import torch
 
+from ..models.base import flatten_specs
+
 __all__ = ["greedy", "make_decode_step", "make_paged_decode_step",
            "make_chunk_prefill_step", "make_verify_step",
-           "make_fused_step", "greedy_generate", "ServePrograms"]
+           "make_fused_step", "greedy_generate", "ServePrograms",
+           "projection_cast"]
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -73,18 +76,27 @@ def make_fused_step(model) -> Callable:
     return fused_step
 
 
-#: layer weights that enter ``x @ W`` in the compute dtype: attention,
-#: dense MLPs (SwiGLU, GELU) and an MoE block's stacked experts and its
-#: shared expert.  The MoE router stays f32 (routing runs in f32), and
-#: so does the unembedding (``components.unembed``).
+#: weights that enter ``x @ W`` in the compute dtype: attention, dense
+#: MLPs (SwiGLU, GELU), an MoE block's stacked experts and its shared
+#: expert, RG-LRU's and RWKV6's projections.  A weight whose spec says
+#: ``f32`` (a router, RG-LRU's gates, RWKV6's decay) stays f32, and so
+#: does the embedding and head (``components.unembed``).
 _MATMUL_WEIGHTS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                             "w1", "w2"})
+                             "w1", "w2", "w_gate", "w_in", "w_out", "wr",
+                             "wi", "tm_w1", "tm_w2"})
 
 
-def _cast_matmul_weights(tree: dict, dt) -> dict:
-    return {k: (_cast_matmul_weights(v, dt) if isinstance(v, dict)
-                else v.to(dt) if k in _MATMUL_WEIGHTS else v)
-            for k, v in tree.items()}
+def projection_cast(dtype):
+    """``cast(path, spec, leaf)``: the leaf in ``dtype`` if it enters
+    its products in the compute dtype, else as it is.  Given to
+    ``init(cast=...)`` it stores each projection so as soon as it is
+    drawn: the parameters ``prepare_params`` makes, without holding
+    every f32 original at once."""
+    def cast(path, spec, leaf):
+        proj = (path[0] != "embed" and path[-1] in _MATMUL_WEIGHTS
+                and not spec.f32)
+        return leaf.to(dtype) if proj else leaf
+    return cast
 
 
 class ServePrograms:
@@ -101,20 +113,32 @@ class ServePrograms:
     def prepare_params(self, params):
         """Cast the projection weights to the compute dtype once, where
         every call would otherwise cast them again (the cast is exact
-        and the same either way; norms, biases, the router and the f32
-        embedding and head are left as they are)."""
-        return {**params, "layers": _cast_matmul_weights(
-            params["layers"], self.model.dtype)}
+        and the same either way; norms, biases, the f32 products and
+        the f32 embedding and head are left as they are)."""
+        cast = projection_cast(self.model.dtype)
+        out: dict = {}
+        for path, spec in flatten_specs(self.model.param_specs()):
+            leaf = params
+            for k in path:
+                leaf = leaf[k]
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = cast(path, spec, leaf)
+        return out
 
 
-def greedy_generate(model, params, tokens, n_steps: int,
+def greedy_generate(model, params, batch, n_steps: int,
                     cache_len: int) -> torch.Tensor:
-    """Lockstep greedy decoding of a (B, S) prompt batch for
-    ``n_steps`` tokens.  Returns (B, n_steps) int32 on the model's
-    device."""
-    tokens = torch.as_tensor(tokens, device=model.device)
-    max_len = max(cache_len, tokens.shape[1] + n_steps)
-    last, cache = model.prefill(params, tokens, max_len=max_len)
+    """Lockstep greedy decoding of a prompt batch for ``n_steps``
+    tokens: a (B, S) token array, or the reference's batch dict
+    (``tokens`` and, for the families that take them, ``frames``,
+    ``patch_embeds``, ``mrope_positions``).  Returns (B, n_steps) int32
+    on the model's device."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": torch.as_tensor(batch, device=model.device)}
+    max_len = max(cache_len, batch["tokens"].shape[1] + n_steps)
+    last, cache = model.prefill(params, batch, max_len=max_len)
     step = make_decode_step(model)
     tok = greedy(last)[:, None]
     out = [tok]

@@ -19,7 +19,8 @@ launcher.
   llama4-scout runs at capacity factor 4.0 = n_experts / top_k (C = T:
   nothing dropped); with drops a row's result depends on which rows
   share its call, in the reference as well.
-* The configs the port does not run yet raise, naming what is missing.
+The families that run on the contiguous-cache path only are held in
+``tests/test_torch_families.py``.
 """
 import dataclasses
 
@@ -52,10 +53,6 @@ GELU_CFG = JModelConfig(name="tp-bias-test", family="dense", n_layers=2,
                         d_ff=128, vocab_size=256, qkv_bias=True,
                         mlp_kind="gelu", norm_kind="layernorm",
                         tie_embeddings=False, attn_kv_chunk=16)
-#: what each unported family lacks, as ``_check_supported`` names it
-UNPORTED = {"deepseek-moe-16b": "first_dense", "qwen2-vl-7b": "mrope",
-            "recurrentgemma-2b": "block_pattern",
-            "rwkv6-3b": "block_pattern", "whisper-tiny": "encoder-decoder"}
 
 
 def _smoke(arch, no_drop=False):
@@ -193,12 +190,3 @@ def test_init_distributions_of_the_new_leaves():
     assert ffn["wg"].shape == (L, E, d, cfg.moe.d_expert_ff)
     assert abs(float(ffn["wg"].std()) * np.sqrt(L * E * d) - 1) < 0.05
     assert abs(float(ffn["router"].std()) / 0.02 - 1) < 0.05
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    cfg = to_port_config(jconfigs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        DecoderLM(cfg, device="cpu")
-    with pytest.raises(KeyError, match="unknown arch"):
-        configs.get(arch)

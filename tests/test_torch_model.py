@@ -365,7 +365,8 @@ def check_chunked_prefill_equals_whole(jcfg):
             assert torch.equal(logits[1], want_b[0])
     assert torch.equal(logits[0], want_a[0])
     pages = state["k_pages"][:, table_a.long()].reshape(L, 40, KVH, Dh)
-    assert torch.equal(pages, cache_a["k"][:, 0])
+    assert torch.equal(pages, torch.stack(
+        [c["kv"]["k"][0] for c in cache_a["layers"]]))
 
 
 def test_chunked_prefill_equals_whole_prefill_bitwise(ref):

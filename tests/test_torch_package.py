@@ -81,13 +81,19 @@ def test_entry_points_default_to_the_gpu():
 
 
 def test_unported_configs_raise():
+    """Every configuration the reference builds is ported; what it does
+    not know raises instead of computing something else: an unknown
+    block kind, an encoder-decoder given to the decoder class, an
+    unknown arch."""
     import dataclasses
     cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
-                              scale_embeddings=True)
-    with pytest.raises(NotImplementedError, match="scale_embeddings"):
+                              block_pattern=("mamba",))
+    with pytest.raises(ValueError, match="mamba"):
         DecoderLM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        DecoderLM(configs.get_smoke("whisper-tiny"), device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get("rwkv6-3b")
+        configs.get("gpt-17")
 
 
 def _smoke(cwd):
