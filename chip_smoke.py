@@ -32,7 +32,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                over its wrapped ring, whisper's cross-attention), each
                row also against the plain version over the linear
                history and bit for bit against the same row of the
-               whole prefill.
+               whole prefill.  Then the training path's kernels: the
+               attention backward (``flash_attention_bwd``) at qwen3's
+               training shape (B 8 x S 256), B 1 x S 2,048, a ragged
+               S 200 and Dh 64 without a causal mask, against its plain
+               version (dq, dk, dv), with the forward's lse against the
+               plain forward's, two calls bit for bit equal, and SDPA's
+               backward as the library time; and the projections'
+               backward products on the dataflow GEMM (dX = dY W^T, dW =
+               X^T dY at qwen3's ``attn/wq``, ``ffn/wd``, ``ffn/wg``,
+               2,048 rows) beside cuBLAS.
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -106,9 +115,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                These families do not page: their decode steps run the
                flash kernel at one query row, which gives decode the
                bits of the whole prefill's row.
+10. **train**  qwen3-0.6b at full width (28 layers) trains through the
+               launcher (``launch.train.main``: B 8 x S 256, 10 steps,
+               a checkpoint every 5), gated on finite positive losses
+               and gradient norms, no restart, the checkpoints of steps
+               5 and 10 and the launch counts (per step: flash forward
+               2 L, its backward L, the dataflow GEMM 4 x the
+               projections); the same 10 steps through ``TrainDriver``
+               with a fault injected at step 7 must restore step 5 and
+               end equal (``torch.equal``) to the launcher's step-10
+               checkpoint; at 2 of 28 layers every leaf gets a non-zero
+               gradient, within 5e-2 relative L2 of the CPU's plain path
+               (loss within 2e-2); and 8 steps on one fixed batch must
+               lower the loss, the last 2 under ``torch.profiler``
+               (device time by kernel group, idle share).
 
-Then a ``{"kernels": [...]}`` line (all five kernels, launches from the
-serve, fleet, archs, families and paper paths), the card's name and
+Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
+serve, fleet, archs, families, train and paper paths), the card's name and
 power limit as ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
 one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
@@ -201,6 +224,32 @@ SCAN_ROWS, SCAN_LAST = 2, 8
 PROJ_SHAPES = {"qwen3_attn_wq": (1024, 2048), "qwen3_ffn_wd": (3072, 1024),
                "scout_mix_wk": (5120, 1024)}
 PROJ_ROWS = (8, 40, 256, 2048)
+# kernels phase, the training path's cases: the attention backward
+# (case, B, S, H, KVH, Dh, causal) at qwen3-0.6b's training shape, a
+# long prompt, a ragged S and Dh 64 without a causal mask; the GEMM
+# backward's products (dX = dY W^T, dW = X^T dY) of qwen3's projections
+# (K, N) at TRAIN_ROWS = B 8 x S 256 rows
+FLASH_BWD_CASES = (("qwen3_B8_S256", 8, 256, 16, 8, 128, True),
+                   ("qwen3_B1_S2048", 1, 2048, 16, 8, 128, True),
+                   ("ragged_B2_S200", 2, 200, 16, 8, 128, True),
+                   ("dh64_B2_S256_not_causal", 2, 256, 16, 8, 64, False))
+GEMM_BWD_SHAPES = {"qwen3_attn_wq": (1024, 2048),
+                   "qwen3_ffn_wd": (3072, 1024),
+                   "qwen3_ffn_wg": (1024, 3072)}
+# the lse's tolerance: f32 log-sum-exps of 64-key tiles in two orders
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+# train phase: qwen3-0.6b at full width through the launcher (B x S,
+# steps, checkpoint interval, the resume run's injected fault); the
+# gradient check at 2 of 28 layers (B 2 x S), its loss tolerance
+# (absolute, on a loss of ~12) and each leaf's relative L2 tolerance
+# against the CPU's plain path; the overfit run's steps
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 10, 5
+TRAIN_FAULT_AT = 7
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
+GRAD_LAYERS, GRAD_BATCH = 2, 2
+GRAD_LOSS_TOL, GRAD_REL_L2 = 2e-2, 5e-2
+OVERFIT_STEPS, PROFILE_STEPS = 8, 2
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -530,6 +579,143 @@ def _flash_chunked_equals_whole(kernel, q, k, v, whole,
     return ok
 
 
+def _sdpa_bwd(q, k, v, dout, causal):
+    """SDPA's backward on the same inputs and mask (its forward run
+    beforehand, not timed): the library yardstick of the attention
+    backward."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dt = dout.transpose(1, 2).contiguous()
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dt,
+                                   retain_graph=True)
+    return call
+
+
+def _flash_bwd_cases(g, flush, results) -> None:
+    """The attention backward (``flash_attention_bwd``: the dQ kernel,
+    then the dK/dV kernel) at FLASH_BWD_CASES against its plain version
+    on the same inputs (dq, dk, dv within ATOL / RTOL), the forward's
+    lse against the plain forward's, and two calls bit for bit equal
+    (no atomics); timed beside the plain version, SDPA's backward and
+    the bound (the bytes of q, k, v, o, do, lse, dq, dk, dv; 2.5 times
+    the forward's operations: five products of its size)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+    for case, B, S, H, KVH, Dh, causal in FLASH_BWD_CASES:
+        q, k, v, do = (rnd(B, S, H, Dh), rnd(B, S, KVH, Dh),
+                       rnd(B, S, KVH, Dh), rnd(B, S, H, Dh))
+        out, lse = fa.flash_attention_lse(q, k, v, causal)
+        serve_bits = torch.equal(out, fa.flash_attention(q, k, v,
+                                                         causal=causal))
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                return_lse=True)
+        args = (q, k, v, out, lse, do, causal)
+        got = fa.flash_attention_bwd(*args)
+        again = fa.flash_attention_bwd(*args)
+        want = fa.flash_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {n: max_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+        lse_err, lse_ok = max_err(lse, lse_plain, LSE_ATOL, LSE_RTOL)
+        zeros = torch.zeros(B, dtype=torch.int32)
+        fwd_bytes, fwd_flops = _flash_numbers(q, k, v, zeros, causal)
+        n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+        flops = 2.5 * fwd_flops
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        ok = all(o for _, o in errs.values())
+        rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
+               "case": case, "B": B, "S": S, "H": H, "KVH": KVH, "Dh": Dh,
+               "causal": causal,
+               "max_abs_err": max(e for e, _ in errs.values()),
+               "max_abs_err_by_grad": {n: e for n, (e, _) in errs.items()},
+               "atol": ATOL, "rtol": RTOL, "ok": ok,
+               "lse_max_abs_err": lse_err, "lse_ok": lse_ok,
+               "forward_out_equals_serving": serve_bits,
+               "deterministic": same,
+               "ms": time_ms(lambda: fa.flash_attention_bwd(*args),
+                             flush=flush),
+               "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
+                   *args), iters=3, flush=flush),
+               "library_ms": time_ms(_sdpa_bwd(q, k, v, do, causal),
+                                     flush=flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+               "flops": flops, "forward_flops": fwd_flops}
+        emit(rec)
+        if not ok:
+            fail(f"flash_attention_bwd [{case}] disagrees with its plain "
+                 f"version: {errs}")
+        if not lse_ok:
+            fail(f"flash_attention [{case}]: the lse is {lse_err} from the "
+                 "plain forward's")
+        if not (same and serve_bits):
+            fail(f"flash_attention_bwd [{case}]: two calls differ "
+                 f"({not same}) or the lse forward moved the output's bits "
+                 f"({not serve_bits})")
+        results.setdefault("flash_attention_bwd", []).append(rec)
+
+
+def _gemm_bwd_cases(g, flush, results) -> None:
+    """The projections' backward on the dataflow GEMM as ``LinearFn``
+    runs it, at qwen3's training shapes (TRAIN_ROWS rows): dX = dY W^T
+    and dW = X^T dY, the transposed operand made contiguous first; the
+    kernel (f32 out) against the f32 product of the same bf16 operands
+    within the GEMM tolerance, timed beside its plain version, cuBLAS
+    (``torch.matmul`` on the transposed view, bf16 out) and the bound,
+    and with the transpose copy (``with_transpose_ms``)."""
+    import torch
+    from repro_torch.kernels import gemm_dataflow as gd
+    M = TRAIN_ROWS
+    for label, (K, N) in GEMM_BWD_SHAPES.items():
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        w = torch.randn(K, N, generator=g, device="cuda").bfloat16()
+        dy = torch.randn(M, N, generator=g, device="cuda").bfloat16()
+        for grad, (a_of, b_of, view) in (
+                ("dX", (lambda: dy, lambda: w.t().contiguous(),
+                        lambda: (dy, w.t()))),
+                ("dW", (lambda: x.t().contiguous(), lambda: dy,
+                        lambda: (x.t(), dy)))):
+            a, b = a_of(), b_of()
+            got = gd.matmul(a, b)
+            err, ok = max_err(got, a.float() @ b.float(), GEMM_ATOL,
+                              GEMM_RTOL)
+            m, kk = a.shape
+            n = b.shape[1]
+            n_bytes = (m * kk + kk * n) * 2 + m * n * 4
+            flops = 2 * m * n * kk
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            t_k = time_ms(lambda: gd.matmul(a, b), flush=flush)
+            t_l = time_ms(lambda: torch.matmul(*view()), flush=flush)
+            rec = {"phase": "kernels", "kernel": "gemm_dataflow",
+                   "case": f"bwd_{grad}_{label}_M{M}",
+                   "dataflow": "output_stationary", "M": m, "K": kk, "N": n,
+                   "dtype": "bfloat16", "max_abs_err": err,
+                   "atol": GEMM_ATOL, "rtol": GEMM_RTOL, "ok": ok,
+                   "ms": t_k,
+                   "plain_ms": time_ms(lambda: gd.matmul_plain(a, b),
+                                       iters=3, flush=flush),
+                   "library_ms": t_l,
+                   "with_transpose_ms": time_ms(
+                       lambda: gd.matmul(a_of(), b_of()), flush=flush),
+                   "kernel_over_library": t_k / t_l,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                   "flops": flops}
+            emit(rec)
+            if not ok:
+                fail(f"gemm_dataflow [{rec['case']}] disagrees with the f32 "
+                     f"product: max abs err {err}")
+            results.setdefault("gemm_dataflow_bwd", []).append(rec)
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
@@ -790,6 +976,11 @@ def phase_kernels():
     H, Dh = WHISPER_HEADS, WHISPER_DH
     decode_row(f"decode_cross_B8_Skv{F_}_dh{Dh}", q64, k, v, 63,
                causal=False)
+
+    # the training path: the attention backward and the projections'
+    # backward products
+    _flash_bwd_cases(g, flush, results)
+    _gemm_bwd_cases(g, flush, results)
     del flush
     return results
 
@@ -1155,6 +1346,7 @@ def phase_serve():
     from repro_torch.launch.serve import serve_trace, synth_requests
     from repro_torch.models.lm import DecoderLM
     from repro_torch.serve import ServeOptions, ServePrograms
+    from repro_torch.tree import tree_leaves
 
     cfg = configs.get("qwen3-0.6b")
     model = DecoderLM(cfg)                       # the GPU
@@ -1162,7 +1354,7 @@ def phase_serve():
     params = model.init(seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     programs = ServePrograms(model)
     opts = ServeOptions(batch=8)
     # warm-up: cuBLAS handles, allocator pools, the kernels' first loads
@@ -1307,14 +1499,6 @@ def _bitwise_held(bw: dict) -> bool:
             and bw["verify_t1_equals_decode"] and bw["fused_equals_unfused"])
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _rescore(model, params, reqs) -> dict:
     """Re-score every served token of ``reqs`` (all of one prompt length
     and one generation length) with one whole-sequence prefill of
@@ -1383,6 +1567,10 @@ def _kernel_group(name: str) -> str:
         return "paged_attention"
     if "flash_attention_kernel" in name:
         return "flash_attention"
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
+    if any(t in name for t in ("gemm_bf16", "gemm_output_stationary")):
+        return "gemm_dataflow"
     low = name.lower()
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
         return "matmul"
@@ -1390,8 +1578,18 @@ def _kernel_group(name: str) -> str:
 
 
 def _profiled_run(backend, reqs) -> dict:
-    """Serve ``reqs`` on ``backend`` under torch.profiler: device time
-    summed by kernel and by group, against the run's host wall time
+    """Serve ``reqs`` on ``backend`` under torch.profiler
+    (``_device_profile``)."""
+    prof = _device_profile(lambda: backend.run(reqs))
+    st = backend.stats()
+    return {"requests": len(reqs),
+            "dispatches": int(st["n_total_dispatches"]), **prof}
+
+
+def _device_profile(fn) -> dict:
+    """Run ``fn()`` under torch.profiler: device time summed by kernel
+    and by group (``_kernel_group``: our kernels by name, library GEMMs
+    as "matmul", the rest "other"), against the run's host wall time
     (``seconds``: the whole call, the profiler's own work included).
     The device events are summed straight from the trace: the
     profiler's per-operator tables (``key_averages``) give the same sums
@@ -1404,7 +1602,7 @@ def _profiled_run(backend, reqs) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        backend.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -1422,10 +1620,7 @@ def _profiled_run(backend, reqs) -> dict:
         g["ms"] += ms
         g["launches"] += n
     kernels.sort(key=lambda k: -k[1])
-    st = backend.stats()
-    return {"requests": len(reqs),
-            "dispatches": int(st["n_total_dispatches"]),
-            "wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms
             else None,
             "kernel_launches": sum(k[2] for k in kernels),
@@ -1886,6 +2081,7 @@ def _serve_arch(name):
     from repro_torch.launch.serve import serve_trace, synth_requests
     from repro_torch.models.lm import DecoderLM
     from repro_torch.serve import ServeOptions, ServePrograms
+    from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     cfg, reduced = _arch_config(name)
     model = DecoderLM(cfg)
@@ -1897,7 +2093,7 @@ def _serve_arch(name):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     opts = ServeOptions(batch=8)
     warm = synth_requests(cfg, 2, PROMPT_LEN, 4, rate=50.0, seed=1)
     opts.sized_for(warm).build(model, params, programs=programs).run(warm)
@@ -2194,6 +2390,7 @@ def _serve_family(name: str, prompt_len: int) -> dict:
     from repro_torch import configs
     from repro_torch.launch.serve import run_naive, synthetic_batch
     from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
     from repro_torch.serve import greedy_generate
     from repro_torch.serve.step import projection_cast
     t0 = time.perf_counter()
@@ -2204,7 +2401,7 @@ def _serve_family(name: str, prompt_len: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak_gb = _peak_gb()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     batch = synthetic_batch(cfg, FAMILY_ROWS, prompt_len, device="cuda")
     with torch.no_grad():
         run_naive(model, params, {k: v[:1] for k, v in batch.items()}, 2)
@@ -2274,22 +2471,300 @@ def phase_families():
     return total
 
 
+def _train_launches() -> dict:
+    """The training path's launch counters: the flash forward's, the
+    flash backward's (one a call of the dQ + dK/dV pair) and the
+    dataflow GEMM's."""
+    fa, gd = _ops("flash_attention"), _ops("gemm_dataflow")
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "gemm_dataflow": gd.launches}
+
+
+def _train_launches_reset() -> None:
+    fa, gd = _ops("flash_attention"), _ops("gemm_dataflow")
+    fa.launches = fa.bwd_launches = gd.launches = 0
+
+
+def _train_launch_gates(model, steps: int) -> dict:
+    """What ``steps`` train steps launch at the least (remat "full"):
+    each layer's flash forward twice (the forward and the backward's
+    recompute) and its backward once; every projection's GEMM four
+    times (forward, recompute, dX, dW), ``_n_products`` a forward."""
+    L = model.cfg.n_layers
+    return {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
+            "gemm_dataflow": 4 * _n_products(model) * steps}
+
+
+def _train_launcher(root) -> tuple:
+    """Run 1: ``launch.train.main`` at full width.  Returns (its record,
+    its launches)."""
+    import contextlib
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm import DecoderLM
+    ckpt = root / "run1"
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--log-every", "1", "--device", "cuda",
+            "--ckpt-dir", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats()
+    _train_launches_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):   # its log lines
+        drv = launch_train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    log = drv.metrics_log
+    step_s = sorted(m["wall_s"] for m in log)
+    median = step_s[len(step_s) // 2]
+    want = _train_launch_gates(DecoderLM(configs.get(TRAIN_ARCH),
+                                         device="meta"), TRAIN_STEPS)
+    events = [(e.kind, e.step) for e in drv.events]
+    gates = {
+        "every_step_logged": [m["step"] for m in log] == list(
+            range(TRAIN_STEPS)),
+        "loss_finite_positive": all(np.isfinite(m["loss"]) and m["loss"] > 0
+                                    for m in log),
+        "grad_norm_finite_positive": all(
+            np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+            for m in log),
+        "no_restart": not any(k == "restart" for k, _ in events),
+        "checkpoints": all(
+            (ckpt / f"step_{s:09d}" / "manifest.json").is_file()
+            and ("checkpoint", s) in events
+            for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                           TRAIN_CKPT_EVERY)),
+        "launches": all(launches[k] >= n for k, n in want.items())}
+    rec = {"phase": "train", "run": "launcher", "argv": argv,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "step_ms": [m["wall_s"] * 1e3 for m in log],
+           "step_ms_median": median * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+           "peak_mem_gb": _peak_gb(), "wall_s": wall, "events": events,
+           "launches": launches, "launches_expected": want,
+           "launches_per_step": {k: n / TRAIN_STEPS
+                                 for k, n in launches.items()},
+           "gates": gates, "card": nvidia_smi_line()}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train [launcher]: gates failed: {bad}")
+    return rec, launches
+
+
+def _train_resume(root) -> dict:
+    """Run 2: the same 10 steps through ``TrainDriver`` with a fault
+    injected once at step TRAIN_FAULT_AT; it restores the checkpoint of
+    step TRAIN_CKPT_EVERY and must end with every parameter and
+    optimizer leaf equal (``torch.equal``) to run 1's step-10
+    checkpoint."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_reference_checkpoint
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.runtime import DriverConfig, TrainDriver
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.tree import tree_items
+    cfg = configs.get(TRAIN_ARCH)
+    model = DecoderLM(cfg, device="cuda")
+    pipe = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    faults = {TRAIN_FAULT_AT}
+
+    def hook(step):
+        if step in faults:
+            faults.discard(step)
+            raise RuntimeError("injected fault")
+    params = model.init(seed=0)              # the launcher's init
+    drv = TrainDriver(
+        DriverConfig(total_steps=TRAIN_STEPS, ckpt_dir=str(root / "run2"),
+                     ckpt_every=TRAIN_CKPT_EVERY, log_every=1),
+        make_train_step(model, cfg, opt=OptConfig()),
+        lambda s: pipe.device_batch(s, model.device), fault_hook=hook)
+    t0 = time.perf_counter()
+    p, o = drv.run(params, init_opt_state(params))
+    wall = time.perf_counter() - t0
+    del params
+    ref, step = load_reference_checkpoint(root / "run1", device="cuda")
+    differ = [("/".join(path)) for path, leaf in
+              tree_items({"params": p, "opt": o})
+              if not torch.equal(leaf, _get(ref, path))]
+    events = [(e.kind, e.step) for e in drv.events]
+    restarts = [s for k, s in events if k == "restart"]
+    gates = {"one_restart_at_fault": restarts == [TRAIN_FAULT_AT],
+             "restored_checkpoint": drv.metrics_log[TRAIN_FAULT_AT]["step"]
+             == TRAIN_CKPT_EVERY,
+             "reference_step": step == TRAIN_STEPS,
+             "equal_to_uninterrupted": not differ}
+    rec = {"phase": "train", "run": "resume", "fault_at": TRAIN_FAULT_AT,
+           "events": events, "wall_s": wall,
+           "leaves": sum(1 for _ in tree_items({"params": p, "opt": o})),
+           "leaves_differing": differ[:8], "gates": gates}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train [resume]: gates failed: {bad}")
+    return rec
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _train_grads() -> dict:
+    """qwen3-0.6b at full width, GRAD_LAYERS layers, B GRAD_BATCH x
+    TRAIN_SEQ: one loss and gradient on the card, where every leaf must
+    get a gradient that is not all zero, and the same on the CPU through
+    the port's plain path (same params, same batch): the loss within
+    GRAD_LOSS_TOL and each leaf's gradient within GRAD_REL_L2 relative
+    L2."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_items, tree_map
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=GRAD_LAYERS)
+    out = {}
+    batch = SyntheticPipeline(cfg, GRAD_BATCH, TRAIN_SEQ).batch_for_step(0)
+    params = None
+    for dev in ("cuda", "cpu"):
+        model = DecoderLM(cfg, device=dev)
+        if params is None:
+            params = model.init(seed=1)
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        leaves = [t for _, t in tree_items(p)]
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, _ = make_loss_fn(model, cfg)(p, b)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out[dev] = (float(loss.detach()),
+                    [None if g is None else g.float().cpu() for g in grads],
+                    time.perf_counter() - t0)
+    names = ["/".join(path) for path, _ in tree_items(params)]
+    card, cpu = out["cuda"][1], out["cpu"][1]
+    missing = [n for n, g in zip(names, card)
+               if g is None or not bool(g.ne(0).any())]
+    rel = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+           for n, a, b in zip(names, card, cpu) if a is not None}
+    worst = max(rel, key=rel.get)
+    gates = {"every_leaf_has_a_gradient": not missing,
+             "loss_close_to_cpu": abs(out["cuda"][0] - out["cpu"][0])
+             <= GRAD_LOSS_TOL,
+             "grads_close_to_cpu": max(rel.values()) <= GRAD_REL_L2}
+    rec = {"phase": "train", "run": "gradients", "layers": GRAD_LAYERS,
+           "B": GRAD_BATCH, "S": TRAIN_SEQ, "loss_card": out["cuda"][0],
+           "loss_cpu": out["cpu"][0],
+           "loss_abs_diff": abs(out["cuda"][0] - out["cpu"][0]),
+           "loss_tol": GRAD_LOSS_TOL, "grad_rel_l2": rel,
+           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_tol": GRAD_REL_L2, "leaves_without_gradient": missing,
+           "card_s": out["cuda"][2], "cpu_s": out["cpu"][2], "gates": gates}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train [gradients]: gates failed: {bad}")
+    return rec
+
+
+def _train_overfit() -> dict:
+    """qwen3-0.6b at full width learns one fixed batch: OVERFIT_STEPS
+    steps with ``OptConfig(warmup_steps=1)``; the last loss must be
+    below the first.  The last PROFILE_STEPS steps run under the
+    profiler (device time by kernel group, the device's idle share)."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    cfg = configs.get(TRAIN_ARCH)
+    model = DecoderLM(cfg, device="cuda")
+    opt = OptConfig(warmup_steps=1)
+    step = make_train_step(model, cfg, opt=opt)
+    batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ).device_batch(
+        0, "cuda")
+    params = model.init(seed=2)
+    state = init_opt_state(params, opt)
+    losses = []
+
+    def steps(n):
+        nonlocal params, state
+        for _ in range(n):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+    steps(OVERFIT_STEPS - PROFILE_STEPS)
+    # the last steps under the profiler: where a step's time goes
+    prof = _device_profile(lambda: steps(PROFILE_STEPS))
+    gates = {"learns": losses[-1] < losses[0],
+             "finite": all(np.isfinite(x) for x in losses)}
+    rec = {"phase": "train", "run": "overfit", "steps": OVERFIT_STEPS,
+           "lr": opt.lr, "losses": losses, "first": losses[0],
+           "last": losses[-1], "gates": gates,
+           "profile": {"steps": PROFILE_STEPS, **prof}}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train [overfit]: gates failed: {bad}")
+    return rec
+
+
+def phase_train():
+    """qwen3-0.6b's training path at full width on the card: the
+    launcher (10 steps, checkpoints at 5 and 10, launch gates), the
+    resumed run after an injected fault (bit for bit), every leaf's
+    gradient against the CPU's plain path, and an overfit run.  Returns
+    the training kernels' launches in the launcher's run."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        _, launches = _train_launcher(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _train_resume(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for run in (_train_grads, _train_overfit):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run()
+    emit({"phase": "train", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
 def summary_line(kernel_results, launches, by_phase):
     """One entry for each kernel whose checks and path both ran, its
     launches summed over the phases that ran it (``launches_by_phase``:
     the paper path's and each main-path phase's)."""
+    ref = "src/repro/kernels/"
     sources = {"paged_attention": ("paged_attention.cu",
-                                   "paged_attention/kernel.py:89", "B8_T5"),
+                                   ref + "paged_attention/kernel.py:89",
+                                   "B8_T5"),
                "flash_attention": ("flash_attention.cu",
-                                   "flash_attention/kernel.py:69",
+                                   ref + "flash_attention/kernel.py:69",
                                    "chunk_B8_C32"),
+               "flash_attention_bwd": (
+                   "flash_attention_bwd.cu",
+                   "the autodiff of src/repro/models/components.py:204",
+                   "qwen3_B8_S256"),
                "gemm_dataflow": ("gemm_dataflow.cu",
-                                 "gemm_dataflow/kernel.py:79",
+                                 ref + "gemm_dataflow/kernel.py:79",
                                  "scout_expert_bf16"),
                "block_sparse": ("block_sparse.cu",
-                                "block_sparse/kernel.py:44", "keep_0.36"),
+                                ref + "block_sparse/kernel.py:44",
+                                "keep_0.36"),
                "lut_activation": ("lut_activation.cu",
-                                  "lut_activation/kernel.py:38",
+                                  ref + "lut_activation/kernel.py:38",
                                   "silu_f32")}
     out = []
     for name, (src, replaces, case) in sources.items():
@@ -2299,7 +2774,7 @@ def summary_line(kernel_results, launches, by_phase):
         main = next(r for r in recs if r["case"] == case)
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{src}",
-                    "replaces": f"src/repro/kernels/{replaces}",
+                    "replaces": replaces,
                     "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in recs),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -2311,7 +2786,7 @@ def summary_line(kernel_results, launches, by_phase):
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile", "fleet", "archs", "families")) -> int:
+                 "profile", "fleet", "archs", "families", "train")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -2363,6 +2838,8 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         count(phase_archs(), "archs")
     if "families" in phases:
         count(phase_families(), "families")
+    if "train" in phases:
+        count(phase_train(), "train")
     if results:
         summary_line(results, launches, by_phase)
     print(nvidia_smi_line(), flush=True)

@@ -16,6 +16,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.base import flatten_specs
+from ..tree import tree_leaves, tree_map
 from ..models import param_specs
 
 __all__ = ["params_from_jax", "params_to_numpy", "to_tensor"]
@@ -42,21 +43,16 @@ def _get(tree, path):
     return node
 
 
-def _count_leaves(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_count_leaves(v) for v in tree.values())
-    return 1
-
-
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The port's parameters from the reference's tree (nested dicts of
     numpy arrays, e.g. ``jax.tree.map(np.asarray, model.init(key))``)
     for config ``cfg``.  Raises on a missing, extra or misshapen leaf."""
     dev = resolve_device(device)
     specs = list(flatten_specs(param_specs(cfg)))
-    if _count_leaves(tree) != len(specs):
-        raise ValueError(f"reference tree has {_count_leaves(tree)} "
-                         f"leaves, {cfg.name} needs {len(specs)}")
+    n = len(tree_leaves(tree))
+    if n != len(specs):
+        raise ValueError(f"reference tree has {n} leaves, {cfg.name} needs "
+                         f"{len(specs)}")
     out: dict = {}
     for path, ps in specs:
         arr = _get(tree, path)
@@ -73,9 +69,11 @@ def params_from_jax(tree, cfg, device=None) -> dict:
 def params_to_numpy(params) -> dict:
     """The port's parameters as nested dicts of numpy arrays (bf16
     leaves as their uint16 view)."""
-    if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    t = params.detach().cpu()
+    return tree_map(_leaf_to_numpy, params)
+
+
+def _leaf_to_numpy(t):
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy()
     return t.numpy()

@@ -1,5 +1,6 @@
-// Tensor-core building blocks shared by the two attention kernels
-// (flash_attention.cu, paged_attention.cu): the XOR-swizzled layout of
+// Tensor-core building blocks shared by the attention kernels
+// (flash_attention.cu, its backward flash_attention_bwd.cu,
+// paged_attention.cu): the XOR-swizzled layout of
 // bf16 rows in shared memory, 16-byte cp.async into it, ldmatrix
 // fragment loads, and the mma.sync m16n8k16 product (bf16 x bf16 ->
 // f32).

@@ -7,7 +7,10 @@
 // flash_attention: q (B,Sq,H,Dh), k/v (B,Skv,KVH,Dh) bf16, kv head =
 // h / (H / KVH), key j visible to query i of row b iff j < Skv and (if
 // causal) j <= q_offset[b] + i; scale 1/sqrt(Dh), masked lanes -1e30,
-// p rounded to bf16 before the P.V product, f32 accumulation.
+// p rounded to bf16 before the P.V product, f32 accumulation.  Given
+// an lse buffer it also writes each row's log-sum-exp of its scaled
+// scores (m + log l), what the training backward (flash_attention_bwd.cu)
+// needs; the output's bits do not depend on it.
 //
 // What bounds it on the H100: at a whole-prompt prefill (Sq of several
 // hundred) the tensor-core operations; at a 32-token chunk step the
@@ -107,6 +110,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ q_offset,      // (B,)
                        __nv_bfloat16* __restrict__ out,       // (B,Sq,H,DH)
+                       float* __restrict__ lse,               // (B,H,Sq) or null
                        int Sq, int Skv, int H, int KVH, int causal,
                        int window, float scale) {
     constexpr int KS = DH / 16;        // k16 steps of Q K^T
@@ -286,6 +290,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
         const int r = q0 + rq + 8 * half;
         if (r >= Sq) continue;
         const float den = half ? inv1 : inv0;
+        // the row's log-sum-exp of the scaled scores, for the backward
+        // (written by one thread of the quad; all four hold m and l)
+        if (lse != nullptr && (lane & 3) == 0)
+            lse[((size_t)b * H + h) * Sq + r] =
+                (half ? m1 : m0) + logf(den);
         __nv_bfloat16* o = out + (((size_t)b * Sq + r) * H + h) * DH + col;
 #pragma unroll
         for (int n = 0; n < ND; ++n)
@@ -297,8 +306,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B,Sq,H,DH)
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const int* q_offset,
-           void* out, int B, int Sq, int Skv, int H, int KVH, int causal,
-           int window, cudaStream_t stream) {
+           void* out, float* lse, int B, int Sq, int Skv, int H, int KVH,
+           int causal, int window, cudaStream_t stream) {
     const size_t smem = smem_bytes<DH>();
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<DH>,
@@ -309,29 +318,33 @@ int launch(const void* q, const void* k, const void* v, const int* q_offset,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), q_offset,
-        static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KVH, causal, window,
+        static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, KVH, causal,
+        window,
         1.0f / sqrtf((float)DH));
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// window: 0 for none, else keys j > position - window only.  Returns
-// the cudaError_t of the launch (0 on success).
+// window: 0 for none, else keys j > position - window only.  lse: null,
+// or an f32 (B, H, Sq) buffer that receives each row's log-sum-exp of
+// its scaled scores (m + log l; the backward's input), with no effect
+// on out.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_bf16(
         const void* q, const void* k, const void* v, const void* q_offset,
         void* out, int B, int Sq, int Skv, int H, int KVH, int Dh,
-        int causal, int window, void* stream) {
+        int causal, int window, void* lse_out, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     auto qo = static_cast<const int*>(q_offset);
+    auto lse = static_cast<float*>(lse_out);
     if (Dh == 64)
-        return launch<64>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+        return launch<64>(q, k, v, qo, out, lse, B, Sq, Skv, H, KVH, causal,
                           window, s);
     if (Dh == 128)
-        return launch<128>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+        return launch<128>(q, k, v, qo, out, lse, B, Sq, Skv, H, KVH, causal,
                            window, s);
     if (Dh == 256)
-        return launch<256>(q, k, v, qo, out, B, Sq, Skv, H, KVH, causal,
+        return launch<256>(q, k, v, qo, out, lse, B, Sq, Skv, H, KVH, causal,
                            window, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,7 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES = {
     "block_sparse": "block_sparse.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "gemm_dataflow": "gemm_dataflow.cu",
     "lut_activation": "lut_activation.cu",
     "paged_attention": "paged_attention.cu",

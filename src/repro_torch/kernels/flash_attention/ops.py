@@ -16,6 +16,15 @@ prefill): the CUDA kernel's wrapper and its plain PyTorch version.
 
 The wrapper launches the kernel (``csrc/flash_attention.cu``) for CUDA
 tensors and takes the plain version only for CPU tensors.
+
+Training: ``FlashAttentionFn`` gives the attention a gradient.  Its
+forward is the kernel with the per-row log-sum-exp as a second output;
+its backward is the hand-written kernel pair of
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: dQ, then dK
+and dV, no atomics, so a step is a deterministic function of its
+inputs), whose plain version is ``flash_attention_bwd_plain``.  The
+backward covers what the dense architectures train with: causal or
+not, q_offset 0, Sq == Skv, Dh 64 or 128.
 """
 from __future__ import annotations
 
@@ -26,16 +35,27 @@ import torch
 
 from ..build import load
 
-__all__ = ["flash_attention", "flash_attention_plain", "KV_TILE"]
+__all__ = ["flash_attention", "flash_attention_plain", "KV_TILE",
+           "flash_attention_lse", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "FlashAttentionFn",
+           "flash_attention_train"]
 
 #: keys per online-softmax step — the kernel's tile
 KV_TILE = 64
 NEG_INF = -1e30
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+#: kernel launches since the last reset (chip_smoke.py reads them):
+#: the forward's, and the backward's (one a ``flash_attention_bwd``
+#: call, which runs the dQ kernel and then the dK/dV kernel)
 launches = 0
+bwd_launches = 0
+
+#: the backward kernel's head dims (the plain version takes any; the
+#: rest is ROADMAP Queue 1 item 15)
+BWD_HEAD_DIMS = (64, 128)
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -43,10 +63,21 @@ def _kernel():
     if _fn is None:
         f = load("flash_attention").repro_flash_attention_bf16
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2)
         f.restype = ctypes.c_int
         _fn = f
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        f = load("flash_attention_bwd").repro_flash_attention_bwd_bf16
+        f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        _bwd_fn = f
+    return _bwd_fn
 
 
 def _offsets(q_offset, B: int, device) -> torch.Tensor:
@@ -65,7 +96,7 @@ PLAIN_ROWS = 256
 
 
 def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True,
-                          window=None):
+                          window=None, return_lse: bool = False):
     """The kernel's function in plain PyTorch, with the kernel's tile
     partition and dtype contract (f32 scores and accumulation, p rounded
     to the value dtype before P.V).  Products are summed with
@@ -73,15 +104,20 @@ def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True,
     the CPU an f32 GEMM's summation order depends on the number of rows,
     and chunked == whole prefill needs each row's bits to depend on that
     row alone.  Query rows go PLAIN_ROWS at a time (a row's result does
-    not depend on the others)."""
+    not depend on the others).  With ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, f32 ``(B, H, Sq)``."""
     B, Sq = q.shape[:2]
     offs = _offsets(q_offset, B, q.device)
-    outs = [_plain_rows(q[:, i:i + PLAIN_ROWS], k, v, offs + i, causal,
-                        window)
-            for i in range(0, Sq, PLAIN_ROWS)]
-    if len(outs) == 1:
-        return outs[0]
-    return torch.cat(outs, 1) if outs else torch.empty_like(q)
+    parts = [_plain_rows(q[:, i:i + PLAIN_ROWS], k, v, offs + i, causal,
+                         window)
+             for i in range(0, Sq, PLAIN_ROWS)]
+    if not parts:
+        out = torch.empty_like(q)
+        lse = q.new_empty((B, q.shape[2], 0), dtype=torch.float32)
+    else:
+        out = torch.cat([o for o, _ in parts], 1)
+        lse = torch.cat([l for _, l in parts], 2)
+    return (out, lse) if return_lse else out
 
 
 def _plain_rows(q, k, v, offs, causal, window):
@@ -128,8 +164,11 @@ def _plain_rows(q, k, v, offs, causal, window):
         pv = (pb[..., None, :] * vt[:, :, None, None]).sum(-1)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]     # (B,KVH,G,Sq,Dh)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+    den = torch.clamp(l, min=1e-30)
+    out = acc / den[..., None]                           # (B,KVH,G,Sq,Dh)
+    lse = (m + torch.log(den)).reshape(B, H, Sq)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype),
+            lse)
 
 
 def _check(q, k, v):
@@ -147,11 +186,23 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True,
                     window=None):
     """See the module docstring.  Returns ``(B, Sq, H, Dh)`` in q's
     dtype."""
+    return _forward(q, k, v, q_offset, causal, window, False)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True):
+    """The forward that training saves for the backward: ``(out, lse)``,
+    lse the f32 ``(B, H, Sq)`` log-sum-exp of each row's scaled scores.
+    The kernel writes it beside the same ``out`` bits."""
+    return _forward(q, k, v, 0, causal, None, True)
+
+
+def _forward(q, k, v, q_offset, causal, window, want_lse):
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, q_offset, causal, window)
+        return flash_attention_plain(q, k, v, q_offset, causal, window,
+                                     return_lse=want_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, Dh = q.shape
@@ -174,15 +225,157 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True,
     if Dh not in (64, 128, 256):
         raise ValueError(f"head_dim {Dh} unsupported (64, 128 or 256)")
     out = torch.empty_like(q)
-    if B == 0 or Sq == 0:
-        return out
-    global launches
-    launches += 1
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    qo.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KVH, Dh,
-                    int(causal), int(window or 0),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    if B and Sq:
+        global launches
+        launches += 1
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        qo.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KVH,
+                        Dh, int(causal), int(window or 0),
+                        None if lse is None else lse.data_ptr(),
+                        torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed: "
+                               f"cudaError_t {err}")
+    return (out, lse) if want_lse else out
+
+
+# ------------------------------------------------------------ backward
+def _check_bwd(q, k, v):
+    """What the backward takes; the rest is the families' training
+    (ROADMAP Queue 1 item 15)."""
+    _check(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"the attention backward takes Sq == Skv, got Sq "
+                         f"{q.shape[1]} and Skv {k.shape[1]} (chunked "
+                         "training: ROADMAP Queue 1 item 15)")
+    if q.is_cuda and q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the attention backward kernel takes head_dim "
+                         f"{BWD_HEAD_DIMS}, got {q.shape[3]} (ROADMAP "
+                         "Queue 1 item 15)")
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """The backward kernel's function in plain PyTorch: (dq, dk, dv) in
+    the inputs' dtypes from the forward's ``out`` and ``lse``.  Query
+    tiles of KV_TILE rows go in ascending order, as the kernels walk
+    them; D = rowsum(dout * out), P = exp(S scale - lse) and dS =
+    P (dP - D) in f32; P and dS are rounded to the value dtype where
+    they enter a product (as the kernels round them to bf16), the sums
+    over a kv head's G query heads taken in f32."""
+    _check_bwd(q, k, v)
+    B, S, H, Dh = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(Dh)
+
+    def heads(t):                        # (B, S, H, Dh) -> (B,KVH,G,S,Dh)
+        return t.float().reshape(B, S, KVH, G, Dh).permute(0, 2, 3, 1, 4)
+    qf, of, dof = heads(q), heads(out), heads(dout)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]     # (B,KVH,1,S,Dh)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    d = (dof * of).sum(-1)                             # (B,KVH,G,S)
+    lse = lse.float().reshape(B, KVH, G, S)
+    j = torch.arange(S, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, KVH, S, Dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, S, KV_TILE):
+        rows = slice(q0, q0 + KV_TILE)
+        s = qf[..., rows, :] @ kf.transpose(-1, -2)    # (B,KVH,G,T,S)
+        p = torch.exp(s * scale - lse[..., rows, None])
+        if causal:
+            p = torch.where(j[None] <= j[rows, None], p, 0.0)
+        dp = dof[..., rows, :] @ vf.transpose(-1, -2)
+        ds = p * (dp - d[..., rows, None])
+        pb, dsb = p.to(dt).float(), ds.to(dt).float()
+        dv += (pb.transpose(-1, -2) @ dof[..., rows, :]).sum(2)
+        dk += (dsb.transpose(-1, -2) @ qf[..., rows, :]).sum(2)
+        dq[..., rows, :] = dsb @ kf
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+    dk, dv = ((t.permute(0, 2, 1, 3)).to(dt) for t in (dk * scale, dv))
+    return dq.to(dt), dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal)`` given
+    its ``out``, its ``lse`` (``flash_attention_lse``) and the output's
+    gradient ``dout``: the kernels for CUDA tensors, the plain version
+    for CPU tensors."""
+    _check_bwd(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, S, H, Dh = q.shape
+    KVH = k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout), ("lse", lse)):
+        want = torch.float32 if name == "lse" else torch.bfloat16
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("out and dout must have q's shape")
+    if tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"lse must be (B, H, S) = {(B, H, S)}, got "
+                         f"{tuple(lse.shape)}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if B == 0 or S == 0:
+        return dq, dk, dv
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    global bwd_launches
+    bwd_launches += 1
+    err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), B, S, H, KVH, Dh, int(causal),
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"cudaError_t {err}")
-    return out
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: ``flash_attention_lse`` forward,
+    ``flash_attention_bwd`` backward (the kernels on the card, the plain
+    versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_lse(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q, k, v, q_offset=0, causal: bool = True,
+                          window=None):
+    """``flash_attention`` with a gradient (``FlashAttentionFn``) over
+    the cases the backward covers; a window or a q_offset raises (the
+    families' training, ROADMAP Queue 1 item 15)."""
+    if window is not None:
+        raise ValueError("the attention backward takes no window (local "
+                         "attention's training: ROADMAP Queue 1 item 15)")
+    if isinstance(q_offset, torch.Tensor) or q_offset != 0:
+        raise ValueError("the attention backward takes q_offset 0 (per-row "
+                         "offsets: ROADMAP Queue 1 item 15)")
+    _check_bwd(q, k, v)
+    return FlashAttentionFn.apply(q, k, v, causal)

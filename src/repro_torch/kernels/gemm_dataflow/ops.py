@@ -24,6 +24,12 @@ operands it also picks the producer that fills the kernel's shared-
 memory ring (``producer_for``): TMA where the operands' bases and row
 strides are 16-byte aligned, cp.async otherwise; both give the same
 bits.
+
+``LinearFn`` gives a projection ``x @ W`` its gradient through the same
+kernel: forward the output-stationary product rounded once to x's
+dtype (the serving path's bits), backward ``dX = dY W^T`` and ``dW =
+X^T dY``, each an output-stationary product rounded once to its
+operand's dtype (on the CPU the same products with ``@``).
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 from ..build import load
 
 __all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
-           "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC"]
+           "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC",
+           "LinearFn", "project"]
 
 #: the kernel's tile (bm = bn = bk)
 TILE = 128
@@ -156,6 +163,37 @@ def _launch(a, b, dataflow: Dataflow, producer: int):
         raise RuntimeError(f"gemm_dataflow kernel launch failed: "
                            f"cudaError_t {err}")
     return out
+
+
+def project(a, b):
+    """``a @ b`` rounded once to a's dtype: on the card the output-
+    stationary kernel (fixed 128-tiles, k ascending, so a row's bits do
+    not depend on the rows of its call), on the CPU ``a @ b``."""
+    if a.device.type == "cpu":
+        return a @ b
+    return matmul(a, b, Dataflow.OUTPUT_STATIONARY).to(a.dtype)
+
+
+class LinearFn(torch.autograd.Function):
+    """``x @ w`` for x ``(M, K)`` and w ``(K, N)`` of one dtype, with its
+    gradient: dX = dY w^T and dW = x^T dY through ``project`` (the
+    transposes made contiguous first), each in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return project(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = project(dy, w.t().contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = project(x.t().contiguous(), dy)
+        return dx, dw
 
 
 def modeled_traffic(m: int, n: int, k: int, dataflow: Dataflow,

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import configs
+from ..data import SyntheticPipeline
 from ..models import build_model
 from ..serve import Request, ServeOptions
 from ..serve.step import greedy, make_decode_step
@@ -76,31 +77,16 @@ def synth_requests(cfg, n: int, prompt_len: int, gen: int,
 
 def synthetic_batch(cfg, batch: int, seq: int, *, seed: int = 0,
                     step: int = 0, device=None) -> dict:
-    """The reference's synthetic batch, draw for draw
-    (``repro.data.pipeline.SyntheticPipeline(cfg, batch, seq,
-    seed).device_batch(step)`` on one host): markov-ish ``tokens`` and,
-    where the family takes them, stub ``frames`` (whisper),
-    ``mrope_positions`` (text positions, all three ids = t) and
-    ``patch_embeds`` (qwen2-vl); float inputs as bf16, as the
-    reference's ``device_batch`` casts them."""
-    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 0]))
-    v = cfg.vocab_size
-    base = rng.integers(0, v, size=(batch, 1), dtype=np.int32)
-    drift = rng.integers(0, 17, size=(batch, seq), dtype=np.int32)
-    tokens = ((base + np.cumsum(drift, axis=1)) % v).astype(np.int32)
-    out = {"tokens": torch.from_numpy(tokens)}
-    if cfg.is_encoder_decoder:
-        out["frames"] = torch.from_numpy(rng.standard_normal(
-            (batch, cfg.n_frames, cfg.d_model)).astype(np.float32))
-    if cfg.rope_kind == "mrope":
-        out["mrope_positions"] = torch.arange(seq, dtype=torch.int32)[
-            None, None].expand(batch, 3, seq).contiguous()
-    if cfg.n_patches:
-        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
-            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32))
-    return {k: (t.to(device) if t.dtype == torch.int32
-                else t.to(device=device, dtype=torch.bfloat16))
-            for k, t in out.items()}
+    """The reference's synthetic batch
+    (``SyntheticPipeline(cfg, batch, seq, seed).device_batch(step)`` on
+    one host) without its labels: markov-ish ``tokens`` and, where the
+    family takes them, stub ``frames`` (whisper), ``mrope_positions``
+    (text positions, all three ids = t) and ``patch_embeds``
+    (qwen2-vl); float inputs as bf16."""
+    out = SyntheticPipeline(cfg, batch, seq, seed).device_batch(step,
+                                                                device)
+    del out["labels"]
+    return out
 
 
 def run_naive(model, params, batch: dict, gen: int) -> dict:

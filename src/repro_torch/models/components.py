@@ -15,6 +15,14 @@ Attention goes through the port's kernels (``kernels/flash_attention``,
 output-stationary), whose fixed 128-tiles and ascending k give a row
 the same bits whatever the number of rows in its call.
 
+Where autograd needs a gradient (training: grad enabled and an input
+that requires it) the two kernel calls go through their
+``torch.autograd.Function``s: ``linear`` through ``LinearFn`` (the
+backward's products on the same GEMM) and whole-sequence attention
+through ``FlashAttentionFn`` (the hand-written backward kernel); the
+unembedding builds its tiles without ``out=``.  Without a gradient
+every path is the serving path, bit for bit.
+
 Paged blocks write K/V into the page pool **in place** (the reference
 returns updated pages functionally).  The fused step's write/read
 disjointness (``repro.models.lm.fused_step_paged``) still holds: a
@@ -30,8 +38,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import KV_TILE as FLASH_TILE
 from ..kernels.flash_attention import flash_attention
-from ..kernels.gemm_dataflow import Dataflow
-from ..kernels.gemm_dataflow import matmul as gemm_matmul
+from ..kernels.flash_attention.ops import flash_attention_train
+from ..kernels.gemm_dataflow.ops import LinearFn, project
 from ..kernels.paged_attention import paged_attention
 from .base import ParamSpec, normal, ones, zeros
 
@@ -62,18 +70,20 @@ def linear(x, w, bias=None):
     whether its call has 1 row or 4,096.  A library GEMM picks its
     kernel, and with it the summation order, by the shape, so the
     engine's 8-row decode and the oracle's 16-row decode would not give
-    a row the same K/V.  On the CPU it is ``x @ w``."""
+    a row the same K/V.  On the CPU it is ``x @ w``.  Where a gradient
+    is needed the product is ``LinearFn`` (on the card the same
+    forward bits)."""
     w = w.to(x.dtype)
-    if x.device.type == "cpu":
-        y = x @ w
-    else:
-        lead = x.shape[:-1]
-        y = gemm_matmul(x.reshape(-1, x.shape[-1]), w,
-                        Dataflow.OUTPUT_STATIONARY)
-        y = y.to(x.dtype).reshape(*lead, w.shape[1])
+    x2 = x.reshape(-1, x.shape[-1])
+    y = LinearFn.apply(x2, w) if _needs_grad(x, w) else project(x2, w)
+    y = y.reshape(*x.shape[:-1], w.shape[1])
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # ---------------------------------------------------------------- norms
@@ -293,8 +303,9 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
             # the reference's local_attention contract
             raise ValueError(f"local attention needs S % window == 0, got "
                              f"S = {x.shape[1]}, window = {window}")
-        out = flash_attention(q, k, v, q_offset=0, causal=causal,
-                              window=window)
+        attend = (flash_attention_train if _needs_grad(q, k, v)
+                  else flash_attention)
+        out = attend(q, k, v, q_offset=0, causal=causal, window=window)
         return out_proj(p, out), {"k": k, "v": v}
     kc, vc = cache["k"], cache["v"]
     ring = window is not None and kc.shape[1] == window
@@ -567,7 +578,9 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(p, tokens, cfg, dtype):
-    x = p["tok"][tokens.long()].to(dtype)
+    # F.embedding: the gather's bits, and a backward that sums a
+    # repeated token's gradients in a fixed order on the card
+    x = F.embedding(tokens.long(), p["tok"]).to(dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -588,20 +601,26 @@ def unembed(p, x, cfg):
     rows (measured on the CPU: an f32 product gives a row other bits at
     1, 2 or up to 15 rows than at more), so a row's logits would
     otherwise depend on how many rows share the call, and the engine's
-    logits would not match the oracle's bit for bit."""
+    logits would not match the oracle's bit for bit.  Training needs no
+    such row independence: under grad the rows go through one product,
+    which is deterministic at a fixed shape."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
     M = x2.shape[0]
-    pad = -M % UNEMBED_ROWS
-    if pad:
-        x2 = torch.cat([x2, x2.new_zeros(pad, x2.shape[1])])
     w = (p["tok"].t() if cfg.tie_embeddings else p["head"]).float()
-    logits = torch.empty(M + pad, w.shape[1], dtype=torch.float32,
-                         device=x.device)
-    for i in range(0, M + pad, UNEMBED_ROWS):
-        torch.matmul(x2[i:i + UNEMBED_ROWS], w,
-                     out=logits[i:i + UNEMBED_ROWS])
-    logits = logits[:M].reshape(*lead, -1)
+    if _needs_grad(x2, w):
+        logits = x2 @ w
+    else:
+        pad = -M % UNEMBED_ROWS
+        if pad:
+            x2 = torch.cat([x2, x2.new_zeros(pad, x2.shape[1])])
+        logits = torch.empty(M + pad, w.shape[1], dtype=torch.float32,
+                             device=x.device)
+        for i in range(0, M + pad, UNEMBED_ROWS):
+            torch.matmul(x2[i:i + UNEMBED_ROWS], w,
+                         out=logits[i:i + UNEMBED_ROWS])
+        logits = logits[:M]
+    logits = logits.reshape(*lead, -1)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -18,7 +18,9 @@ place of ``lax.scan``; each layer reads views of the stacked tensors.
 
 Entry points:
 
-* ``apply``         logits over a whole sequence (whole-prompt prefill).
+* ``apply``         logits over a whole sequence (whole-prompt prefill);
+  ``train=True`` is the training forward (``train/step.py``), each
+  layer rematerialised in the backward when ``cfg.remat == "full"``.
 * ``prefill``       last-token logits + a contiguous decode cache.
 * ``init_cache``    an empty contiguous cache (the draft model's).
 * ``decode_step``   one token against the contiguous cache.
@@ -40,8 +42,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tree import tree_map
 from . import components as C
 from . import rglru as R
 from . import rwkv6 as W
@@ -113,9 +117,7 @@ def param_specs(cfg) -> dict:
 
 def _layer(tree, i: int):
     """Layer ``i``'s view of a layer-stacked parameter tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return tree_map(lambda t: t[i], tree)
 
 
 class DecoderLM:
@@ -255,8 +257,9 @@ class DecoderLM:
                      else torch.as_tensor(mrope, device=self.device))
         return tokens, pe, mrope
 
-    def _forward(self, params, batch):
-        """Final-norm hidden states (B, S, D) and every layer's cache."""
+    def _forward(self, params, batch, train: bool = False):
+        """Final-norm hidden states (B, S, D) and every layer's cache
+        (none with ``train``)."""
         tokens, pe, mrope = self._batch(batch)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
@@ -266,17 +269,41 @@ class DecoderLM:
             # the leading placeholder tokens
             x[:, :pe.shape[1]] = pe.to(self.dtype)
         caches = []
+        if train and self.scanned:
+            # one unbind a stacked leaf: its backward stacks the layers'
+            # gradients in one op, where a view a layer would add a
+            # zero-padded full-size gradient each
+            params = {**params,
+                      "layers": tree_map(torch.unbind, params["layers"])}
         for kind, use_moe, p in self._blocks(params):
+            if train:
+                def layer(p, x, kind=kind, use_moe=use_moe):
+                    return self._block(kind, use_moe, p, x,
+                                       positions=positions, mrope=mrope,
+                                       cache=None, pos=None)[0]
+                if self.cfg.remat == "full":
+                    # the reference's jax.checkpoint: keep the layer's
+                    # input, recompute the rest in the backward
+                    x = checkpoint(layer, p, x, use_reentrant=False)
+                else:
+                    x = layer(p, x)
+                continue
             x, c = self._block(kind, use_moe, p, x, positions=positions,
                                mrope=mrope, cache=None, pos=None)
             caches.append(c)
         return self._norm(params["final_norm"], x), caches
 
-    def apply(self, params, batch, *, want_hidden: bool = False):
+    def apply(self, params, batch, *, train: bool = False,
+              want_hidden: bool = False):
         """Whole-sequence forward: logits (B, S, V) f32, or with
         ``want_hidden`` the final-norm hidden states (B, S, D) (whose
-        rows ``logits`` turns into logits)."""
-        h, _ = self._forward(params, batch)
+        rows ``logits`` turns into logits).  ``train`` is the training
+        forward: no caches, and with ``cfg.remat == "full"`` each layer
+        under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint``), so the backward recomputes it; where grad
+        is enabled the kernels go through their autograd Functions.
+        Without ``train`` it is the serving forward, bit for bit."""
+        h, _ = self._forward(params, batch, train)
         return h if want_hidden else self.logits(params, h)
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):

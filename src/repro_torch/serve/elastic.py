@@ -61,7 +61,8 @@ from .router import RequestRouter
 from .scheduler import Request, ServeEngine
 from .telemetry import expose_counters, next_uid
 
-__all__ = ["ElasticController", "ElasticPolicy"]
+__all__ = ["ElasticController", "ElasticPolicy", "plan_elastic_mesh",
+           "StragglerEvent", "StragglerMonitor"]
 
 
 @dataclasses.dataclass
@@ -338,3 +339,77 @@ class ElasticController:
         done = list(self.finished[first:])
         done.sort(key=lambda r: (r.finish_time, r.rid))
         return done
+
+
+# --------------------------------------------------------------------
+# Training-side elasticity: the reference's mesh planner and straggler
+# monitor, copied (``runtime/elastic.py`` and ``runtime/straggler.py``
+# re-export them; the training driver uses the monitor).
+# --------------------------------------------------------------------
+
+def plan_elastic_mesh(n_devices: int, *, model_parallel: int,
+                      min_data: int = 1,
+                      pods: int = 1) -> Optional[Tuple[Tuple[int, ...],
+                                                       Tuple[str, ...]]]:
+    """Largest (shape, axes) mesh using <= n_devices after a
+    device-membership change — the training-side elasticity policy.
+
+    Keeps ``model_parallel`` fixed (param shardings stay valid) and
+    shrinks the data axis; drops to fewer pods before shrinking data
+    below ``min_data``.  Returns None when no legal mesh exists.  The
+    checkpoint layer restores onto whatever mesh this returns
+    (full-array manifests are topology-free).
+    """
+    if model_parallel <= 0 or n_devices < model_parallel * min_data:
+        return None
+    for p in range(pods, 0, -1):
+        per_pod = n_devices // p
+        data = per_pod // model_parallel
+        if data >= min_data:
+            if p > 1:
+                return ((p, data, model_parallel),
+                        ("pod", "data", "model"))
+            return ((data, model_parallel), ("data", "model"))
+    return None
+
+
+@dataclasses.dataclass
+class StragglerEvent:
+    step: int
+    step_time: float
+    ema: float
+    ratio: float
+
+
+class StragglerMonitor:
+    """Straggler detection: per-step wall-time EMA with an outlier
+    policy.  On a real pod the mitigation is re-issuing the slow host's
+    shard / evicting the host; here the monitor emits the decision so
+    the driver (and tests) can act on it.  A step that exceeds
+    ``threshold x EMA`` (after ``warmup`` steps) marks its slowest
+    participant; the outlier never poisons the EMA."""
+
+    def __init__(self, threshold: float = 2.5, alpha: float = 0.1,
+                 warmup: int = 5):
+        self.threshold = threshold
+        self.alpha = alpha
+        self.warmup = warmup
+        self.ema: Optional[float] = None
+        self.n = 0
+        self.events: List[StragglerEvent] = []
+
+    def observe(self, step: int,
+                step_time: float) -> Optional[StragglerEvent]:
+        self.n += 1
+        if self.ema is None:
+            self.ema = step_time
+            return None
+        event = None
+        if self.n > self.warmup and step_time > self.threshold * self.ema:
+            event = StragglerEvent(step, step_time, self.ema,
+                                   step_time / self.ema)
+            self.events.append(event)
+            # do not poison the EMA with the outlier
+            return event
+        self.ema = (1 - self.alpha) * self.ema + self.alpha * step_time
+        return event

@@ -18,6 +18,7 @@ import repro_torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve as launch
+from repro_torch.launch import train as launch_train
 from repro_torch.models.lm import DecoderLM
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +47,11 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.kernels.gemm_dataflow.ops",
             "repro_torch.kernels.block_sparse.ops",
             "repro_torch.kernels.lut_activation.ops",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.train.step", "repro_torch.train.optimizer",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+            "repro_torch.runtime.driver", "repro_torch.runtime.elastic",
+            "repro_torch.runtime.straggler"} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -77,6 +82,12 @@ def test_entry_points_default_to_the_gpu():
         DecoderLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch.main(["--arch", "qwen3-0.6b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps",
+                           "1"])
+    from repro_torch.data import SyntheticPipeline
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticPipeline(cfg, 1, 4).device_batch(0)
     assert DecoderLM(cfg, device="cpu").device.type == "cpu"
 
 
