@@ -41,12 +41,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                backward as the library time; and the projections'
                backward products on the dataflow GEMM (dX = dY W^T, dW =
                X^T dY at qwen3's ``attn/wq``, ``ffn/wd``, ``ffn/wg``,
-               2,048 rows) beside cuBLAS.
+               2,048 rows) beside cuBLAS.  Beside each backward time
+               (``ms``, CUDA events, L2 flushed) its ``device_ms``: the
+               kernels' own time from a profiler trace of back-to-back
+               calls.
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
                weight-stationary again at 2M / 2N (twice the blocks),
-               and a ragged f32 GEMM, the block-sparse GEMM on the same
+               and a ragged f32 GEMM (all four dataflows, bit-identical:
+               the f32 output-stationary kernel is gemm_f32.cuh, the
+               others the FMA tile of tile_mma.cuh), the block-sparse
+               GEMM on the same
                operands at the Table-3 keep rates, and the LUT
                activation on the GEMM's output shape and on all eight
                tables.  Its entry points run once with the launch
@@ -62,7 +68,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                qwen3's ``attn/wq`` and ``ffn/wd`` and scout's
                ``mix/wk`` at 8, 40, 256 and 2,048 rows, with the
                producer each took and whether a row's bits depend on the
-               row count.
+               row count; then the products whose weight enters in f32
+               (``F32_SHAPES``: the MoE routers, RG-LRU's gate, RWKV6's
+               decay LoRA) at the row counts of the card's paths, gated
+               on NO_REUSE's bits and on row stability, with the plan
+               (``plan_f32``) and kernel / torch.matmul device times.
 4. **serve**   qwen3-0.6b at full width (seeded random init) serves 16
                synthetic requests through ``ServeEngine`` and the
                kernels' launch counters prove the path ran through them;
@@ -131,8 +141,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (device time by kernel group, idle share).
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
-serve, fleet, archs, families, train and paper paths), the card's name and
-power limit as ``nvidia-smi`` reports them, and as the last line
+serve, fleet, archs, families, train and paper paths; the dataflow
+GEMM's also counted apart for f32 operands, ``launches_f32``), the
+card's name and power limit as ``nvidia-smi`` reports them, and as the
+last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
 one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
 Without a GPU, or without the rest of the repository beside this file,
@@ -224,6 +236,15 @@ SCAN_ROWS, SCAN_LAST = 2, 8
 PROJ_SHAPES = {"qwen3_attn_wq": (1024, 2048), "qwen3_ffn_wd": (3072, 1024),
                "scout_mix_wk": (5120, 1024)}
 PROJ_ROWS = (8, 40, 256, 2048)
+# paper phase: the products whose weight enters in f32 (``ParamSpec(
+# f32=True)``), (K, N) and the row counts the card's paths give them:
+# the MoE routers (decode, a chunk, a prefill), RG-LRU's gate (decode,
+# recurrentgemma's 8 x 2,048-token prefill), RWKV6's decay LoRA
+F32_SHAPES = {"scout_router": (5120, 16, (8, 256, 2048)),
+              "deepseek_router": (2048, 64, (8, 2048)),
+              "rglru_wr": (2560, 2560, (8, 16384)),
+              "rwkv_wd1": (2560, 64, (8, 2048)),
+              "rwkv_wd2": (64, 2560, (8, 2048))}
 # kernels phase, the training path's cases: the attention backward
 # (case, B, S, H, KVH, Dh, causal) at qwen3-0.6b's training shape, a
 # long prompt, a ragged S and Dh 64 without a causal mask; the GEMM
@@ -320,6 +341,31 @@ def time_ms(fn, *, iters: int = 20, flush=None,
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, calls: int = 10, by_kernel: bool = False):
+    """Device time of one call of ``fn``: the kernels' own time summed
+    from a ``torch.profiler`` trace of ``calls`` back-to-back calls
+    (after one warm-up call), host launch gaps excluded.  At decode
+    sizes a call's host work (the wrapper, two launches) can outlast
+    the L2 flush that ``time_ms`` puts before it, and then ``time_ms``
+    reads the host's time as well.  With ``by_kernel``, also {kernel
+    name: ms a call}."""
+    fn()
+    prof = _device_profile(lambda: [fn() for _ in range(calls)])
+    total = prof["device_busy_ms"] / calls
+    if not by_kernel:
+        return total
+    return total, {_kernel_name_of(name): ms / calls
+                   for name, ms, _ in prof["top"]}
+
+
+def _kernel_name_of(signature: str) -> str:
+    """A profiler kernel name without return type, namespace and
+    parameter list (``flash_bwd_dq<128>``)."""
+    name = signature.replace("(anonymous namespace)::", "")
+    name = name.split("(", 1)[0].removeprefix("void ")
+    return name.rsplit("::", 1)[-1]
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -619,7 +665,10 @@ def _flash_bwd_cases(g, flush, results) -> None:
         _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
                                                 return_lse=True)
         args = (q, k, v, out, lse, do, causal)
+        plan = fa.plan_dkdv(S, H // KVH, causal)
         got = fa.flash_attention_bwd(*args)
+        dev = device_ms(lambda: fa.flash_attention_bwd(*args),
+                        by_kernel=True)
         again = fa.flash_attention_bwd(*args)
         want = fa.flash_attention_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -648,6 +697,12 @@ def _flash_bwd_cases(g, flush, results) -> None:
                    *args), iters=3, flush=flush),
                "library_ms": time_ms(_sdpa_bwd(q, k, v, do, causal),
                                      flush=flush),
+               "device_ms": dev[0], "device_ms_by_kernel": dev[1],
+               "library_device_ms": device_ms(
+                   _sdpa_bwd(q, k, v, do, causal)),
+               "plan_dkdv": {"chunk": plan.chunk, "blocks_per_row_head":
+                             len(plan.items), "workspace_slots":
+                             plan.n_slots},
                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
                "flops": flops, "forward_flops": fwd_flops}
         emit(rec)
@@ -1062,8 +1117,7 @@ def phase_paper():
                      for df in (D.OUTPUT_STATIONARY, D.INPUT_STATIONARY)]
                   + [("scout_2n_bf16", df, a, b2)
                      for df in (D.OUTPUT_STATIONARY, D.WEIGHT_STATIONARY)]
-                  + [("ragged_f32", df, a32, b32)
-                     for df in (D.OUTPUT_STATIONARY, D.NO_REUSE)]
+                  + [("ragged_f32", df, a32, b32) for df in D]
                   + [("ragged_bf16", df, ar, br) for df in D])
     lut_cases = ([("silu_f32", "silu", x_act),
                   ("silu_bf16", "silu", x_act.bfloat16())]
@@ -1071,15 +1125,19 @@ def phase_paper():
                     for name in sorted(lut.TABLES)])
 
     # the path: each entry point once per case, counters from 0
-    gd_ops.launches = bs_ops.launches = lut_ops.launches = 0
+    gd_ops.launches = gd_ops.launches_f32 = 0
+    bs_ops.launches = lut_ops.launches = 0
     gemm_out = [gd.matmul(x, w, df) for _, df, x, w in gemm_cases]
     bs_out = [bs.matmul(x, w, mask) for _, x, w, mask in sparse_cases]
     lut_out = [lut.apply_lut(x, name) for _, name, x in lut_cases]
     torch.cuda.synchronize()
     launches = {"gemm_dataflow": gd_ops.launches,
+                "gemm_dataflow_f32": gd_ops.launches_f32,
                 "block_sparse": bs_ops.launches,
                 "lut_activation": lut_ops.launches}
     want = {"gemm_dataflow": len(gemm_cases),
+            "gemm_dataflow_f32": sum(x.dtype == torch.float32
+                                     for _, _, x, _ in gemm_cases),
             "block_sparse": len(sparse_cases),
             "lut_activation": len(lut_cases)}
     if launches != want:
@@ -1231,6 +1289,7 @@ def phase_paper():
     del x
     emit(probe)
     _projection_cases(g, flush, record)
+    _f32_cases(g, flush, record)
     del flush
     emit({"phase": "paper", "seconds": time.perf_counter() - t_phase,
           "launches": launches,
@@ -1243,6 +1302,9 @@ def phase_paper():
 #: count (the attention kernels and, since the projections moved onto
 #: it, the dataflow GEMM)
 PATH_KERNELS = ("flash_attention", "paged_attention", "gemm_dataflow")
+#: what ``_launches_read`` returns: those kernels' counts, and the
+#: dataflow GEMM's f32 launches among its own
+PATH_COUNTERS = PATH_KERNELS + ("gemm_dataflow_f32",)
 
 
 def _ops(name):
@@ -1288,13 +1350,65 @@ def _projection_cases(g, flush, record) -> None:
                    kernel_over_library=t_k / t_l)
 
 
+def _f32_cases(g, flush, record) -> None:
+    """The dataflow GEMM on the products whose weight enters in f32
+    (F32_SHAPES), output-stationary as ``components.linear`` runs them:
+    against its plain version, ``torch.matmul`` in f32 (``allow_tf32``
+    off) and the byte / FFMA bound; gated on the NO_REUSE kernel's bits
+    (``torch.equal``: NO_REUSE keeps the FMA tile product of
+    tile_mma.cuh) and on the first M rows of the largest call giving
+    the bits of an M-row call."""
+    import torch
+    from repro_torch.kernels import gemm_dataflow as gd
+    from repro_torch.kernels.gemm_dataflow import ops as gd_ops
+    NR = gd.Dataflow.NO_REUSE
+    for label, (K, N, rows) in F32_SHAPES.items():
+        w = torch.randn(K, N, generator=g, device="cuda")
+        big = torch.randn(max(rows), K, generator=g, device="cuda")
+        full = gd.matmul(big, w)
+        for M in rows:
+            x = big[:M]
+            got = gd.matmul(x, w)
+            equal_nr = torch.equal(got, gd.matmul(x, w, NR))
+            stable = torch.equal(got, full[:M])
+            if not (equal_nr and stable):
+                fail(f"gemm_dataflow [f32 {label}, M {M}]: equal to "
+                     f"no_reuse {equal_nr}, rows stable against M "
+                     f"{max(rows)} {stable}")
+            t_k = time_ms(lambda: gd.matmul(x, w), flush=flush,
+                          budget_ms=1000)
+            t_l = time_ms(lambda: torch.matmul(x, w), flush=flush,
+                          budget_ms=1000)
+            dev_k = device_ms(lambda: gd.matmul(x, w))
+            dev_l = device_ms(lambda: torch.matmul(x, w))
+            record("gemm_dataflow", f"f32_{label}_M{M}", got,
+                   gd.matmul_plain(x, w), GEMM_ATOL, GEMM_RTOL, t_k,
+                   time_ms(lambda: gd.matmul_plain(x, w), iters=3,
+                           flush=flush),
+                   t_l, (M * K + K * N) * 4 + M * N * 4, 2 * M * N * K,
+                   F32_FLOPS_PER_S, dataflow="output_stationary", M=M, K=K,
+                   N=N, dtype="float32",
+                   plan=list(gd_ops.plan_f32(M, N, K, gd_ops._sm_count(
+                       x.device))[:4]),
+                   equals_no_reuse=equal_nr, rows_stable_vs_largest=stable,
+                   kernel_over_library=t_k / t_l, device_ms=dev_k,
+                   library_device_ms=dev_l,
+                   device_kernel_over_library=dev_k / dev_l)
+        del w, big, full
+
+
 def _launches_reset() -> None:
     for name in PATH_KERNELS:
         _ops(name).launches = 0
+    _ops("gemm_dataflow").launches_f32 = 0
 
 
 def _launches_read() -> dict:
-    return {name: _ops(name).launches for name in PATH_KERNELS}
+    """The path kernels' launches, and the dataflow GEMM's f32 ones
+    among them (``gemm_dataflow_f32``)."""
+    counts = {name: _ops(name).launches for name in PATH_KERNELS}
+    counts["gemm_dataflow_f32"] = _ops("gemm_dataflow").launches_f32
+    return counts
 
 
 def _n_products(model, *, decode: bool = False) -> int:
@@ -1394,10 +1508,10 @@ def phase_serve():
                                       for r in done):
         fail(f"serve: {len(done)} requests finished, generated "
              f"{[len(r.generated) for r in done]} tokens")
-    for name, n in launches.items():
-        if n < want[name] or n == 0:
-            fail(f"serve: {name} launched {n} times, the path's "
-                 f"dispatches need {want[name]}")
+    for name, n in want.items():
+        if launches[name] < n or launches[name] == 0:
+            fail(f"serve: {name} launched {launches[name]} times, the "
+                 f"path's dispatches need {n}")
     if not _bitwise_held(bitwise):
         fail(f"serve: a model-level bitwise invariant failed: {bitwise}")
     _row_bits_gate("serve", row_bits)
@@ -1569,7 +1683,7 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "flash_bwd_" in name:
         return "flash_attention_bwd"
-    if any(t in name for t in ("gemm_bf16", "gemm_output_stationary")):
+    if any(t in name for t in ("gemm_bf16", "f32os::")):
         return "gemm_dataflow"
     low = name.lower()
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
@@ -1909,7 +2023,7 @@ def phase_fleet(model, params, programs):
     and program bundle: (a) router, (b) churn and crash, (c) stream,
     (d) draft model.  Returns the attention kernels' launches summed
     over the sub-runs' measured drives."""
-    total = dict.fromkeys(PATH_KERNELS, 0)
+    total = dict.fromkeys(PATH_COUNTERS, 0)
     t0 = time.perf_counter()
     for sub in (_fleet_router, _fleet_churn, _fleet_stream, _fleet_draft):
         for k, n in sub(model, params, programs).items():
@@ -2147,10 +2261,10 @@ def _serve_arch(name):
         fail(f"archs [{cfg.name}]: re-score max gap {rescore['max_gap']} "
              f"(tau {TAU}), finite {rescore['finite']}")
     _oracle_gate(f"archs [{cfg.name}]", rescore)
-    for k, n in launches.items():
-        if n < want[k] or n == 0:
-            fail(f"archs [{cfg.name}]: {k} launched {n} times, the path's "
-                 f"dispatches need {want[k]}")
+    for k, n in want.items():
+        if launches[k] < n or launches[k] == 0:
+            fail(f"archs [{cfg.name}]: {k} launched {launches[k]} times, "
+                 f"the path's dispatches need {n}")
     if not _bitwise_held(bitwise):
         fail(f"archs [{cfg.name}]: a model-level bitwise invariant failed: "
              f"{bitwise}")
@@ -2164,7 +2278,7 @@ def phase_archs():
     kernels' launches summed over their serve traces."""
     import gc
     import torch
-    total = dict.fromkeys(PATH_KERNELS, 0)
+    total = dict.fromkeys(PATH_COUNTERS, 0)
     t0 = time.perf_counter()
     for name in ARCHS_ON_CARD:
         for k, n in _serve_arch(name).items():
@@ -2459,7 +2573,7 @@ def phase_families():
     summed over their measured runs."""
     import gc
     import torch
-    total = dict.fromkeys(PATH_KERNELS, 0)
+    total = dict.fromkeys(PATH_COUNTERS, 0)
     t0 = time.perf_counter()
     for name, prompt_len in FAMILIES_ON_CARD:
         for k, n in _serve_family(name, prompt_len).items():
@@ -2478,12 +2592,13 @@ def _train_launches() -> dict:
     fa, gd = _ops("flash_attention"), _ops("gemm_dataflow")
     return {"flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
-            "gemm_dataflow": gd.launches}
+            "gemm_dataflow": gd.launches,
+            "gemm_dataflow_f32": gd.launches_f32}
 
 
 def _train_launches_reset() -> None:
     fa, gd = _ops("flash_attention"), _ops("gemm_dataflow")
-    fa.launches = fa.bwd_launches = gd.launches = 0
+    fa.launches = fa.bwd_launches = gd.launches = gd.launches_f32 = 0
 
 
 def _train_launch_gates(model, steps: int) -> dict:
@@ -2782,6 +2897,10 @@ def summary_line(kernel_results, launches, by_phase):
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"], "case": case,
                     "launches_by_phase": by_phase.get(name, {})})
+        if name == "gemm_dataflow":
+            out[-1].update(
+                launches_f32=launches.get("gemm_dataflow_f32", 0),
+                launches_f32_by_phase=by_phase.get("gemm_dataflow_f32", {}))
     emit({"kernels": out})
 
 

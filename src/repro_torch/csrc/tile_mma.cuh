@@ -21,9 +21,14 @@
 //     B tile (BK x BN) with load_tile(); thread (ty, tx) of a 16 x 16
 //     grid owns rows ty + 16 r (r < 8) and column pairs 2 tx + 32 c
 //     (c < 4), and runs one FMA chain per element over k = 0..127.
-//     Bound on the H100 by the f32 FMA rate (67 TFLOP/s); measured
-//     0.96-1.00 ms at 1000 x 5120 x 1000 against a 0.153 ms bound
-//     (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+//     Mma<float> serves the f32 weight-stationary, input-stationary and
+//     no-reuse dataflows and the block-sparse kernel; the f32
+//     output-stationary product, which the serving path runs, is
+//     gemm_f32.cuh, which performs the same chains and additions
+//     (its result is held equal to NO_REUSE's).  Staging and FMAs do not
+//     overlap here: at 1000 x 5120 x 1000 NO_REUSE takes 1.21 ms, the
+//     old output-stationary kernel on this tile 0.95 ms, against a
+//     0.153 ms FFMA bound (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 //
 // A thread's 64 outputs are 32 pairs of horizontally adjacent
 // elements; L::pair_coord(p) gives the tile coordinates of pair p in

@@ -19,10 +19,12 @@ tensors and takes the plain version only for CPU tensors.
 
 Training: ``FlashAttentionFn`` gives the attention a gradient.  Its
 forward is the kernel with the per-row log-sum-exp as a second output;
-its backward is the hand-written kernel pair of
+its backward is the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``: dQ, then dK
-and dV, no atomics, so a step is a deterministic function of its
-inputs), whose plain version is ``flash_attention_bwd_plain``.  The
+and dV, the long dK/dV walks cut into runs by ``plan_dkdv`` and their
+f32 partials added in run order by a third kernel; no atomics, so a
+step is a deterministic function of its inputs), whose plain version is
+``flash_attention_bwd_plain``.  The
 backward covers what the dense architectures train with: causal or
 not, q_offset 0, Sq == Skv, Dh 64 or 128.
 """
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -38,7 +41,7 @@ from ..build import load
 __all__ = ["flash_attention", "flash_attention_plain", "KV_TILE",
            "flash_attention_lse", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
-           "flash_attention_train"]
+           "flash_attention_train", "plan_dkdv", "DkdvPlan"]
 
 #: keys per online-softmax step — the kernel's tile
 KV_TILE = 64
@@ -73,8 +76,9 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         f = load("flash_attention_bwd").repro_flash_attention_bwd_bf16
-        f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p])
+        f.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
+                                                ctypes.c_int, ctypes.c_void_p]
+                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _bwd_fn = f
     return _bwd_fn
@@ -256,47 +260,126 @@ def _check_bwd(q, k, v):
                          "Queue 1 item 15)")
 
 
+class DkdvPlan(NamedTuple):
+    """How the dK/dV kernel covers the key tiles of one (kv head, batch
+    row).  The walk of key tile t runs ``steps(t)`` steps, step i being
+    query head ``i // per_head`` of the kv head's G and query tile
+    ``first + i % per_head`` (causal: ``first = t``, ``per_head = nq -
+    t``; else 0 and nq).  A walk longer than ``chunk`` steps is cut into
+    runs of ``chunk`` steps, one block each, whose f32 partials go to
+    workspace slots ``first_slot, first_slot + 1, ...``; ``splits``
+    lists those walks and a combine adds their runs in ascending order.
+    ``items`` are the blocks, longest first: (key tile, step0, step1,
+    slot, -1 when the block writes the whole walk)."""
+    chunk: int
+    items: Tuple[Tuple[int, int, int, int], ...]
+    splits: Tuple[Tuple[int, int, int], ...]
+    n_slots: int
+
+
+#: a dK/dV walk is cut into runs of at most
+#: max(DKDV_MIN_CHUNK, ceil(longest walk / DKDV_RUNS)) steps
+DKDV_MIN_CHUNK, DKDV_RUNS = 8, 2
+
+
+def plan_dkdv(S: int, G: int, causal: bool = True) -> DkdvPlan:
+    """The dK/dV plan for S keys (tiles of KV_TILE) and G query heads a
+    kv head; it depends on nothing else, so every batch row and kv head
+    sums its gradients in the same order."""
+    nq = -(-S // KV_TILE)
+    chunk = max(DKDV_MIN_CHUNK, -(-G * nq // DKDV_RUNS))
+    items, splits, slot = [], [], 0
+    for t in range(nq):
+        steps = G * (nq - t if causal else nq)
+        if steps <= chunk:
+            items.append((t, 0, steps, -1))
+            continue
+        runs = [(i, min(steps, i + chunk)) for i in range(0, steps, chunk)]
+        splits.append((t, slot, len(runs)))
+        items += [(t, i0, i1, slot + c) for c, (i0, i1) in enumerate(runs)]
+        slot += len(runs)
+    items.sort(key=lambda it: (it[1] - it[2], it[0]))
+    return DkdvPlan(chunk, tuple(items), tuple(splits), slot)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
-    """The backward kernel's function in plain PyTorch: (dq, dk, dv) in
-    the inputs' dtypes from the forward's ``out`` and ``lse``.  Query
-    tiles of KV_TILE rows go in ascending order, as the kernels walk
-    them; D = rowsum(dout * out), P = exp(S scale - lse) and dS =
-    P (dP - D) in f32; P and dS are rounded to the value dtype where
-    they enter a product (as the kernels round them to bf16), the sums
-    over a kv head's G query heads taken in f32."""
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) in
+    the inputs' dtypes from the forward's ``out`` and ``lse``.  D =
+    rowsum(dout * out), P = exp(S scale - lse) and dS = P (dP - D) in
+    f32; P and dS are rounded to the value dtype where they enter a
+    product (as the kernels round them to bf16).  Query heads, then
+    query tiles of KV_TILE rows, in ascending order, as the dK/dV walks
+    run them; each key tile's dK and dV are summed in f32 run by run of
+    ``plan_dkdv``, and the runs added in ascending order."""
     _check_bwd(q, k, v)
     B, S, H, Dh = q.shape
     KVH = k.shape[2]
     G = H // KVH
     dt = q.dtype
     scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
 
     def heads(t):                        # (B, S, H, Dh) -> (B,KVH,G,S,Dh)
         return t.float().reshape(B, S, KVH, G, Dh).permute(0, 2, 3, 1, 4)
     qf, of, dof = heads(q), heads(out), heads(dout)
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]     # (B,KVH,1,S,Dh)
-    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    kf = k.float().permute(0, 2, 1, 3)                 # (B,KVH,S,Dh)
+    vf = v.float().permute(0, 2, 1, 3)
     d = (dof * of).sum(-1)                             # (B,KVH,G,S)
     lse = lse.float().reshape(B, KVH, G, S)
-    j = torch.arange(S, device=q.device)
+    plan = plan_dkdv(S, G, causal)
+    nq = -(-S // KV_TILE)
+    j = torch.arange(S, device=dev)
+    tile = j // KV_TILE                                # each key's tile
+    first = tile if causal else torch.zeros_like(tile)
+    per_head = nq - first
+    n_runs = max(1 + (i1 - 1) // plan.chunk for _, _, i1, _ in plan.items)
     dq = torch.zeros_like(qf)
-    dk = torch.zeros((B, KVH, S, Dh), dtype=torch.float32, device=q.device)
+    part = torch.zeros((2, n_runs, B, KVH, S, Dh), dtype=torch.float32,
+                       device=dev)                     # dk, dv runs
+    for g in range(G):
+        for qt in range(nq):
+            rows = slice(qt * KV_TILE, (qt + 1) * KV_TILE)
+            s = qf[:, :, g, rows] @ kf.transpose(-1, -2)   # (B,KVH,T,S)
+            p = torch.exp(s * scale - lse[:, :, g, rows, None])
+            if causal:
+                p = torch.where(j[None] <= j[rows, None], p, 0.0)
+            dp = dof[:, :, g, rows] @ vf.transpose(-1, -2)
+            ds = p * (dp - d[:, :, g, rows, None])
+            pb, dsb = p.to(dt).float(), ds.to(dt).float()
+            dq[:, :, g, rows] = dsb @ kf
+            steps = (dsb.transpose(-1, -2) @ qf[:, :, g, rows],
+                     pb.transpose(-1, -2) @ dof[:, :, g, rows])
+            # the run of this walk step in each key tile's walk
+            run = (g * per_head + qt - first) // plan.chunk
+            seen = qt >= first
+            for c in run[seen].unique().tolist():
+                keys = torch.nonzero(seen & (run == c)).squeeze(1)
+                for x, step in enumerate(steps):
+                    part[x, c].index_add_(2, keys, step.index_select(2, keys))
+    dk = torch.zeros((B, KVH, S, Dh), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
-    for q0 in range(0, S, KV_TILE):
-        rows = slice(q0, q0 + KV_TILE)
-        s = qf[..., rows, :] @ kf.transpose(-1, -2)    # (B,KVH,G,T,S)
-        p = torch.exp(s * scale - lse[..., rows, None])
-        if causal:
-            p = torch.where(j[None] <= j[rows, None], p, 0.0)
-        dp = dof[..., rows, :] @ vf.transpose(-1, -2)
-        ds = p * (dp - d[..., rows, None])
-        pb, dsb = p.to(dt).float(), ds.to(dt).float()
-        dv += (pb.transpose(-1, -2) @ dof[..., rows, :]).sum(2)
-        dk += (dsb.transpose(-1, -2) @ qf[..., rows, :]).sum(2)
-        dq[..., rows, :] = dsb @ kf
+    for c in range(n_runs):
+        dk, dv = dk + part[0, c], dv + part[1, c]
     dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
     dk, dv = ((t.permute(0, 2, 1, 3)).to(dt) for t in (dk * scale, dv))
     return dq.to(dt), dk, dv
+
+
+_plan_tables: Dict[tuple, tuple] = {}
+
+
+def _dkdv_tables(S: int, G: int, causal: bool, device):
+    """``plan_dkdv``'s items and splits as int32 (n, 4) tensors on
+    ``device`` (kept for the next call with the same S, G, causal)."""
+    key = (S, G, causal, str(device))
+    if key not in _plan_tables:
+        plan = plan_dkdv(S, G, causal)
+        items = torch.tensor(plan.items, dtype=torch.int32, device=device)
+        splits = torch.tensor([sp + (0,) for sp in plan.splits] or
+                              [(0, 0, 0, 0)], dtype=torch.int32,
+                              device=device)
+        _plan_tables[key] = (plan, items, splits)
+    return _plan_tables[key]
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
@@ -333,12 +416,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     if B == 0 or S == 0:
         return dq, dk, dv
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    plan, items, splits = _dkdv_tables(S, H // KVH, causal, q.device)
+    ws = None
+    if plan.n_slots:
+        ws = torch.empty(plan.n_slots * B * KVH * 2 * KV_TILE * Dh,
+                         dtype=torch.float32, device=q.device)
     global bwd_launches
     bwd_launches += 1
     err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                         dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), B, S, H, KVH, Dh, int(causal),
+                        dv.data_ptr(), items.data_ptr(), len(plan.items),
+                        splits.data_ptr(), len(plan.splits),
+                        None if ws is None else ws.data_ptr(), B, S, H, KVH,
+                        Dh, int(causal),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "

@@ -23,7 +23,10 @@ tensors and takes the plain version only for CPU tensors.  For bf16
 operands it also picks the producer that fills the kernel's shared-
 memory ring (``producer_for``): TMA where the operands' bases and row
 strides are 16-byte aligned, cp.async otherwise; both give the same
-bits.
+bits.  For f32 operands under OUTPUT_STATIONARY it picks the plan of
+``csrc/gemm_f32.cuh`` (``plan_f32``: the output tile from the shape,
+and a split of k over whole k tiles when the tiles leave SMs idle) and
+allocates the split's workspace; every plan gives the same bits.
 
 ``LinearFn`` gives a projection ``x @ W`` its gradient through the same
 kernel: forward the output-stationary product rounded once to x's
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import enum
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -43,7 +46,7 @@ from ..build import load
 
 __all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
            "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC",
-           "LinearFn", "project"]
+           "LinearFn", "project", "plan_f32", "F32Plan"]
 
 #: the kernel's tile (bm = bn = bk)
 TILE = 128
@@ -51,8 +54,10 @@ TILE = 128
 #: the producers of the bf16 pipeline (csrc/wgmma_pipe.cuh)
 TMA, CP_ASYNC = 0, 1
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+#: kernel launches since the last reset (chip_smoke.py reads them):
+#: all of them, and those with float32 operands among them
 launches = 0
+launches_f32 = 0
 
 _fn = None
 
@@ -73,8 +78,8 @@ def _kernel():
     global _fn
     if _fn is None:
         f = load("gemm_dataflow").repro_gemm_dataflow
-        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p])
+        f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                      + [ctypes.c_void_p] * 2)
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -98,6 +103,67 @@ def matmul_plain(a, b, *, bk: int = TILE):
     for k0 in range(0, k, bk):
         out += a32[:, k0:k0 + bk] @ b32[k0:k0 + bk]
     return out
+
+
+class F32Plan(NamedTuple):
+    """How the f32 output-stationary kernel (``csrc/gemm_f32.cuh``)
+    covers an (M, N, K) product: ``bm`` x ``bn`` output tiles, and the
+    k tiles (``TILE`` deep) in ``chunks`` runs of ``tiles_per_chunk``
+    consecutive tiles, one block per (output tile, run).  With more than
+    one run every k tile's product goes to a workspace of
+    ``workspace_floats`` floats and a second launch adds them."""
+    bm: int
+    bn: int
+    tiles_per_chunk: int
+    chunks: int
+    workspace_floats: int
+
+
+#: the f32 kernel's output tiles: rows, columns
+F32_TILES_M = (8, 16, 32, 64, 128)
+F32_TILES_N = (64, 128)
+#: the largest workspace a split of k may take, in bytes
+F32_WORKSPACE_CAP = 64 << 20
+
+
+def plan_f32(m: int, n: int, k: int, n_sm: int) -> F32Plan:
+    """The f32 output-stationary kernel's plan for an (M, N, K) product
+    on a card of ``n_sm`` SMs.  The smallest row tile that holds M (128
+    above); 128 columns only for M up to 64 rows that N fills, else 64
+    (a 128 x 128 tile would fit one block an SM); a 128-row tile halved
+    to 64 when N fits 64 columns and the tiles leave SMs idle.  When the
+    output tiles still leave SMs idle, k is split into runs of whole k
+    tiles, about one block an SM, unless the workspace (every k tile's
+    product, nk x M x N floats) would exceed ``F32_WORKSPACE_CAP``.
+    None of this changes a bit of the result."""
+    nk = -(-k // TILE)
+    bm = next((t for t in F32_TILES_M if t >= m), F32_TILES_M[-1])
+    bn = F32_TILES_N[-1] if n > F32_TILES_N[0] and bm <= 64 else \
+        F32_TILES_N[0]
+
+    def tiles(rows):
+        return -(-m // rows) * -(-n // bn)
+    if bm == 128 and n <= F32_TILES_N[0] and tiles(bm) < n_sm:
+        bm = 64
+    out_tiles = tiles(bm)
+    per, chunks = nk, 1
+    if (out_tiles < n_sm and nk > 1
+            and nk * m * n * 4 <= F32_WORKSPACE_CAP):
+        per = -(-nk // min(nk, -(-n_sm // out_tiles)))
+        chunks = -(-nk // per)
+    return F32Plan(bm, bn, per, chunks, nk * m * n if chunks > 1 else 0)
+
+
+_n_sm: Dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _n_sm[idx]
 
 
 def producer_for(a, b) -> int:
@@ -154,10 +220,19 @@ def _launch(a, b, dataflow: Dataflow, producer: int):
         return out
     if k == 0:
         return out.zero_()
-    global launches
+    plan, ws = F32Plan(0, 0, 0, 1, 0), None
+    if a.dtype == torch.float32 and dataflow is Dataflow.OUTPUT_STATIONARY:
+        plan = plan_f32(m, n, k, _sm_count(a.device))
+        if plan.workspace_floats:
+            ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                             device=a.device)
+    global launches, launches_f32
     launches += 1
+    launches_f32 += int(a.dtype == torch.float32)
     err = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                    _CODE[dataflow], _DTYPE[a.dtype], producer,
+                    _CODE[dataflow], _DTYPE[a.dtype], producer, plan.bm,
+                    plan.bn, plan.tiles_per_chunk,
+                    None if ws is None else ws.data_ptr(),
                     torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"gemm_dataflow kernel launch failed: "

@@ -64,9 +64,10 @@ def linear(x, w, bias=None):
     product (the reference's order).
 
     On the card the rows go through the dataflow GEMM kernel
-    (output-stationary: 128 x 128 x 128 tiles chosen by nothing but K
-    and N, k summed in ascending order, no split and no atomics), whose
-    f32 result is rounded once to x's dtype: a row has the same bits
+    (output-stationary: 128-deep k tiles, each formed from zero and
+    added in ascending k, no atomics; an f32 product may spread its k
+    tiles over blocks, which adds them in the same order), whose f32
+    result is rounded once to x's dtype: a row has the same bits
     whether its call has 1 row or 4,096.  A library GEMM picks its
     kernel, and with it the summation order, by the shape, so the
     engine's 8-row decode and the oracle's 16-row decode would not give
