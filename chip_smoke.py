@@ -35,13 +35,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                whole prefill.  Then the training path's kernels: the
                attention backward (``flash_attention_bwd``) at qwen3's
                training shape (B 8 x S 256), B 1 x S 2,048, a ragged
-               S 200 and Dh 64 without a causal mask, against its plain
-               version (dq, dk, dv), with the forward's lse against the
-               plain forward's, two calls bit for bit equal, and SDPA's
-               backward as the library time; and the projections'
-               backward products on the dataflow GEMM (dX = dY W^T, dW =
-               X^T dY at qwen3's ``attn/wq``, ``ffn/wd``, ``ffn/wg``,
-               2,048 rows) beside cuBLAS.  Beside each backward time
+               S 200, Dh 64 without a causal mask, and the families'
+               training shapes (recurrentgemma's 2,048-key window at Dh
+               256 and G 10 over 4,096 tokens, whisper's cross-attention
+               64 x 1,500 and encoder, qwen2-vl's G 7), against its
+               plain version (dq, dk, dv), with the forward's lse
+               against the plain forward's, two calls bit for bit equal,
+               and SDPA's backward under the same mask as the library
+               time; and the projections' backward products on the
+               dataflow GEMM (dX = dY W^T, dW = X^T dY at qwen3's
+               ``attn/wq``, ``ffn/wd``, ``ffn/wg``, 2,048 rows) beside
+               cuBLAS, and those of the weights that enter in f32 (the
+               deepseek router, RG-LRU's ``wr``, RWKV6's decay LoRA) at
+               the train_families phase's rows.  Beside each backward time
                (``ms``, CUDA events, L2 flushed) its ``device_ms``: the
                kernels' own time from a profiler trace of back-to-back
                calls.
@@ -139,10 +145,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (loss within 2e-2); and 8 steps on one fixed batch must
                lower the loss, the last 2 under ``torch.profiler``
                (device time by kernel group, idle share).
+11. **train_families** the MoE and the lockstep-only families train at
+               full widths (``FAMILY_TRAIN``; depth cut to fit the card
+               with AdamW, seeded random init): whisper-tiny (also
+               through the launcher), deepseek-moe-16b (3 of 28
+               layers), qwen2-vl-7b (3 of 28), recurrentgemma-2b (6 of
+               26, S 4,096 over its 2,048-key window) and rwkv6-3b (16
+               of 32), each gated on a loss that falls over 8 steps on
+               one batch, two first steps from one state equal
+               (``torch.equal``), the launches a step (flash forward 2,
+               backward 1 an attention layer; the GEMM 4 a projection,
+               f32 ones counted apart), and at one block pattern's
+               depth (recurrentgemma over one window) the card
+               against the CPU's plain path (loss within 2e-2, every
+               leaf within 5e-2 relative L2, no leaf that the CPU gives
+               a gradient without one on the card; the MoE's CPU run
+               takes the card's expert ids and reports how many tokens
+               its own router sent elsewhere), with step ms, tokens/s
+               and the peak memory.  llama4-scout trains on the CPU
+               only (its one layer with Adam needs ~77 GB).
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
-serve, fleet, archs, families, train and paper paths; the dataflow
-GEMM's also counted apart for f32 operands, ``launches_f32``), the
+serve, fleet, archs, families, train, train_families and paper paths;
+the dataflow GEMM's also counted apart for f32 operands,
+``launches_f32``), the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
 last line
 ``{"ok": true, "device": {...}}``.  The run uses one card: the first
@@ -246,17 +272,33 @@ F32_SHAPES = {"scout_router": (5120, 16, (8, 256, 2048)),
               "rwkv_wd1": (2560, 64, (8, 2048)),
               "rwkv_wd2": (64, 2560, (8, 2048))}
 # kernels phase, the training path's cases: the attention backward
-# (case, B, S, H, KVH, Dh, causal) at qwen3-0.6b's training shape, a
-# long prompt, a ragged S and Dh 64 without a causal mask; the GEMM
-# backward's products (dX = dY W^T, dW = X^T dY) of qwen3's projections
-# (K, N) at TRAIN_ROWS = B 8 x S 256 rows
-FLASH_BWD_CASES = (("qwen3_B8_S256", 8, 256, 16, 8, 128, True),
-                   ("qwen3_B1_S2048", 1, 2048, 16, 8, 128, True),
-                   ("ragged_B2_S200", 2, 200, 16, 8, 128, True),
-                   ("dh64_B2_S256_not_causal", 2, 256, 16, 8, 64, False))
+# (case, B, Sq, Skv, H, KVH, Dh, causal, window) at qwen3-0.6b's
+# training shape, a long prompt, a ragged S, Dh 64 without a causal
+# mask, and the families' training shapes: recurrentgemma's local
+# attention (Dh 256, G 10, a 2,048-key window over 4,096 tokens),
+# whisper's cross-attention (64 queries over 1,500 frames) and encoder,
+# qwen2-vl's G 7 over 256 patches + 64 tokens; the GEMM backward's
+# products (dX = dY W^T, dW = X^T dY) of qwen3's projections (K, N) at
+# TRAIN_ROWS = B 8 x S 256 rows
+FLASH_BWD_CASES = (
+    ("qwen3_B8_S256", 8, 256, 256, 16, 8, 128, True, None),
+    ("qwen3_B1_S2048", 1, 2048, 2048, 16, 8, 128, True, None),
+    ("ragged_B2_S200", 2, 200, 200, 16, 8, 128, True, None),
+    ("dh64_B2_S256_not_causal", 2, 256, 256, 16, 8, 64, False, None),
+    ("rgemma_B1_S4096_w2048_dh256", 1, 4096, 4096, 10, 1, 256, True, 2048),
+    ("whisper_cross_B8_64x1500", 8, 64, 1500, 6, 6, 64, False, None),
+    ("whisper_enc_B8_1500", 8, 1500, 1500, 6, 6, 64, False, None),
+    ("qwen2vl_B2_S320_G7", 2, 320, 320, 28, 4, 128, True, None))
 GEMM_BWD_SHAPES = {"qwen3_attn_wq": (1024, 2048),
                    "qwen3_ffn_wd": (3072, 1024),
                    "qwen3_ffn_wg": (1024, 3072)}
+# the backward of the products whose weight enters in f32, (K, N, M) at
+# the train_families phase's rows: deepseek's router (B 4 x 256),
+# RG-LRU's gate (B 1 x 4,096), RWKV6's decay LoRA (B 4 x 256)
+GEMM_BWD_F32_SHAPES = {"deepseek_router": (2048, 64, 1024),
+                       "rglru_wr": (2560, 2560, 4096),
+                       "rwkv_wd1": (2560, 64, 1024),
+                       "rwkv_wd2": (64, 2560, 1024)}
 # the lse's tolerance: f32 log-sum-exps of 64-key tiles in two orders
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # train phase: qwen3-0.6b at full width through the launcher (B x S,
@@ -271,6 +313,30 @@ TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 GRAD_LAYERS, GRAD_BATCH = 2, 2
 GRAD_LOSS_TOL, GRAD_REL_L2 = 2e-2, 5e-2
 OVERFIT_STEPS, PROFILE_STEPS = 8, 2
+# train_families phase: (arch, layers run or None for all, batch, seq,
+# the comparison with the CPU: its layers (one block pattern, or all for
+# whisper) and seq, through the launcher).  Full widths, f32
+# parameters, AdamW,
+# bf16 compute; the depth cuts keep the peak under ~70 GB: the port's
+# step holds about 28 bytes a parameter (parameters, AdamW's two
+# moments, the gradients and the step's new trees) plus a leaf's
+# temporaries and the activations.  deepseek: 1 dense + 2 MoE layers
+# (published capacity factor 1.25, so tokens drop as in the reference's
+# training); recurrentgemma: two (RG-LRU, RG-LRU, local attention)
+# patterns at S 4,096 > its 2,048-key window (S % window == 0, the
+# reference's contract), compared with the CPU over one window (S
+# 2,048: the CPU's plain path takes ~150 GFLOP/s, and the 256,000-entry
+# unembedding of 4,096 tokens alone took ~100 s of the 185 s at S 4,096;
+# the windowed backward at S 4,096 is held against its plain version in
+# the kernels phase).  llama4-scout trains on the CPU only: one layer's
+# 2.0 B expert parameters with its 2.07 B untied embedding and head
+# need ~77 GB with Adam at 18 bytes a parameter.
+FAMILY_TRAIN = (("whisper-tiny", None, 8, 64, None, 64, True),
+                ("deepseek-moe-16b", 3, 4, 256, 2, 256, False),
+                ("qwen2-vl-7b", 3, 2, 320, 1, 320, False),
+                ("recurrentgemma-2b", 6, 1, 4096, 3, 2048, False),
+                ("rwkv6-3b", 16, 4, 256, 1, 256, False))
+FAMILY_TRAIN_STEPS = 8
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -625,16 +691,22 @@ def _flash_chunked_equals_whole(kernel, q, k, v, whole,
     return ok
 
 
-def _sdpa_bwd(q, k, v, dout, causal):
+def _sdpa_bwd(q, k, v, dout, causal, window=None):
     """SDPA's backward on the same inputs and mask (its forward run
     beforehand, not timed): the library yardstick of the attention
-    backward."""
+    backward.  A window goes in as a boolean mask."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                         enable_gqa=True)
+    mask = None
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(k.shape[1], device=q.device)[None]
+        mask = (j > i - window) & ((j <= i) if causal else True)
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     dt = dout.transpose(1, 2).contiguous()
 
     def call():
@@ -656,16 +728,17 @@ def _flash_bwd_cases(g, flush, results) -> None:
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda").bfloat16()
-    for case, B, S, H, KVH, Dh, causal in FLASH_BWD_CASES:
-        q, k, v, do = (rnd(B, S, H, Dh), rnd(B, S, KVH, Dh),
-                       rnd(B, S, KVH, Dh), rnd(B, S, H, Dh))
-        out, lse = fa.flash_attention_lse(q, k, v, causal)
-        serve_bits = torch.equal(out, fa.flash_attention(q, k, v,
-                                                         causal=causal))
+    for case, B, Sq, Skv, H, KVH, Dh, causal, window in FLASH_BWD_CASES:
+        q, k, v, do = (rnd(B, Sq, H, Dh), rnd(B, Skv, KVH, Dh),
+                       rnd(B, Skv, KVH, Dh), rnd(B, Sq, H, Dh))
+        out, lse = fa.flash_attention_lse(q, k, v, causal, window)
+        serve_bits = torch.equal(out, fa.flash_attention(
+            q, k, v, causal=causal, window=window))
         _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window,
                                                 return_lse=True)
-        args = (q, k, v, out, lse, do, causal)
-        plan = fa.plan_dkdv(S, H // KVH, causal)
+        args = (q, k, v, out, lse, do, causal, window)
+        plan = fa.plan_dkdv(Sq, Skv, H // KVH, causal, window)
         got = fa.flash_attention_bwd(*args)
         dev = device_ms(lambda: fa.flash_attention_bwd(*args),
                         by_kernel=True)
@@ -677,14 +750,15 @@ def _flash_bwd_cases(g, flush, results) -> None:
                                                      got, want)}
         lse_err, lse_ok = max_err(lse, lse_plain, LSE_ATOL, LSE_RTOL)
         zeros = torch.zeros(B, dtype=torch.int32)
-        fwd_bytes, fwd_flops = _flash_numbers(q, k, v, zeros, causal)
+        fwd_bytes, fwd_flops = _flash_numbers(q, k, v, zeros, causal,
+                                              window)
         n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
         flops = 2.5 * fwd_flops
         b_ms, b_by = bound_ms(n_bytes, flops)
         ok = all(o for _, o in errs.values())
         rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
-               "case": case, "B": B, "S": S, "H": H, "KVH": KVH, "Dh": Dh,
-               "causal": causal,
+               "case": case, "B": B, "Sq": Sq, "Skv": Skv, "H": H,
+               "KVH": KVH, "Dh": Dh, "causal": causal, "window": window,
                "max_abs_err": max(e for e, _ in errs.values()),
                "max_abs_err_by_grad": {n: e for n, (e, _) in errs.items()},
                "atol": ATOL, "rtol": RTOL, "ok": ok,
@@ -695,11 +769,11 @@ def _flash_bwd_cases(g, flush, results) -> None:
                              flush=flush),
                "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
                    *args), iters=3, flush=flush),
-               "library_ms": time_ms(_sdpa_bwd(q, k, v, do, causal),
-                                     flush=flush),
+               "library_ms": time_ms(_sdpa_bwd(q, k, v, do, causal,
+                                               window), flush=flush),
                "device_ms": dev[0], "device_ms_by_kernel": dev[1],
                "library_device_ms": device_ms(
-                   _sdpa_bwd(q, k, v, do, causal)),
+                   _sdpa_bwd(q, k, v, do, causal, window)),
                "plan_dkdv": {"chunk": plan.chunk, "blocks_per_row_head":
                              len(plan.items), "workspace_slots":
                              plan.n_slots},
@@ -768,6 +842,50 @@ def _gemm_bwd_cases(g, flush, results) -> None:
             if not ok:
                 fail(f"gemm_dataflow [{rec['case']}] disagrees with the f32 "
                      f"product: max abs err {err}")
+            results.setdefault("gemm_dataflow_bwd", []).append(rec)
+
+
+def _gemm_bwd_f32_cases(g, flush, results) -> None:
+    """``LinearFn``'s backward products for the weights that enter in
+    f32 (GEMM_BWD_F32_SHAPES: dX = dY W^T, dW = X^T dY on the f32
+    output-stationary kernel, ``gemm_f32.cuh``) against the plain
+    version within the GEMM tolerance, timed beside ``torch.matmul``
+    (f32, TF32 off) and the bound (operations at the f32 rate)."""
+    import torch
+    from repro_torch.kernels import gemm_dataflow as gd
+    for label, (K, N, M) in GEMM_BWD_F32_SHAPES.items():
+        x = torch.randn(M, K, generator=g, device="cuda")
+        w = torch.randn(K, N, generator=g, device="cuda")
+        dy = torch.randn(M, N, generator=g, device="cuda")
+        for grad, (a, b) in (("dX", (dy, w.t().contiguous())),
+                             ("dW", (x.t().contiguous(), dy))):
+            got = gd.matmul(a, b)
+            err, ok = max_err(got, gd.matmul_plain(a, b), GEMM_ATOL,
+                              GEMM_RTOL)
+            m, kk = a.shape
+            n = b.shape[1]
+            n_bytes = (m * kk + kk * n + m * n) * 4
+            flops = 2 * m * n * kk
+            b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+            rec = {"phase": "kernels", "kernel": "gemm_dataflow",
+                   "case": f"bwd_f32_{grad}_{label}_M{M}",
+                   "dataflow": "output_stationary", "M": m, "K": kk, "N": n,
+                   "dtype": "float32", "max_abs_err": err,
+                   "atol": GEMM_ATOL, "rtol": GEMM_RTOL, "ok": ok,
+                   "ms": time_ms(lambda: gd.matmul(a, b), flush=flush),
+                   "device_ms": device_ms(lambda: gd.matmul(a, b)),
+                   "plain_ms": time_ms(lambda: gd.matmul_plain(a, b),
+                                       iters=3, flush=flush),
+                   "library_ms": time_ms(lambda: torch.matmul(a, b),
+                                         flush=flush),
+                   "library_device_ms": device_ms(
+                       lambda: torch.matmul(a, b)),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                   "flops": flops}
+            emit(rec)
+            if not ok:
+                fail(f"gemm_dataflow [{rec['case']}] disagrees with its "
+                     f"plain version: max abs err {err}")
             results.setdefault("gemm_dataflow_bwd", []).append(rec)
 
 
@@ -1036,6 +1154,7 @@ def phase_kernels():
     # backward products
     _flash_bwd_cases(g, flush, results)
     _gemm_bwd_cases(g, flush, results)
+    _gemm_bwd_f32_cases(g, flush, results)
     del flush
     return results
 
@@ -2857,6 +2976,280 @@ def phase_train():
     return launches
 
 
+# ------------------------------------------------------ train_families
+def _family_train_gates(model) -> dict:
+    """What one train step launches (remat "full"): every attention
+    layer's flash forward twice (the forward and the backward's
+    recompute) and its backward once, whisper's encoder and its
+    decoder's self- and cross-attention each; every projection's GEMM
+    four times (forward, recompute, dX, dW), except whisper's
+    cross-attention K/V of the encoder output, computed once outside
+    the decoder's blocks as in the reference (three); the f32 products
+    (routers, RG-LRU's gates, RWKV6's decay LoRA) among them."""
+    from repro_torch.models.base import flatten_specs
+    cfg = model.cfg
+    if cfg.is_encoder_decoder:
+        n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+        outside = 2 * cfg.n_layers
+    else:
+        n_attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds)
+        outside = 0
+    f32 = 0
+    for path, spec in flatten_specs(model.param_specs()):
+        if spec.f32:
+            f32 += spec.init_shape[0] if path[0] == "layers" else 1
+    return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "gemm_dataflow": 4 * _n_products(model) - outside,
+            "gemm_dataflow_f32": 4 * f32}
+
+
+def _family_launcher(name, B, S, root) -> dict:
+    """``launch.train.main`` at full size for FAMILY_TRAIN_STEPS steps
+    (a new batch a step, a checkpoint at the end): every step logged,
+    finite positive losses and gradient norms, the launches a step."""
+    import contextlib
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", name, "--batch", str(B), "--seq", str(S), "--steps",
+            str(FAMILY_TRAIN_STEPS), "--ckpt-every", str(FAMILY_TRAIN_STEPS),
+            "--log-every", "1", "--device", "cuda", "--ckpt-dir",
+            str(root / name)]
+    _train_launches_reset()
+    with contextlib.redirect_stdout(sys.stderr):   # its log lines
+        drv = launch_train.main(argv)
+    launches = _train_launches()
+    log = drv.metrics_log
+    step_ms = [m["wall_s"] * 1e3 for m in log]
+    return {"argv": argv, "losses": [m["loss"] for m in log],
+            "step_ms": step_ms, "launches": launches,
+            "gates": {"every_step_logged": [m["step"] for m in log]
+                      == list(range(FAMILY_TRAIN_STEPS)),
+                      "loss_finite_positive": all(
+                          np.isfinite(m["loss"]) and m["loss"] > 0
+                          for m in log),
+                      "grad_norm_finite_positive": all(
+                          np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+                          for m in log)}}
+
+
+def _route_as(card_ids=None):
+    """Wrap ``components.moe_route`` so that this device's expert ids are
+    kept in call order and, given ``card_ids``, its i-th call routes as
+    the card's i-th call did (``card_ids[i]``, in its choice order, gated
+    by this device's probabilities at those ids, normalized as the
+    router normalizes its top k).  Returns (own ids, undo)."""
+    import torch
+    from repro_torch.models import components as C
+    orig, own = C.moe_route, []
+
+    def route(p, xf, cfg):
+        probs, topw, topi = orig(p, xf, cfg)
+        own.append(topi.detach().cpu())
+        if card_ids is None:
+            return probs, topw, topi
+        ids = card_ids[len(own) - 1].to(topi.device)
+        w = torch.gather(probs, 1, ids)
+        if cfg.moe.normalize_router:
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return probs, w, ids
+    C.moe_route = route
+    return own, lambda: setattr(C, "moe_route", orig)
+
+
+def _family_grads(name, layers, B, S) -> dict:
+    """One loss and gradient of ``name`` at ``layers`` layers (one block
+    pattern), full widths, on the card and on the CPU's plain path from
+    the same parameters and batch: the loss within GRAD_LOSS_TOL, each
+    leaf within GRAD_REL_L2 relative L2, and every leaf whose CPU
+    gradient is not all zero has a card gradient that is not.  An MoE's
+    router sits on near ties at a random init (64 experts' probabilities
+    all near 1/64), so bf16 activations that differ in the last place
+    between the devices flip some tokens' sixth choice: the CPU runs the
+    card's expert ids (``_route_as``), and how many tokens the CPU's own
+    router would have sent elsewhere is reported."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_items, tree_map
+    cfg = configs.get(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    pipe = SyntheticPipeline(cfg, B, S)
+    out, params = {}, None
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        if params is None:
+            params = model.init(seed=1)
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        leaves = [t for _, t in tree_items(p)]
+        routes, undo = _route_as(out["cuda"][3] if dev == "cpu" else None)
+        t0 = time.perf_counter()
+        try:
+            loss, aux = make_loss_fn(model, cfg)(p, pipe.device_batch(0, dev))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            undo()
+        out[dev] = (float(loss.detach()), float(aux["moe_aux"].detach()),
+                    [None if g is None else g.float().cpu() for g in grads],
+                    routes, time.perf_counter() - t0)
+        del p, leaves, grads, loss, model
+        if dev == "cuda":
+            params = tree_map(lambda t: t.cpu(), params)
+            gc.collect()
+            torch.cuda.empty_cache()
+    names = ["/".join(path) for path, _ in tree_items(params)]
+    card, cpu = out["cuda"][2], out["cpu"][2]
+    live = [n for n, g in zip(names, cpu) if g is not None and
+            bool(g.ne(0).any())]
+    missing = [n for n, g in zip(names, card) if n in live and
+               (g is None or not bool(g.ne(0).any()))]
+    rel = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+           for n, a, b in zip(names, card, cpu) if n in live}
+    worst = max(rel, key=rel.get)
+    routes = None
+    if cfg.moe is not None:
+        pairs = list(zip(out["cuda"][3], out["cpu"][3]))
+        routes = {"calls": len(pairs), "cpu_ran_card_ids": True,
+                  "own_ids_all_equal": all(torch.equal(a, b)
+                                           for a, b in pairs),
+                  "tokens": int(pairs[0][0].shape[0]),
+                  "tokens_routed_elsewhere_by_cpu": [
+                      int((a != b).any(1).sum()) for a, b in pairs]}
+    gates = {"every_live_leaf_has_a_gradient": not missing,
+             "loss_close_to_cpu": abs(out["cuda"][0] - out["cpu"][0])
+             <= GRAD_LOSS_TOL,
+             "grads_close_to_cpu": rel[worst] <= GRAD_REL_L2}
+    return {"layers": cfg.n_layers, "B": B, "S": S,
+            "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+            "moe_aux_card": out["cuda"][1], "moe_aux_cpu": out["cpu"][1],
+            "loss_abs_diff": abs(out["cuda"][0] - out["cpu"][0]),
+            "loss_tol": GRAD_LOSS_TOL, "grad_rel_l2_max": rel[worst],
+            "grad_rel_l2_worst_leaf": worst, "grad_rel_l2_tol": GRAD_REL_L2,
+            "leaves": len(names), "live_leaves": len(live),
+            "leaves_without_gradient": missing, "expert_ids": routes,
+            "card_s": out["cuda"][4], "cpu_s": out["cpu"][4],
+            "gates": gates}
+
+
+def _train_family(name, layers, B, S, cmp_layers, cmp_S, via_launcher,
+                  root) -> dict:
+    """One architecture's training at full widths on the card: through
+    the launcher (whisper), then FAMILY_TRAIN_STEPS steps of
+    ``make_train_step`` on one batch from a seeded init (the loss must
+    fall), the first step run twice from the same (params, opt_state,
+    batch) (every leaf ``torch.equal``), the launch counts against
+    ``_family_train_gates``, the peak memory; then the gradients against
+    the CPU's plain path (``_family_grads``).  Returns the kernels'
+    launches of the measured run."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    full = configs.get(name)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    reduced = {} if layers is None else {"n_layers": [full.n_layers,
+                                                      layers]}
+    launcher = (_family_launcher(name, B, S, root) if via_launcher
+                else None)
+    model = build_model(cfg, device="cuda")
+    want = _family_train_gates(model)
+    opt = OptConfig(warmup_steps=1)
+    step = make_train_step(model, cfg, opt=opt)
+    batch = SyntheticPipeline(cfg, B, S).device_batch(0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0)
+    state = init_opt_state(params, opt)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the first step twice from the same state: the first's leaves to
+    # the host (the card holds one step's trees at a time)
+    first = step(params, state, batch)
+    host = [t.cpu() for t in tree_leaves({"p": first[0], "s": first[1]})]
+    del first
+    _train_launches_reset()
+    losses, step_s = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - ts)
+        if i == 0:
+            again = tree_leaves({"p": params, "s": state})
+            differ = sum(not torch.equal(a, b.cpu())
+                         for a, b in zip(host, again))
+            del host, again
+    launches = _train_launches()
+    peak = _peak_gb()
+    del params, state, m, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    median = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    grads = _family_grads(name, cmp_layers, min(B, GRAD_BATCH), cmp_S)
+    gates = {
+        "loss_finite": all(np.isfinite(x) for x in losses),
+        "loss_falls": losses[-1] < losses[0],
+        "two_steps_equal": differ == 0,
+        **{f"{k}_launches": launches[k] == n * FAMILY_TRAIN_STEPS
+           for k, n in want.items()},
+        **{f"gradients_{k}": ok for k, ok in grads["gates"].items()}}
+    if launcher is not None:
+        per = {k: n * FAMILY_TRAIN_STEPS for k, n in want.items()}
+        gates.update({f"launcher_{k}": ok
+                      for k, ok in launcher["gates"].items()})
+        gates["launcher_launches"] = launcher["launches"] == per
+    rec = {"phase": "train_families", "arch": name, "family": cfg.family,
+           "layers": cfg.n_layers, "layers_full": full.n_layers,
+           "reduced": reduced, "n_params": n_params,
+           "n_params_full": full.n_params(), "d_model": cfg.d_model,
+           "B": B, "S": S, "steps": FAMILY_TRAIN_STEPS, "lr": opt.lr,
+           "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "step_ms_median": median * 1e3, "tokens_per_s": B * S / median,
+           "peak_mem_gb": peak, "launches": launches,
+           "launches_per_step_expected": want, "leaves_differing": differ,
+           "gradients": grads, "launcher": launcher, "gates": gates,
+           "seconds": time.perf_counter() - t0, "card": nvidia_smi_line()}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train_families [{name}]: gates failed: {bad}")
+    return launches
+
+
+def phase_train_families():
+    """The MoE and the lockstep-only families train on the card
+    (FAMILY_TRAIN), one after the other, each freed before the next.
+    Returns the training kernels' launches summed over the measured
+    runs."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_families_"))
+    total = {}
+    try:
+        for spec in FAMILY_TRAIN:
+            for k, n in _train_family(*spec, root).items():
+                total[k] = total.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_families", "seconds": time.perf_counter() - t0,
+          "launches": total,
+          "not_on_card": {"llama4-scout-17b-a16e": "trains on the CPU "
+                          "smoke config only: one layer's 2.0 B expert "
+                          "parameters with the 2.07 B untied embedding "
+                          "and head need ~77 GB with Adam"}})
+    return total
+
+
 def summary_line(kernel_results, launches, by_phase):
     """One entry for each kernel whose checks and path both ran, its
     launches summed over the phases that ran it (``launches_by_phase``:
@@ -2905,7 +3298,8 @@ def summary_line(kernel_results, launches, by_phase):
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile", "fleet", "archs", "families", "train")) -> int:
+                 "profile", "fleet", "archs", "families", "train",
+                 "train_families")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -2959,6 +3353,8 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         count(phase_families(), "families")
     if "train" in phases:
         count(phase_train(), "train")
+    if "train_families" in phases:
+        count(phase_train_families(), "train_families")
     if results:
         summary_line(results, launches, by_phase)
     print(nvidia_smi_line(), flush=True)

@@ -7,8 +7,10 @@
 // jnp online softmax, rematerialised per layer): the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py has no backward.  It
 // computes the analytic gradient of softmax(q k^T scale) v, with the
-// forward's mask (key j visible to query i iff j < S and, if causal,
-// j <= i; q_offset 0 and Sq == Skv = S) and GQA (kv head h / G):
+// forward's mask at q_offset 0 (key j visible to query i iff j < Skv
+// and, if causal, j <= i and, under a window, j > i - window: the
+// reference's flash_attention and its banded local_attention) and GQA
+// (kv head h / G), Sq queries against Skv keys:
 //
 //     D  = rowsum(do * o)                      (f32, per query row)
 //     P  = exp(S scale - lse)                  (f32)
@@ -30,17 +32,21 @@
 //     row's 4-lane quad sums a fixed quarter of Dh each, then two xor
 //     shuffles) and writes it out for the second kernel, then walks the
 //     key tiles (64 keys, anchored at 0, as the forward) in ascending
-//     order up to the causal frontier, recomputing P and dS, and
-//     accumulates dQ in registers.
+//     order from the tile of its first row's window start up to the
+//     causal frontier, recomputing P and dS, and accumulates dQ in
+//     registers.
 //   * flash_bwd_dkdv: one block per item of the plan (ops.plan_dkdv),
 //     kv head and batch row, items longest first.  The walk of a key
 //     tile runs the G query heads of its kv head in order and, for
-//     each, the query tiles from the key tile's diagonal (causal) or
-//     from 0, ascending.  A walk of more than C steps (C = max(8,
-//     ceil(G nq / 2)), from S and G only) is cut into runs of C steps,
-//     one block each, which write their f32 partial dK and dV (64 keys x
-//     Dh each, unscaled) to a workspace slot; a shorter walk is one
-//     block that keeps dK and dV in registers and writes them as bf16.
+//     each, the query tiles that can see it (ops.walk_bounds: from the
+//     key tile's diagonal when causal, else from 0, to the last one
+//     within the window), ascending.  A walk of more than C steps (C =
+//     max(8, ceil(longest walk / 2)), from the shapes and the mask
+//     only) is cut into runs of C steps, one block each, which write
+//     their f32 partial dK and dV (64 keys x Dh each, unscaled) to a
+//     workspace slot; a shorter walk is one block that keeps dK and dV
+//     in registers and writes them as bf16 (a walk of no steps, a key
+//     tile no query sees, writes zeros).
 //   * flash_bwd_dkdv_combine (only when some walk was cut): one block
 //     per cut walk adds its runs' partials from 0.0 in ascending run
 //     order (__fadd_rn), scales dK, and rounds both to bf16 once.
@@ -74,6 +80,15 @@
 //     error ~2^-22), and tiles wholly inside S and the causal triangle
 //     skip the element mask.
 //
+//   * Dh 256: dK and dV of 64 keys would take 256 f32 registers a thread
+//     in one warpgroup.  A block is two warpgroups there (256 threads,
+//     one block an SM, 193 KB of shared memory): both form the whole S
+//     and dP (S^T and dP^T) over the 256 columns, and each accumulates
+//     and writes one 128-column half of dQ (of dK and dV), the half of
+//     the Q / dO / K tile it reads MN-major starting at box 2 h.  The
+//     registers a thread are those of Dh 128; S and dP are formed twice
+//     (6 products of the tile pair's size where 4 would do).
+//
 // S and dP are still computed in both kernels (7 products a tile pair
 // where 5 suffice): without atomics, dQ's sum over key tiles and dK/dV's
 // over query tiles need two walks.
@@ -83,9 +98,14 @@
 // same mask 0.083; bound 0.015 ms, bytes) and 0.196 ms at B 1 x S 2,048
 // (SDPA 0.240; bound 0.043 ms, operations), from the first version's
 // 0.109 and 0.589 ms.  By the profiler's kernel time 0.057 and 0.187 ms
-// against SDPA's 0.071 and 0.175.
+// against SDPA's 0.071 and 0.175.  The families' training shapes (same
+// card): recurrentgemma's window 2,048 at Dh 256 and G 10 over B 1 x S
+// 4,096, 1.188 ms against SDPA's backward under the same mask 2.545
+// (bound 0.163 ms, operations); whisper's cross-attention 64 x 1,500
+// keys, B 8, 0.063 ms (SDPA 0.265, device 0.055 vs 0.034); its encoder
+// B 8 x 1,500, 0.444 ms (SDPA 0.415, device 0.437 vs 0.232).
 //
-// Head dims 64 and 128.
+// Head dims 64, 128 and 256.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,8 +121,12 @@ using attn::cp_async_wait;
 using attn::pack_bf16;
 
 constexpr int TILE = 64;        // query rows / keys a tile (the forward's)
-constexpr int THREADS = 128;    // one warpgroup
+constexpr int WG = 128;         // threads of one warpgroup
 constexpr int BOX = TILE * 128; // bytes of a 64-row x 64-column box
+
+// warpgroups a block: two at Dh 256, each holding half of the block's
+// output columns (see above)
+__host__ __device__ constexpr int n_wg(int dh) { return dh > 128 ? 2 : 1; }
 
 // Tiles in shared memory: 64 rows of DH bf16 as DH / 64 boxes of 64
 // columns (BOX bytes apart); row r of a box at r * 128 bytes, its
@@ -114,13 +138,13 @@ __device__ __forceinline__ uint32_t box(int r, int c) {
 }
 
 // rows [r0, r0 + 64) of a (rows, ld-apart) bf16 matrix into a tile; rows
-// >= rows are zero
+// >= rows are zero.  All the block's threads take part.
 template <int DH>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* g,
                                           size_t ld, int r0, int rows) {
     constexpr int CH = DH / 8;
-    for (int idx = threadIdx.x; idx < TILE * CH; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < TILE * CH; idx += WG * n_wg(DH)) {
         const int r = idx / CH, c = idx % CH;
         const bool in = r0 + r < rows;
         const __nv_bfloat16* src = g + (in ? (size_t)(r0 + r) * ld : 0) + c * 8;
@@ -316,29 +340,57 @@ __device__ __forceinline__ uint32_t smem_base(unsigned char* smem) {
     return ((uint32_t)__cvta_generic_to_shared(smem) + 1023u) & ~1023u;
 }
 
+// the forward's mask at q_offset 0: key j visible to query i
+__device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
+                                        int causal, int window) {
+    return i < Sq && j < Skv && (!causal || j <= i) &&
+           (window <= 0 || j > i - window);
+}
+
+// every key of tile k0 visible to every query of tile q0 (no mask needed)
+__device__ __forceinline__ bool whole_tile(int q0, int k0, int Sq, int Skv,
+                                           int causal, int window) {
+    return q0 + TILE <= Sq && k0 + TILE <= Skv &&
+           (!causal || k0 + TILE <= q0) &&
+           (window <= 0 || k0 > q0 + TILE - 1 - window);
+}
+
+// (first, last) query tile that can see key tile t: ops.walk_bounds
+__device__ __forceinline__ int2 walk_bounds(int t, int nq, int causal,
+                                            int window) {
+    const int first = causal ? t : 0;
+    const int last = window > 0
+                         ? min(nq - 1, (t * TILE + TILE - 2 + window) / TILE)
+                         : nq - 1;
+    return make_int2(first, last);
+}
+
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
-             const __nv_bfloat16* __restrict__ k,    // (B,S,KVH,DH)
+__global__ void __launch_bounds__(DH > 128 ? 2 * WG : WG, DH > 128 ? 1 : 2)
+flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,Sq,H,DH)
+             const __nv_bfloat16* __restrict__ k,    // (B,Skv,KVH,DH)
              const __nv_bfloat16* __restrict__ v,
-             const __nv_bfloat16* __restrict__ o,    // (B,S,H,DH)
-             const __nv_bfloat16* __restrict__ dout, // (B,S,H,DH)
-             const float* __restrict__ lse,          // (B,H,S)
-             float* __restrict__ dsum,               // (B,H,S) out: D
-             __nv_bfloat16* __restrict__ dq,         // (B,S,H,DH)
-             int B, int S, int H, int KVH, int causal, float scale) {
-    constexpr int ND = DH / 8;
+             const __nv_bfloat16* __restrict__ o,    // (B,Sq,H,DH)
+             const __nv_bfloat16* __restrict__ dout, // (B,Sq,H,DH)
+             const float* __restrict__ lse,          // (B,H,Sq)
+             float* __restrict__ dsum,               // (B,H,Sq) out: D
+             __nv_bfloat16* __restrict__ dq,         // (B,Sq,H,DH)
+             int B, int Sq, int Skv, int H, int KVH, int causal, int window,
+             float scale) {
+    constexpr int DO = DH / n_wg(DH);   // output columns a warpgroup
+    constexpr int NO = DO / 8;
     constexpr int KT = TILE * DH * 2;   // bytes of one tile
 
     // longest walk first: block l takes query tile nq - 1 - l / (H B)
     // (causal; the walks are equal otherwise), head and row from l % (H B)
-    const int nq = (S + TILE - 1) / TILE;
+    const int nq = (Sq + TILE - 1) / TILE;
     const int step = blockIdx.x / (H * B), hb = blockIdx.x % (H * B);
     const int q0 = (causal ? nq - 1 - step : step) * TILE;
     const int h = hb % H;
     const int b = hb / H;
     const int kvh = h / (H / KVH);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int wg = threadIdx.x / WG;    // this warpgroup's column half
 
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t sq = smem_base(smem);
@@ -347,27 +399,31 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
     const uint32_t sv = sk + 2 * KT;     // 2 V tiles
 
     const size_t q_ld = (size_t)H * DH, kv_ld = (size_t)KVH * DH;
-    const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * DH;
-    const __nv_bfloat16* dob = dout + ((size_t)b * S * H + h) * DH;
-    const __nv_bfloat16* kb = k + ((size_t)b * S * KVH + kvh) * DH;
-    const __nv_bfloat16* vb = v + ((size_t)b * S * KVH + kvh) * DH;
-    const int kend = causal ? min(S, q0 + TILE) : S;
-    const int ntiles = (kend + TILE - 1) / TILE;
+    const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + h) * DH;
+    const __nv_bfloat16* dob = dout + ((size_t)b * Sq * H + h) * DH;
+    const __nv_bfloat16* kb = k + ((size_t)b * Skv * KVH + kvh) * DH;
+    const __nv_bfloat16* vb = v + ((size_t)b * Skv * KVH + kvh) * DH;
+    // the key tiles any row of the tile sees: from the tile of the first
+    // row's window start to the causal frontier (none when kt1 <= kt0)
+    const int kt0 = window > 0 ? max(0, q0 - window + 1) / TILE : 0;
+    const int kt1 = ((causal ? min(Skv, q0 + TILE) : Skv) + TILE - 1) / TILE;
+    const int ntiles = kt1 - kt0;
 
-    load_rows<DH>(sq, qb, q_ld, q0, S);
-    load_rows<DH>(sdo, dob, q_ld, q0, S);
-    load_rows<DH>(sk, kb, kv_ld, 0, S);
-    load_rows<DH>(sv, vb, kv_ld, 0, S);
+    load_rows<DH>(sq, qb, q_ld, q0, Sq);
+    load_rows<DH>(sdo, dob, q_ld, q0, Sq);
+    load_rows<DH>(sk, kb, kv_ld, kt0 * TILE, Skv);
+    load_rows<DH>(sv, vb, kv_ld, kt0 * TILE, Skv);
     cp_async_commit();
 
     // this thread's rows (the accumulator layout of a warpgroup's 64
     // rows): r0 = q0 + 16 warp + lane / 4 and r0 + 8
     const int rq = warp * 16 + (lane >> 2);
     const int row0 = q0 + rq, row1 = row0 + 8;
-    const size_t lrow = ((size_t)b * H + h) * S;
+    const size_t lrow = ((size_t)b * H + h) * Sq;
 
     // D of the two rows: lane (lane & 3) of the quad sums the products
     // of its quarter of Dh in order, then the quad adds the quarters
+    // (each warpgroup alike; the first writes it out)
     float d0 = 0.f, d1 = 0.f;
     {
         constexpr int QW = DH / 4;
@@ -376,8 +432,8 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
         for (int half = 0; half < 2; ++half) {
             const int r = half ? row1 : row0;
             float acc = 0.f;
-            if (r < S) {
-                const size_t base = (((size_t)b * S + r) * H + h) * DH + c0;
+            if (r < Sq) {
+                const size_t base = (((size_t)b * Sq + r) * H + h) * DH + c0;
                 const __nv_bfloat162* op =
                     reinterpret_cast<const __nv_bfloat162*>(o + base);
                 const __nv_bfloat162* dp =
@@ -394,24 +450,25 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
             acc += __shfl_xor_sync(0xffffffffu, acc, 2);
             if (half) d1 = acc; else d0 = acc;
         }
-        if ((lane & 3) == 0) {
-            if (row0 < S) dsum[lrow + row0] = d0;
-            if (row1 < S) dsum[lrow + row1] = d1;
+        if (wg == 0 && (lane & 3) == 0) {
+            if (row0 < Sq) dsum[lrow + row0] = d0;
+            if (row1 < Sq) dsum[lrow + row1] = d1;
         }
     }
-    const float l0 = row0 < S ? lse[lrow + row0] * LOG2E : 0.f;
-    const float l1 = row1 < S ? lse[lrow + row1] * LOG2E : 0.f;
+    const float l0 = row0 < Sq ? lse[lrow + row0] * LOG2E : 0.f;
+    const float l1 = row1 < Sq ? lse[lrow + row1] * LOG2E : 0.f;
     const float sl2 = scale * LOG2E;
 
-    float acc[ND * 4];
+    float acc[NO * 4];
 #pragma unroll
-    for (int e = 0; e < ND * 4; ++e) acc[e] = 0.f;
+    for (int e = 0; e < NO * 4; ++e) acc[e] = 0.f;
 
     for (int t = 0; t < ntiles; ++t) {
         const int buf = t & 1;
+        const int j0 = (kt0 + t) * TILE;
         if (t + 1 < ntiles) {
-            load_rows<DH>(sk + (buf ^ 1) * KT, kb, kv_ld, (t + 1) * TILE, S);
-            load_rows<DH>(sv + (buf ^ 1) * KT, vb, kv_ld, (t + 1) * TILE, S);
+            load_rows<DH>(sk + (buf ^ 1) * KT, kb, kv_ld, j0 + TILE, Skv);
+            load_rows<DH>(sv + (buf ^ 1) * KT, vb, kv_ld, j0 + TILE, Skv);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -436,11 +493,9 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
         // P = exp(S scale - lse) on the visible keys (while dP is in
         // flight), then dS = P (dP - D), packed to bf16 A fragments (one
         // per k16 step of 16 keys); values e of n8 block n: row rq (+8
-        // for e >= 2), key 8 n + 2 (lane & 3) + (e & 1).  A tile below
-        // the diagonal and inside S needs no mask.
-        const int j0 = t * TILE;
-        const bool whole = q0 + TILE <= S && j0 + TILE <= S &&
-                           (!causal || j0 + TILE <= q0);
+        // for e >= 2), key 8 n + 2 (lane & 3) + (e & 1).  A tile wholly
+        // inside the mask needs no element test.
+        const bool whole = whole_tile(q0, j0, Sq, Skv, causal, window);
         wg_wait<1>();
         fence_regs(s);
         float pr[32];
@@ -451,7 +506,7 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
                 const int j = j0 + 8 * n + 2 * (lane & 3) + (e & 1);
                 const int r = e < 2 ? row0 : row1;
                 const bool vis =
-                    whole || (r < S && j < S && (!causal || j <= r));
+                    whole || visible(r, j, Sq, Skv, causal, window);
                 pr[4 * n + e] = vis ? exp2_approx(s[4 * n + e] * sl2 -
                                                   (e < 2 ? l0 : l1))
                                     : 0.f;
@@ -469,11 +524,12 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
             dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
 
-        // dQ += dS K: K (keys x DH) read MN-major
+        // dQ += dS K: this warpgroup's DO columns of K (keys x DH) read
+        // MN-major
         fence_regs(acc);
         fence_frags(dsa);
         wg_fence();
-        mma_rs_tile<DH>(acc, dsa, kt);
+        mma_rs_tile<DO>(acc, dsa, kt + wg * (DO / 64) * BOX);
         wg_commit();
         wg_wait<0>();
         fence_regs(acc);
@@ -481,14 +537,14 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
         __syncthreads();   // this buffer is the next prefetch's target
     }
 
-    const int col = 2 * (lane & 3);
+    const int col = wg * DO + 2 * (lane & 3);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int r = half ? row1 : row0;
-        if (r >= S) continue;
-        __nv_bfloat16* out = dq + (((size_t)b * S + r) * H + h) * DH + col;
+        if (r >= Sq) continue;
+        __nv_bfloat16* out = dq + (((size_t)b * Sq + r) * H + h) * DH + col;
 #pragma unroll
-        for (int n = 0; n < ND; ++n)
+        for (int n = 0; n < NO; ++n)
             *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
                 __floats2bfloat162_rn(acc[4 * n + 2 * half] * scale,
                                       acc[4 * n + 2 * half + 1] * scale);
@@ -496,19 +552,21 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
-               const __nv_bfloat16* __restrict__ k,    // (B,S,KVH,DH)
+__global__ void __launch_bounds__(DH > 128 ? 2 * WG : WG, DH > 128 ? 1 : 2)
+flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,Sq,H,DH)
+               const __nv_bfloat16* __restrict__ k,    // (B,Skv,KVH,DH)
                const __nv_bfloat16* __restrict__ v,
-               const __nv_bfloat16* __restrict__ dout, // (B,S,H,DH)
-               const float* __restrict__ lse,          // (B,H,S)
-               const float* __restrict__ dsum,         // (B,H,S): D
-               __nv_bfloat16* __restrict__ dk,         // (B,S,KVH,DH)
+               const __nv_bfloat16* __restrict__ dout, // (B,Sq,H,DH)
+               const float* __restrict__ lse,          // (B,H,Sq)
+               const float* __restrict__ dsum,         // (B,H,Sq): D
+               __nv_bfloat16* __restrict__ dk,         // (B,Skv,KVH,DH)
                __nv_bfloat16* __restrict__ dv,
                const int4* __restrict__ items,         // the plan
                float* __restrict__ ws,                 // run partials
-               int B, int S, int H, int KVH, int causal, float scale) {
-    constexpr int ND = DH / 8;
+               int B, int Sq, int Skv, int H, int KVH, int causal,
+               int window, float scale) {
+    constexpr int DO = DH / n_wg(DH);   // output columns a warpgroup
+    constexpr int NO = DO / 8;
     constexpr int KT = TILE * DH * 2;
 
     // block l runs plan item l / (KVH B) (longest first) for kv head and
@@ -520,7 +578,8 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
     const int kvh = kb % KVH;
     const int b = kb / KVH;
     const int G = H / KVH;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int wg = threadIdx.x / WG;    // this warpgroup's column half
 
     extern __shared__ __align__(128) unsigned char smem[];
     const uint32_t sk = smem_base(smem);
@@ -531,9 +590,10 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
     float* sdd = slse + 2 * TILE;        // lse log2 e, then D: 2 x 64
 
     const size_t q_ld = (size_t)H * DH, kv_ld = (size_t)KVH * DH;
-    const int nq = (S + TILE - 1) / TILE;
-    const int qt0 = causal ? item.x : 0;   // the diagonal tile
-    const int per_head = nq - qt0;
+    const int nq = (Sq + TILE - 1) / TILE;
+    const int2 wb = walk_bounds(item.x, nq, causal, window);
+    const int qt0 = wb.x;                        // the walk's first tile
+    const int per_head = max(1, wb.y - wb.x + 1);
     const int it0 = item.y, iters = item.z - item.y;
 
     // walk step it: head kvh G + it / per_head, query tile
@@ -541,22 +601,24 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
     auto issue = [&](int it, int buf) {
         const int h = kvh * G + it / per_head;
         const int qs = (qt0 + it % per_head) * TILE;
-        const size_t off = ((size_t)b * S * H + h) * DH;
+        const size_t off = ((size_t)b * Sq * H + h) * DH;
         const uint32_t dst = sqd + buf * 2 * KT;
-        load_rows<DH>(dst, q + off, q_ld, qs, S);
-        load_rows<DH>(dst + KT, dout + off, q_ld, qs, S);
-        const int r = qs + (threadIdx.x & (TILE - 1));
-        const float* src = threadIdx.x < TILE ? lse : dsum;
-        float* to = threadIdx.x < TILE ? slse : sdd;
-        to[buf * TILE + (threadIdx.x & (TILE - 1))] =
-            r < S ? src[((size_t)b * H + h) * S + r] *
-                        (threadIdx.x < TILE ? LOG2E : 1.f)
-                  : 0.f;
+        load_rows<DH>(dst, q + off, q_ld, qs, Sq);
+        load_rows<DH>(dst + KT, dout + off, q_ld, qs, Sq);
+        if (threadIdx.x < 2 * TILE) {
+            const bool is_lse = threadIdx.x < TILE;
+            const int r = qs + (threadIdx.x & (TILE - 1));
+            float* to = is_lse ? slse : sdd;
+            to[buf * TILE + (threadIdx.x & (TILE - 1))] =
+                r < Sq ? (is_lse ? lse : dsum)[((size_t)b * H + h) * Sq + r] *
+                             (is_lse ? LOG2E : 1.f)
+                       : 0.f;
+        }
     };
 
-    load_rows<DH>(sk, k + ((size_t)b * S * KVH + kvh) * DH, kv_ld, k0, S);
-    load_rows<DH>(sv, v + ((size_t)b * S * KVH + kvh) * DH, kv_ld, k0, S);
-    issue(it0, 0);
+    load_rows<DH>(sk, k + ((size_t)b * Skv * KVH + kvh) * DH, kv_ld, k0, Skv);
+    load_rows<DH>(sv, v + ((size_t)b * Skv * KVH + kvh) * DH, kv_ld, k0, Skv);
+    if (iters > 0) issue(it0, 0);
     cp_async_commit();
 
     // this thread's keys: kr0 = k0 + 16 warp + lane / 4 and kr0 + 8
@@ -564,9 +626,9 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
     const int key0 = k0 + kr, key1 = key0 + 8;
     const float sl2 = scale * LOG2E;
 
-    float adk[ND * 4], adv[ND * 4];
+    float adk[NO * 4], adv[NO * 4];
 #pragma unroll
-    for (int e = 0; e < ND * 4; ++e) adk[e] = adv[e] = 0.f;
+    for (int e = 0; e < NO * 4; ++e) adk[e] = adv[e] = 0.f;
 
     for (int i = 0; i < iters; ++i) {
         const int buf = i & 1;
@@ -599,9 +661,8 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
 
         // P^T (while dP^T is in flight), then dS^T: values e of n8 block
         // n are key kr (+8 for e >= 2), query qs + 8 n + 2 (lane & 3) +
-        // (e & 1).  A tile above the diagonal and inside S needs no mask.
-        const bool whole = qs + TILE <= S && k0 + TILE <= S &&
-                           (!causal || k0 + TILE <= qs);
+        // (e & 1).  A tile pair wholly inside the mask needs no test.
+        const bool whole = whole_tile(qs, k0, Sq, Skv, causal, window);
         wg_wait<1>();
         fence_regs(st);
         float pr[32];
@@ -611,10 +672,9 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int c = 8 * n + 2 * (lane & 3) + (e & 1);
-                const int iq = qs + c;
                 const int j = e < 2 ? key0 : key1;
                 const bool vis =
-                    whole || (iq < S && j < S && (!causal || j <= iq));
+                    whole || visible(qs + c, j, Sq, Skv, causal, window);
                 pr[4 * n + e] =
                     vis ? exp2_approx(st[4 * n + e] * sl2 - tl[c]) : 0.f;
             }
@@ -635,15 +695,15 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
             dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
 
-        // dV += P^T dO and dK += dS^T Q: dO and Q (queries x DH) read
-        // MN-major
+        // dV += P^T dO and dK += dS^T Q: this warpgroup's DO columns of
+        // dO and Q (queries x DH) read MN-major
         fence_regs(adv);
         fence_regs(adk);
         fence_frags(pa);
         fence_frags(dsa);
         wg_fence();
-        mma_rs_tile<DH>(adv, pa, dot);
-        mma_rs_tile<DH>(adk, dsa, qt);
+        mma_rs_tile<DO>(adv, pa, dot + wg * (DO / 64) * BOX);
+        mma_rs_tile<DO>(adk, dsa, qt + wg * (DO / 64) * BOX);
         wg_commit();
         wg_wait<0>();
         fence_regs(adv);
@@ -653,14 +713,14 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
         __syncthreads();   // this buffer is the next prefetch's target
     }
 
-    const int col = 2 * (lane & 3);
+    const int col = wg * DO + 2 * (lane & 3);
     if (item.w >= 0) {   // a run of a cut walk: f32, unscaled
         float* w = ws + (((size_t)item.w * B + b) * KVH + kvh) * 2 * TILE * DH;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const size_t row = (size_t)(kr + 8 * half) * DH + col;
 #pragma unroll
-            for (int n = 0; n < ND; ++n) {
+            for (int n = 0; n < NO; ++n) {
                 *reinterpret_cast<float2*>(w + row + 8 * n) = make_float2(
                     adk[4 * n + 2 * half], adk[4 * n + 2 * half + 1]);
                 *reinterpret_cast<float2*>(w + TILE * DH + row + 8 * n) =
@@ -673,10 +733,10 @@ flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q,    // (B,S,H,DH)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int j = half ? key1 : key0;
-        if (j >= S) continue;
-        const size_t base = (((size_t)b * S + j) * KVH + kvh) * DH + col;
+        if (j >= Skv) continue;
+        const size_t base = (((size_t)b * Skv + j) * KVH + kvh) * DH + col;
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
+        for (int n = 0; n < NO; ++n) {
             *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * n) =
                 __floats2bfloat162_rn(adk[4 * n + 2 * half] * scale,
                                       adk[4 * n + 2 * half + 1] * scale);
@@ -696,7 +756,7 @@ __global__ void __launch_bounds__(256)
 flash_bwd_dkdv_combine(const float* __restrict__ ws,
                        const int4* __restrict__ splits,
                        __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int B, int S,
+                       __nv_bfloat16* __restrict__ dv, int B, int Skv,
                        int KVH, float scale) {
     const int4 sp = splits[blockIdx.x];
     const int kvh = blockIdx.y, b = blockIdx.z;
@@ -705,7 +765,7 @@ flash_bwd_dkdv_combine(const float* __restrict__ ws,
     const size_t stride = (size_t)B * KVH * slot;   // from slot to slot
     for (int e = 2 * threadIdx.x; e < TILE * DH; e += 2 * blockDim.x) {
         const int j = sp.x * TILE + e / DH;
-        if (j >= S) break;
+        if (j >= Skv) break;
         float2 ak = make_float2(0.f, 0.f), av = ak;
         for (int c = 0; c < sp.z; ++c) {
             const float2 pk = *reinterpret_cast<const float2*>(
@@ -715,7 +775,7 @@ flash_bwd_dkdv_combine(const float* __restrict__ ws,
             ak = make_float2(__fadd_rn(ak.x, pk.x), __fadd_rn(ak.y, pk.y));
             av = make_float2(__fadd_rn(av.x, pv.x), __fadd_rn(av.y, pv.y));
         }
-        const size_t o = (((size_t)b * S + j) * KVH + kvh) * DH + e % DH;
+        const size_t o = (((size_t)b * Skv + j) * KVH + kvh) * DH + e % DH;
         *reinterpret_cast<__nv_bfloat162*>(dk + o) =
             __floats2bfloat162_rn(ak.x * scale, ak.y * scale);
         *reinterpret_cast<__nv_bfloat162*>(dv + o) =
@@ -727,9 +787,11 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq,
            void* dk, void* dv, const int4* items, int n_items,
-           const int4* splits, int n_splits, float* ws, int B, int S, int H,
-           int KVH, int causal, cudaStream_t stream) {
+           const int4* splits, int n_splits, float* ws, int B, int Sq,
+           int Skv, int H, int KVH, int causal, int window,
+           cudaStream_t stream) {
     using bf = __nv_bfloat16;
+    constexpr int NT = WG * n_wg(DH);
     const size_t s1 = dq_smem_bytes<DH>(), s2 = dkdv_smem_bytes<DH>();
     // once a process (the attributes stay set)
     static const cudaError_t attr1 = cudaFuncSetAttribute(
@@ -741,42 +803,43 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     cudaError_t err = attr1 != cudaSuccess ? attr1 : attr2;
     if (err != cudaSuccess) return (int)err;
     const float scale = 1.0f / sqrtf((float)DH);
-    const int nq = (S + TILE - 1) / TILE;
-    flash_bwd_dq<DH><<<nq * H * B, THREADS, s1, stream>>>(
+    const int nq = (Sq + TILE - 1) / TILE;
+    flash_bwd_dq<DH><<<nq * H * B, NT, s1, stream>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(o),
         static_cast<const bf*>(dout), lse, dsum, static_cast<bf*>(dq), B,
-        S, H, KVH, causal, scale);
+        Sq, Skv, H, KVH, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkdv<DH><<<n_items * KVH * B, THREADS, s2, stream>>>(
+    flash_bwd_dkdv<DH><<<n_items * KVH * B, NT, s2, stream>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
         static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dsum,
-        static_cast<bf*>(dk), static_cast<bf*>(dv), items, ws, B, S, H, KVH,
-        causal, scale);
+        static_cast<bf*>(dk), static_cast<bf*>(dv), items, ws, B, Sq, Skv,
+        H, KVH, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess || n_splits == 0) return (int)err;
     flash_bwd_dkdv_combine<DH><<<dim3(n_splits, KVH, B), 256, 0, stream>>>(
-        ws, splits, static_cast<bf*>(dk), static_cast<bf*>(dv), B, S, KVH,
+        ws, splits, static_cast<bf*>(dk), static_cast<bf*>(dv), B, Skv, KVH,
         scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, S, H, Dh); k, v, dk, dv: (B, S, KVH, Dh), all bf16
-// and contiguous; lse: the forward's (B, H, S) f32 log-sum-exp; dsum: an
-// f32 (B, H, S) scratch buffer that receives D = rowsum(dout * o).
-// items (n_items x int4) and splits (n_splits x int4): the dK/dV plan of
-// ops.plan_dkdv on the device; ws: f32 scratch of n_slots x B x KVH x 2
-// x 64 x Dh floats (null when n_splits is 0).
-// Returns the cudaError_t of the launches (0 on success).
+// q, o, dout, dq: (B, Sq, H, Dh); k, v, dk, dv: (B, Skv, KVH, Dh), all
+// bf16 and contiguous; lse: the forward's (B, H, Sq) f32 log-sum-exp;
+// dsum: an f32 (B, H, Sq) scratch buffer that receives D = rowsum(dout
+// * o).  window: 0 for none.  items (n_items x int4) and splits
+// (n_splits x int4): the dK/dV plan of ops.plan_dkdv on the device; ws:
+// f32 scratch of n_slots x B x KVH x 2 x 64 x Dh floats (null when
+// n_splits is 0).  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int repro_flash_attention_bwd_bf16(
         const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* dsum, void* dq, void* dk,
         void* dv, const void* items, int n_items, const void* splits,
-        int n_splits, void* ws, int B, int S, int H, int KVH, int Dh,
-        int causal, void* stream) {
+        int n_splits, void* ws, int B, int Sq, int Skv, int H, int KVH,
+        int Dh, int causal, int window, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     auto l = static_cast<const float*>(lse);
     auto d = static_cast<float*>(dsum);
@@ -787,9 +850,15 @@ extern "C" int repro_flash_attention_bwd_bf16(
         return (int)cudaErrorInvalidValue;
     if (Dh == 64)
         return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
-                          sp, n_splits, w, B, S, H, KVH, causal, s);
+                          sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
+                          window, s);
     if (Dh == 128)
         return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
-                           sp, n_splits, w, B, S, H, KVH, causal, s);
+                           sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
+                           window, s);
+    if (Dh == 256)
+        return launch<256>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
+                           sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
+                           window, s);
     return (int)cudaErrorInvalidValue;
 }

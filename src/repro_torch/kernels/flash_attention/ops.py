@@ -24,9 +24,10 @@ its backward is the hand-written kernels of
 and dV, the long dK/dV walks cut into runs by ``plan_dkdv`` and their
 f32 partials added in run order by a third kernel; no atomics, so a
 step is a deterministic function of its inputs), whose plain version is
-``flash_attention_bwd_plain``.  The
-backward covers what the dense architectures train with: causal or
-not, q_offset 0, Sq == Skv, Dh 64 or 128.
+``flash_attention_bwd_plain``.  The backward covers every attention the
+reference trains: causal or not, a sliding ``window`` (local
+attention), Sq != Skv (cross-attention), Dh 64, 128 or 256, q_offset 0
+(no training path passes another).
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ from ..build import load
 __all__ = ["flash_attention", "flash_attention_plain", "KV_TILE",
            "flash_attention_lse", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
-           "flash_attention_train", "plan_dkdv", "DkdvPlan"]
+           "flash_attention_train", "plan_dkdv", "DkdvPlan",
+           "walk_bounds"]
 
 #: keys per online-softmax step — the kernel's tile
 KV_TILE = 64
@@ -53,9 +55,8 @@ NEG_INF = -1e30
 launches = 0
 bwd_launches = 0
 
-#: the backward kernel's head dims (the plain version takes any; the
-#: rest is ROADMAP Queue 1 item 15)
-BWD_HEAD_DIMS = (64, 128)
+#: the backward kernel's head dims (the plain version takes any)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 _fn = None
 _bwd_fn = None
@@ -78,7 +79,7 @@ def _bwd_kernel():
         f = load("flash_attention_bwd").repro_flash_attention_bwd_bf16
         f.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
                                                 ctypes.c_int, ctypes.c_void_p]
-                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _bwd_fn = f
     return _bwd_fn
@@ -193,11 +194,11 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True,
     return _forward(q, k, v, q_offset, causal, window, False)
 
 
-def flash_attention_lse(q, k, v, causal: bool = True):
+def flash_attention_lse(q, k, v, causal: bool = True, window=None):
     """The forward that training saves for the backward: ``(out, lse)``,
     lse the f32 ``(B, H, Sq)`` log-sum-exp of each row's scaled scores.
     The kernel writes it beside the same ``out`` bits."""
-    return _forward(q, k, v, 0, causal, None, True)
+    return _forward(q, k, v, 0, causal, window, True)
 
 
 def _forward(q, k, v, q_offset, causal, window, want_lse):
@@ -246,31 +247,44 @@ def _forward(q, k, v, q_offset, causal, window, want_lse):
 
 
 # ------------------------------------------------------------ backward
-def _check_bwd(q, k, v):
-    """What the backward takes; the rest is the families' training
-    (ROADMAP Queue 1 item 15)."""
+def _check_bwd(q, k, v, window=None):
+    """What the backward takes: any forward shape at q_offset 0."""
     _check(q, k, v)
-    if k.shape[1] != q.shape[1]:
-        raise ValueError(f"the attention backward takes Sq == Skv, got Sq "
-                         f"{q.shape[1]} and Skv {k.shape[1]} (chunked "
-                         "training: ROADMAP Queue 1 item 15)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if q.is_cuda and q.shape[3] not in BWD_HEAD_DIMS:
         raise ValueError(f"the attention backward kernel takes head_dim "
-                         f"{BWD_HEAD_DIMS}, got {q.shape[3]} (ROADMAP "
-                         "Queue 1 item 15)")
+                         f"{BWD_HEAD_DIMS}, got {q.shape[3]}")
+
+
+def walk_bounds(t, nq: int, causal: bool, window):
+    """(first, last) query tile that can see key tile ``t`` (an int or
+    an int tensor) of ``nq`` query tiles at q_offset 0: causal from the
+    key tile's own tile, else from 0; under a window up to the tile of
+    the last query within ``window`` positions of the tile's last key.
+    ``first > last`` when no query sees it."""
+    first = t if causal else t * 0
+    if window is None:
+        return first, t * 0 + nq - 1
+    last = (t * KV_TILE + KV_TILE - 2 + window) // KV_TILE
+    if isinstance(last, torch.Tensor):
+        return first, last.clamp(max=nq - 1)
+    return first, min(last, nq - 1)
 
 
 class DkdvPlan(NamedTuple):
     """How the dK/dV kernel covers the key tiles of one (kv head, batch
     row).  The walk of key tile t runs ``steps(t)`` steps, step i being
     query head ``i // per_head`` of the kv head's G and query tile
-    ``first + i % per_head`` (causal: ``first = t``, ``per_head = nq -
-    t``; else 0 and nq).  A walk longer than ``chunk`` steps is cut into
-    runs of ``chunk`` steps, one block each, whose f32 partials go to
-    workspace slots ``first_slot, first_slot + 1, ...``; ``splits``
-    lists those walks and a combine adds their runs in ascending order.
-    ``items`` are the blocks, longest first: (key tile, step0, step1,
-    slot, -1 when the block writes the whole walk)."""
+    ``first + i % per_head``, (first, last) = ``walk_bounds(t)`` and
+    per_head = last - first + 1 (0 when no query sees the tile: its
+    walk is one block of no steps, which writes zeros).  A walk longer
+    than ``chunk`` steps is cut into runs of ``chunk`` steps, one block
+    each, whose f32 partials go to workspace slots ``first_slot,
+    first_slot + 1, ...``; ``splits`` lists those walks and a combine
+    adds their runs in ascending order.  ``items`` are the blocks,
+    longest first: (key tile, step0, step1, slot, -1 when the block
+    writes the whole walk)."""
     chunk: int
     items: Tuple[Tuple[int, int, int, int], ...]
     splits: Tuple[Tuple[int, int, int], ...]
@@ -282,19 +296,24 @@ class DkdvPlan(NamedTuple):
 DKDV_MIN_CHUNK, DKDV_RUNS = 8, 2
 
 
-def plan_dkdv(S: int, G: int, causal: bool = True) -> DkdvPlan:
-    """The dK/dV plan for S keys (tiles of KV_TILE) and G query heads a
-    kv head; it depends on nothing else, so every batch row and kv head
-    sums its gradients in the same order."""
-    nq = -(-S // KV_TILE)
-    chunk = max(DKDV_MIN_CHUNK, -(-G * nq // DKDV_RUNS))
+def plan_dkdv(Sq: int, Skv: int, G: int, causal: bool = True,
+              window=None) -> DkdvPlan:
+    """The dK/dV plan for Sq queries and Skv keys (tiles of KV_TILE), G
+    query heads a kv head, the mask (causal, window); it depends on
+    nothing else, so every batch row and kv head sums its gradients in
+    the same order."""
+    nq, nk = -(-Sq // KV_TILE), -(-Skv // KV_TILE)
+    steps = []
+    for t in range(nk):
+        first, last = walk_bounds(t, nq, causal, window)
+        steps.append(G * max(0, last - first + 1))
+    chunk = max(DKDV_MIN_CHUNK, -(-max(steps, default=0) // DKDV_RUNS))
     items, splits, slot = [], [], 0
-    for t in range(nq):
-        steps = G * (nq - t if causal else nq)
-        if steps <= chunk:
-            items.append((t, 0, steps, -1))
+    for t, n in enumerate(steps):
+        if n <= chunk:
+            items.append((t, 0, n, -1))
             continue
-        runs = [(i, min(steps, i + chunk)) for i in range(0, steps, chunk)]
+        runs = [(i, min(n, i + chunk)) for i in range(0, n, chunk)]
         splits.append((t, slot, len(runs)))
         items += [(t, i0, i1, slot + c) for c, (i0, i1) in enumerate(runs)]
         slot += len(runs)
@@ -302,47 +321,54 @@ def plan_dkdv(S: int, G: int, causal: bool = True) -> DkdvPlan:
     return DkdvPlan(chunk, tuple(items), tuple(splits), slot)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
+                              window=None):
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) in
     the inputs' dtypes from the forward's ``out`` and ``lse``.  D =
-    rowsum(dout * out), P = exp(S scale - lse) and dS = P (dP - D) in
-    f32; P and dS are rounded to the value dtype where they enter a
-    product (as the kernels round them to bf16).  Query heads, then
-    query tiles of KV_TILE rows, in ascending order, as the dK/dV walks
-    run them; each key tile's dK and dV are summed in f32 run by run of
-    ``plan_dkdv``, and the runs added in ascending order."""
-    _check_bwd(q, k, v)
-    B, S, H, Dh = q.shape
-    KVH = k.shape[2]
+    rowsum(dout * out), P = exp(S scale - lse) on the forward's mask and
+    dS = P (dP - D) in f32; P and dS are rounded to the value dtype where
+    they enter a product (as the kernels round them to bf16).  Query
+    heads, then query tiles of KV_TILE rows, in ascending order, as the
+    dK/dV walks run them; each key tile's dK and dV are summed in f32
+    run by run of ``plan_dkdv``, and the runs added in ascending
+    order."""
+    _check_bwd(q, k, v, window)
+    B, Sq, H, Dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     dt = q.dtype
     scale = 1.0 / math.sqrt(Dh)
     dev = q.device
 
-    def heads(t):                        # (B, S, H, Dh) -> (B,KVH,G,S,Dh)
-        return t.float().reshape(B, S, KVH, G, Dh).permute(0, 2, 3, 1, 4)
+    def heads(t):                       # (B, Sq, H, Dh) -> (B,KVH,G,Sq,Dh)
+        return t.float().reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)
     qf, of, dof = heads(q), heads(out), heads(dout)
-    kf = k.float().permute(0, 2, 1, 3)                 # (B,KVH,S,Dh)
+    kf = k.float().permute(0, 2, 1, 3)                 # (B,KVH,Skv,Dh)
     vf = v.float().permute(0, 2, 1, 3)
-    d = (dof * of).sum(-1)                             # (B,KVH,G,S)
-    lse = lse.float().reshape(B, KVH, G, S)
-    plan = plan_dkdv(S, G, causal)
-    nq = -(-S // KV_TILE)
-    j = torch.arange(S, device=dev)
-    tile = j // KV_TILE                                # each key's tile
-    first = tile if causal else torch.zeros_like(tile)
-    per_head = nq - first
-    n_runs = max(1 + (i1 - 1) // plan.chunk for _, _, i1, _ in plan.items)
+    d = (dof * of).sum(-1)                             # (B,KVH,G,Sq)
+    lse = lse.float().reshape(B, KVH, G, Sq)
+    plan = plan_dkdv(Sq, Skv, G, causal, window)
+    nq = -(-Sq // KV_TILE)
+    j = torch.arange(Skv, device=dev)
+    first, last = walk_bounds(j // KV_TILE, nq, causal, window)
+    per_head = (last - first + 1).clamp(min=0)
+    n_runs = max([1 + (i1 - 1) // plan.chunk
+                  for _, _, i1, _ in plan.items if i1], default=1)
     dq = torch.zeros_like(qf)
-    part = torch.zeros((2, n_runs, B, KVH, S, Dh), dtype=torch.float32,
+    part = torch.zeros((2, n_runs, B, KVH, Skv, Dh), dtype=torch.float32,
                        device=dev)                     # dk, dv runs
     for g in range(G):
         for qt in range(nq):
             rows = slice(qt * KV_TILE, (qt + 1) * KV_TILE)
-            s = qf[:, :, g, rows] @ kf.transpose(-1, -2)   # (B,KVH,T,S)
+            i = torch.arange(Sq, device=dev)[rows, None]
+            s = qf[:, :, g, rows] @ kf.transpose(-1, -2)   # (B,KVH,T,Skv)
             p = torch.exp(s * scale - lse[:, :, g, rows, None])
+            vis = torch.ones((len(i), Skv), dtype=torch.bool, device=dev)
             if causal:
-                p = torch.where(j[None] <= j[rows, None], p, 0.0)
+                vis = vis & (j[None] <= i)
+            if window is not None:
+                vis = vis & (j[None] > i - window)
+            p = torch.where(vis, p, 0.0)
             dp = dof[:, :, g, rows] @ vf.transpose(-1, -2)
             ds = p * (dp - d[:, :, g, rows, None])
             pb, dsb = p.to(dt).float(), ds.to(dt).float()
@@ -351,16 +377,16 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
                      pb.transpose(-1, -2) @ dof[:, :, g, rows])
             # the run of this walk step in each key tile's walk
             run = (g * per_head + qt - first) // plan.chunk
-            seen = qt >= first
+            seen = (qt >= first) & (qt <= last)
             for c in run[seen].unique().tolist():
                 keys = torch.nonzero(seen & (run == c)).squeeze(1)
                 for x, step in enumerate(steps):
                     part[x, c].index_add_(2, keys, step.index_select(2, keys))
-    dk = torch.zeros((B, KVH, S, Dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, KVH, Skv, Dh), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
     for c in range(n_runs):
         dk, dv = dk + part[0, c], dv + part[1, c]
-    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh)
     dk, dv = ((t.permute(0, 2, 1, 3)).to(dt) for t in (dk * scale, dv))
     return dq.to(dt), dk, dv
 
@@ -368,12 +394,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
 _plan_tables: Dict[tuple, tuple] = {}
 
 
-def _dkdv_tables(S: int, G: int, causal: bool, device):
+def _dkdv_tables(Sq: int, Skv: int, G: int, causal: bool, window, device):
     """``plan_dkdv``'s items and splits as int32 (n, 4) tensors on
-    ``device`` (kept for the next call with the same S, G, causal)."""
-    key = (S, G, causal, str(device))
+    ``device`` (kept for the next call with the same shapes and mask)."""
+    key = (Sq, Skv, G, causal, window, str(device))
     if key not in _plan_tables:
-        plan = plan_dkdv(S, G, causal)
+        plan = plan_dkdv(Sq, Skv, G, causal, window)
         items = torch.tensor(plan.items, dtype=torch.int32, device=device)
         splits = torch.tensor([sp + (0,) for sp in plan.splits] or
                               [(0, 0, 0, 0)], dtype=torch.int32,
@@ -382,18 +408,20 @@ def _dkdv_tables(S: int, G: int, causal: bool, device):
     return _plan_tables[key]
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
-    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal)`` given
-    its ``out``, its ``lse`` (``flash_attention_lse``) and the output's
-    gradient ``dout``: the kernels for CUDA tensors, the plain version
-    for CPU tensors."""
-    _check_bwd(q, k, v)
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
+    window=window)`` given its ``out``, its ``lse``
+    (``flash_attention_lse``) and the output's gradient ``dout``: the
+    kernels for CUDA tensors, the plain version for CPU tensors."""
+    _check_bwd(q, k, v, window)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                         window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    B, S, H, Dh = q.shape
-    KVH = k.shape[2]
+    B, Sq, H, Dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout), ("lse", lse)):
         want = torch.float32 if name == "lse" else torch.bfloat16
@@ -407,16 +435,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
             raise ValueError(f"{name} must be 16-byte aligned")
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("out and dout must have q's shape")
-    if tuple(lse.shape) != (B, H, S):
-        raise ValueError(f"lse must be (B, H, S) = {(B, H, S)}, got "
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must be (B, H, Sq) = {(B, H, Sq)}, got "
                          f"{tuple(lse.shape)}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    if B == 0 or S == 0:
-        return dq, dk, dv
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    plan, items, splits = _dkdv_tables(S, H // KVH, causal, q.device)
+    if B == 0 or Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    plan, items, splits = _dkdv_tables(Sq, Skv, H // KVH, causal, window,
+                                       q.device)
     ws = None
     if plan.n_slots:
         ws = torch.empty(plan.n_slots * B * KVH * 2 * KV_TILE * Dh,
@@ -428,8 +457,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
                         dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), items.data_ptr(), len(plan.items),
                         splits.data_ptr(), len(plan.splits),
-                        None if ws is None else ws.data_ptr(), B, S, H, KVH,
-                        Dh, int(causal),
+                        None if ws is None else ws.data_ptr(), B, Sq, Skv,
+                        H, KVH, Dh, int(causal), int(window or 0),
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
@@ -443,9 +472,9 @@ class FlashAttentionFn(torch.autograd.Function):
     versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_lse(q, k, v, causal)
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_lse(q, k, v, causal, window)
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -453,20 +482,19 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+                                         dout.contiguous(), ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_train(q, k, v, q_offset=0, causal: bool = True,
                           window=None):
-    """``flash_attention`` with a gradient (``FlashAttentionFn``) over
-    the cases the backward covers; a window or a q_offset raises (the
-    families' training, ROADMAP Queue 1 item 15)."""
-    if window is not None:
-        raise ValueError("the attention backward takes no window (local "
-                         "attention's training: ROADMAP Queue 1 item 15)")
+    """``flash_attention`` with a gradient (``FlashAttentionFn``).  A
+    non-zero q_offset raises: no training path of the reference passes
+    one (its training forwards attend whole sequences from position
+    0)."""
     if isinstance(q_offset, torch.Tensor) or q_offset != 0:
-        raise ValueError("the attention backward takes q_offset 0 (per-row "
-                         "offsets: ROADMAP Queue 1 item 15)")
-    _check_bwd(q, k, v)
-    return FlashAttentionFn.apply(q, k, v, causal)
+        raise ValueError("the attention backward takes q_offset 0: no "
+                         "training path attends from another position")
+    _check_bwd(q, k, v, window)
+    return FlashAttentionFn.apply(q, k, v, causal, window)

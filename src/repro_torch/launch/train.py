@@ -16,11 +16,16 @@ the CPU instead:
 
 (run again on the same ``$CKPT`` with more ``--steps`` to resume).
 
-The dense architectures train (qwen3, qwen2, stablelm, qwen1.5); an MoE
-and the lockstep-only families raise ``NotImplementedError``, and so
-does ``--production-mesh`` (no mesh on one GPU: ROADMAP Queue 1 items
-14-15).  ``main`` returns the driver (its ``metrics_log`` and
-``events``).
+Every ``--arch`` of ``configs.ARCH_NAMES`` trains: the dense stacks,
+the MoEs (deepseek-moe, llama4-scout) and the lockstep-only families
+(qwen2-vl, whisper, recurrentgemma, rwkv6), for example
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+        --smoke --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$CKPT"
+
+``--production-mesh`` raises ``NotImplementedError`` (no mesh on one
+GPU: ROADMAP Queue 1 item 14).  ``main`` returns the driver (its
+``metrics_log`` and ``events``).
 """
 from __future__ import annotations
 

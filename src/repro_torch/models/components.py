@@ -323,11 +323,15 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
 def cross_attention_block(p, x, enc_kv, cfg):
     """Decoder cross-attention (whisper); ``enc_kv`` = (k, v) of the
     encoder output, (B, S_enc, KVH, Dh) each, attended whole (not
-    causal) through the flash kernel."""
+    causal) through the flash kernel (under grad with its backward
+    kernel, Sq queries against S_enc keys)."""
     B, S, _ = x.shape
     q = linear(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k, v = enc_kv
-    out = flash_attention(q.contiguous(), k, v, q_offset=0, causal=False)
+    q = q.contiguous()
+    attend = (flash_attention_train if _needs_grad(q, k, v)
+              else flash_attention)
+    out = attend(q, k, v, q_offset=0, causal=False)
     return out_proj(p, out)
 
 
@@ -521,6 +525,26 @@ def moe_route(p, xf, cfg):
     return probs, topw, topi
 
 
+class _RepeatRows(torch.autograd.Function):
+    """(T, D) -> (T * K, D), each row repeated K times (the dispatch's
+    ``xf[tok]``); the backward adds a row's K gradients in choice order,
+    one rounded add at a time, as the forward adds the K outputs.  An
+    index's backward would leave that order to a library kernel."""
+
+    @staticmethod
+    def forward(ctx, xf, k):
+        ctx.k = k
+        return xf.repeat_interleave(k, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.reshape(-1, ctx.k, g.shape[-1])
+        out = g[:, 0]
+        for i in range(1, ctx.k):
+            out = out + g[:, i]
+        return out, None
+
+
 def moe_block(p, x, cfg):
     """Mixture of experts on one device (the reference's
     ``_moe_compute`` at ``ep_size = 1``).  x: (B, S, D) -> (y (B, S, D),
@@ -532,7 +556,11 @@ def moe_block(p, x, cfg):
     a zero row there.  The experts' SwiGLU runs as (E, C, D) batched
     products in the compute dtype; the gate-weighted outputs are added
     back per token in choice order, then the shared expert's dense
-    SwiGLU."""
+    SwiGLU.  Under grad a token's K dispatched copies send their
+    gradients back added in choice order too (``_RepeatRows``), and the
+    gathers' backwards write each slot once, so a row's gradient bits
+    rest on no library's choice of order; the experts' products stay
+    ``torch.bmm`` (the reference's ``einsum``s)."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, K = B * S, m.n_experts, m.top_k
@@ -541,13 +569,12 @@ def moe_block(p, x, cfg):
     probs, topw, topi = moe_route(p, xf, cfg)
     eid = topi.reshape(-1)                                   # (T*K,)
     gate = topw.reshape(-1)
-    tok = torch.arange(T * K, device=x.device) // K
     onehot = F.one_hot(eid, E)
     pos = torch.cumsum(onehot, dim=0) - onehot
     pos = torch.gather(pos, 1, eid[:, None])[:, 0]
     pos = torch.where(pos < C, pos, C)                       # C: dropped
     x_e = x.new_zeros(E, C + 1, D)
-    x_e[eid, pos] = xf[tok]
+    x_e[eid, pos] = _RepeatRows.apply(xf, K)
     x_e = x_e[:, :C]
     g = F.silu(torch.bmm(x_e, p["wg"].to(x.dtype)))
     u = torch.bmm(x_e, p["wu"].to(x.dtype))

@@ -191,9 +191,11 @@ class DecoderLM:
         return x + f
 
     def _block(self, kind, use_moe, p, x, *, positions, mrope, cache,
-               pos):
+               pos, train: bool = False):
         """One block on the contiguous path: prefill (``cache`` None)
-        or one decode step at ``pos``.  Returns (x, the layer's cache)."""
+        or one decode step at ``pos``; ``train``: the training forward
+        (RWKV6 runs the reference's chunked WKV).  Returns (x, the
+        layer's cache, the MoE's aux loss or None)."""
         cfg = self.cfg
         h = self._norm(p["ln1"], x)
         part = (lambda name: None) if cache is None else cache.get
@@ -212,18 +214,19 @@ class DecoderLM:
         else:
             mix, att = W.rwkv_time_block(p["mix"], h, cfg,
                                          state=part("att"),
-                                         chunked=self.wkv_chunked)
+                                         chunked=self.wkv_chunked or train)
             new = {"att": att}
         x = x + mix
         h = self._norm(p["ln2"], x)
+        aux = None
         if kind == "rwkv":
             f, new["ffn"] = W.rwkv_channel_block(p["ffn"], h, cfg,
                                                  state=part("ffn"))
         elif use_moe:
-            f, _ = C.moe_block(p["ffn"], h, cfg)
+            f, aux = C.moe_block(p["ffn"], h, cfg)
         else:
             f = C.mlp_block(p["ffn"], h, cfg)
-        return x + f, new
+        return x + f, new, aux
 
     def _embed(self, params, tokens):
         return C.embed_tokens(params["embed"], tokens.to(self.device),
@@ -258,8 +261,8 @@ class DecoderLM:
         return tokens, pe, mrope
 
     def _forward(self, params, batch, train: bool = False):
-        """Final-norm hidden states (B, S, D) and every layer's cache
-        (none with ``train``)."""
+        """Final-norm hidden states (B, S, D), every layer's cache (none
+        with ``train``) and the MoE layers' summed aux loss (f32)."""
         tokens, pe, mrope = self._batch(batch)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
@@ -269,6 +272,7 @@ class DecoderLM:
             # the leading placeholder tokens
             x[:, :pe.shape[1]] = pe.to(self.dtype)
         caches = []
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         if train and self.scanned:
             # one unbind a stacked leaf: its backward stacks the layers'
             # gradients in one op, where a view a layer would add a
@@ -278,40 +282,55 @@ class DecoderLM:
         for kind, use_moe, p in self._blocks(params):
             if train:
                 def layer(p, x, kind=kind, use_moe=use_moe):
-                    return self._block(kind, use_moe, p, x,
-                                       positions=positions, mrope=mrope,
-                                       cache=None, pos=None)[0]
+                    y, _, aux = self._block(kind, use_moe, p, x,
+                                            positions=positions,
+                                            mrope=mrope, cache=None,
+                                            pos=None, train=True)
+                    return (y, aux) if use_moe else y
                 if self.cfg.remat == "full":
-                    # the reference's jax.checkpoint: keep the layer's
-                    # input, recompute the rest in the backward
-                    x = checkpoint(layer, p, x, use_reentrant=False)
+                    # the reference's jax.checkpoint, every block kind:
+                    # keep the layer's input, recompute the rest in the
+                    # backward
+                    out = checkpoint(layer, p, x, use_reentrant=False)
                 else:
-                    x = layer(p, x)
+                    out = layer(p, x)
+                if use_moe:
+                    x, aux = out
+                    aux_total = aux_total + aux
+                else:
+                    x = out
                 continue
-            x, c = self._block(kind, use_moe, p, x, positions=positions,
-                               mrope=mrope, cache=None, pos=None)
+            x, c, aux = self._block(kind, use_moe, p, x,
+                                    positions=positions, mrope=mrope,
+                                    cache=None, pos=None)
+            if aux is not None:
+                aux_total = aux_total + aux
             caches.append(c)
-        return self._norm(params["final_norm"], x), caches
+        return self._norm(params["final_norm"], x), caches, aux_total
 
     def apply(self, params, batch, *, train: bool = False,
-              want_hidden: bool = False):
+              want_hidden: bool = False, want_aux: bool = False):
         """Whole-sequence forward: logits (B, S, V) f32, or with
         ``want_hidden`` the final-norm hidden states (B, S, D) (whose
-        rows ``logits`` turns into logits).  ``train`` is the training
-        forward: no caches, and with ``cfg.remat == "full"`` each layer
-        under ``torch.utils.checkpoint`` (the reference's
+        rows ``logits`` turns into logits); with ``want_aux`` also
+        ``{"moe_aux": the MoE layers' summed load-balance loss}`` (the
+        reference's ``aux_total``; 0 without an MoE).  ``train`` is the
+        training forward: no caches, RWKV6's chunked WKV (the
+        reference's training form), and with ``cfg.remat == "full"``
+        each layer under ``torch.utils.checkpoint`` (the reference's
         ``jax.checkpoint``), so the backward recomputes it; where grad
         is enabled the kernels go through their autograd Functions.
         Without ``train`` it is the serving forward, bit for bit."""
-        h, _ = self._forward(params, batch, train)
-        return h if want_hidden else self.logits(params, h)
+        h, _, aux = self._forward(params, batch, train)
+        out = h if want_hidden else self.logits(params, h)
+        return (out, {"moe_aux": aux}) if want_aux else out
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Forward + contiguous decode cache.  Returns (last-token logits
         (B, V), cache ``{"layers": [one per layer], "pos": S}``);
         ``max_len`` > S pads the full-attention caches with decode
         headroom (ring buffers and recurrent states are fixed-size)."""
-        h, caches = self._forward(params, batch)
+        h, caches, _ = self._forward(params, batch)
         S = h.shape[1]
         if max_len is not None and max_len > S:
             for kind, c in zip(self.cfg.layer_kinds, caches):
@@ -365,9 +384,9 @@ class DecoderLM:
         x = self._embed(params, tokens)
         layers = cache["layers"]
         for i, (kind, use_moe, p) in enumerate(self._blocks(params)):
-            x, layers[i] = self._block(kind, use_moe, p, x,
-                                       positions=positions, mrope=mrope,
-                                       cache=layers[i], pos=pos)
+            x, layers[i], _ = self._block(kind, use_moe, p, x,
+                                          positions=positions, mrope=mrope,
+                                          cache=layers[i], pos=pos)
         cache["pos"] = pos + 1
         return self._logits(params, x)[:, 0], cache
 

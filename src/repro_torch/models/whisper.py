@@ -11,6 +11,13 @@ flash kernel without a causal mask, and so does a decode step's
 self-attention at one query row (the encoder-decoder does not page),
 which gives it the bits of the same row of a whole prefill.
 
+``apply(..., train=True)`` is the training forward: with ``cfg.remat ==
+"full"`` each encoder and each decoder block under
+``torch.utils.checkpoint`` (the reference checkpoints the decoder's;
+rematerialising the encoder's too changes the memory, not a value), and
+where grad is enabled the attention (the cross-attention's Sq queries
+against the frames included) runs the flash kernel's backward.
+
 Caches are updated **in place** (the reference returns new arrays).
 """
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import components as C
@@ -75,8 +83,22 @@ class WhisperModel:
     def _norm(self, p, x):
         return C.apply_norm(p, x, self.cfg.norm_kind, self.cfg.norm_eps)
 
+    def _remat(self, train: bool, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` in the
+        training forward with ``cfg.remat == "full"``."""
+        if train and self.cfg.remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     # ----------------------------------------------------------- encoder
-    def encode(self, params, frames):
+    def _enc_block(self, p, x, pos):
+        a, _ = C.attention_block(p["attn"], self._norm(p["ln1"], x),
+                                 self.cfg, positions=pos, causal=False,
+                                 paged=False)
+        x = x + a
+        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), self.cfg)
+
+    def encode(self, params, frames, train: bool = False):
         """frames (B, F, D) stub embeddings -> encoder states (B, F, D)."""
         cfg = self.cfg
         frames = frames.to(self.device)
@@ -85,12 +107,8 @@ class WhisperModel:
              + C.sinusoid_pos(F, D, self.device).to(self.dtype)[None])
         pos = torch.arange(F, device=self.device)[None].expand(B, F)
         for i in range(cfg.n_encoder_layers):
-            p = params[f"enc_{i:02d}"]
-            a, _ = C.attention_block(p["attn"], self._norm(p["ln1"], x), cfg,
-                                     positions=pos, causal=False,
-                                     paged=False)
-            x = x + a
-            x = x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), cfg)
+            x = self._remat(train, self._enc_block, params[f"enc_{i:02d}"],
+                            x, pos)
         return self._norm(params["enc_final_norm"], x)
 
     def cross_kv(self, params, enc_out) -> dict:
@@ -99,23 +117,32 @@ class WhisperModel:
                 for i in range(self.cfg.n_layers)}
 
     # ----------------------------------------------------------- decoder
-    def _decoder(self, params, x, positions, cross, *, caches=None,
-                 cache_pos=None):
+    def _dec_block(self, p, x, positions, cross, cache=None,
+                   cache_pos=None):
         cfg = self.cfg
+        a, kv = C.attention_block(
+            p["self_attn"], self._norm(p["ln1"], x), cfg,
+            positions=positions, cache=cache, cache_pos=cache_pos,
+            paged=False)
+        x = x + a
+        x = x + C.cross_attention_block(
+            p["cross_attn"], self._norm(p["ln_x"], x), cross, cfg)
+        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), cfg), kv
+
+    def _decoder(self, params, x, positions, cross, *, caches=None,
+                 cache_pos=None, train: bool = False):
         kvs = {}
-        for i in range(cfg.n_layers):
+        for i in range(self.cfg.n_layers):
             name = f"dec_{i:02d}"
-            p = params[name]
-            a, kv = C.attention_block(
-                p["self_attn"], self._norm(p["ln1"], x), cfg,
-                positions=positions,
-                cache=None if caches is None else caches[name],
-                cache_pos=cache_pos, paged=False)
-            x = x + a
-            x = x + C.cross_attention_block(
-                p["cross_attn"], self._norm(p["ln_x"], x), cross[name], cfg)
-            x = x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), cfg)
-            kvs[name] = kv
+            if train:
+                x = self._remat(
+                    True, lambda p, x, k, v: self._dec_block(
+                        p, x, positions, (k, v))[0],
+                    params[name], x, *cross[name])
+                continue
+            x, kvs[name] = self._dec_block(
+                params[name], x, positions, cross[name],
+                None if caches is None else caches[name], cache_pos)
         return x, kvs
 
     def _embed(self, params, tokens, pe):
@@ -127,22 +154,29 @@ class WhisperModel:
         """f32 logits of final-norm hidden states (..., D)."""
         return C.unembed(params["embed"], h, self.cfg)
 
-    def apply(self, params, batch, *, want_hidden: bool = False):
+    def apply(self, params, batch, *, train: bool = False,
+              want_hidden: bool = False, want_aux: bool = False):
         """Whole forward: batch = {"frames", "tokens"} -> decoder logits
         (B, S, V) f32, or with ``want_hidden`` the final-norm hidden
-        states (B, S, D)."""
-        x, _, _ = self._forward(params, batch)
-        return x if want_hidden else self.logits(params, x)
+        states (B, S, D); with ``want_aux`` also ``{"moe_aux": 0}`` (the
+        reference's).  ``train``: the training forward (see the module
+        docstring)."""
+        x, _, _ = self._forward(params, batch, train)
+        out = x if want_hidden else self.logits(params, x)
+        if want_aux:
+            return out, {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                                device=self.device)}
+        return out
 
-    def _forward(self, params, batch):
-        enc_out = self.encode(params, batch["frames"])
+    def _forward(self, params, batch, train: bool = False):
+        enc_out = self.encode(params, batch["frames"], train)
         cross = self.cross_kv(params, enc_out)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = self._embed(params, tokens,
                         C.sinusoid_pos(S, self.cfg.d_model, self.device))
-        x, kvs = self._decoder(params, x, pos, cross)
+        x, kvs = self._decoder(params, x, pos, cross, train=train)
         return self._norm(params["final_norm"], x), kvs, cross
 
     # ----------------------------------------------------------- serving

@@ -64,17 +64,23 @@ def init_opt_state(params, cfg: OptConfig = OptConfig()):
     return state
 
 
+def _clip_scale(grads, max_norm: float):
+    """(the global L2 norm, the factor that scales it to at most
+    ``max_norm``); the norm sums the leaves' squares in tree order, as
+    the reference's Python ``sum`` does."""
+    gn = None
+    for g in tree_leaves(grads):
+        s = torch.sum(torch.square(g.float()))
+        gn = s if gn is None else gn + s
+    gn = torch.sqrt(gn)
+    return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the
-    norm before clipping); the norm sums the leaves' squares in tree
-    order, as the reference's Python ``sum`` does."""
+    norm before clipping)."""
     with torch.no_grad():
-        gn = None
-        for g in tree_leaves(grads):
-            s = torch.sum(torch.square(g.float()))
-            gn = s if gn is None else gn + s
-        gn = torch.sqrt(gn)
-        scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+        gn, scale = _clip_scale(grads, max_norm)
         return tree_map(lambda g: g * scale, grads), gn
 
 
@@ -122,7 +128,10 @@ def _adamw(params, grads, state, cfg, compress_gen):
             pairs.append((deq, full - deq))
         grads = tree_unflatten(grads, [d for d, _ in pairs])
         new_ef = tree_unflatten(grads, [r for _, r in pairs])
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    # the clip's scale is applied leaf by leaf in ``upd`` (the same
+    # product as ``clip_by_global_norm``'s), so no clipped copy of the
+    # whole gradient tree is held beside it
+    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
     metrics["grad_norm"] = gnorm
     lr = _lr_at(cfg, step)
     metrics["lr"] = lr
@@ -130,7 +139,7 @@ def _adamw(params, grads, state, cfg, compress_gen):
     base = state.get("master", params)   # f32 master when params are bf16
 
     def upd(p, b, g, mu, nu):
-        g = g.float()
+        g = (g * scale).float()
         mu = b1 * mu + (1 - b1) * g
         nu = b2 * nu + (1 - b2) * torch.square(g)
         mu_hat = mu / (1 - b1 ** (step + 1))

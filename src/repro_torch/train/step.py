@@ -10,13 +10,13 @@ train=True)``): on the card every projection's backward runs on the
 dataflow GEMM and the attention's on its backward kernel, so a step is
 a deterministic function of (params, opt_state, batch).
 
+The loss is the reference's: the token NLL (chunked over the sequence
+when ``cfg.loss_chunk > 0``, except for an encoder-decoder) plus
+``cfg.moe.aux_coef`` times the MoE layers' load-balance loss.  Every
+architecture the reference trains trains here.
+
 Gradient accumulation over microbatches sums in ``grad_accum_dtype``,
 one microbatch at a time (the reference's ``lax.scan``).
-
-Scope: the dense architectures the engine serves (qwen3, qwen2,
-stablelm, qwen1.5).  An MoE (its ``moe_aux`` loss term and the
-experts' scatter) and the five lockstep-only families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from .optimizer import OptConfig, adamw_update
 
 __all__ = ["cross_entropy", "chunked_cross_entropy",
            "cast_params_for_compute", "make_loss_fn", "make_train_step",
-           "auto_microbatches", "check_trainable"]
+           "auto_microbatches"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -80,40 +80,26 @@ def cast_params_for_compute(params, dtype=torch.bfloat16):
     return tree_map(cast, params)
 
 
-def check_trainable(model, cfg) -> None:
-    """Raise for what the port does not train yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training an MoE (the moe_aux loss, a "
-            "deterministic expert scatter) is ROADMAP Queue 1 item 15")
-    paged = getattr(model, "supports_paged_decode", None)
-    if cfg.is_encoder_decoder or paged is None or not paged():
-        raise NotImplementedError(
-            f"{cfg.name}: training the lockstep-only families (windowed, "
-            "Dh 256 or per-row-offset attention backward, the WKV and "
-            "RG-LRU backward) is ROADMAP Queue 1 item 15")
-
-
 def make_loss_fn(model, cfg) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"nll", "moe_aux"})``."""
-    check_trainable(model, cfg)
-    chunked = cfg.loss_chunk > 0
+    aux_coef = cfg.moe.aux_coef if cfg.moe is not None else 0.0
+    chunked = cfg.loss_chunk > 0 and not cfg.is_encoder_decoder
     dtype = _DTYPES[cfg.compute_dtype]
 
     def loss_fn(params, batch):
         params = cast_params_for_compute(params, dtype)
         if chunked:
-            hidden = model.apply(params, batch, train=True,
-                                 want_hidden=True)
+            hidden, aux = model.apply(params, batch, train=True,
+                                      want_hidden=True, want_aux=True)
             nll = chunked_cross_entropy(hidden, params["embed"],
                                         batch["labels"], cfg,
                                         cfg.loss_chunk)
         else:
-            logits = model.apply(params, batch, train=True)
+            logits, aux = model.apply(params, batch, train=True,
+                                      want_aux=True)
             nll = cross_entropy(logits, batch["labels"])
-        # no MoE trains yet (check_trainable): the aux term is zero
-        moe_aux = torch.zeros((), dtype=torch.float32, device=nll.device)
-        return nll, {"nll": nll, "moe_aux": moe_aux}
+        loss = nll + aux_coef * aux["moe_aux"]
+        return loss, {"nll": nll, "moe_aux": aux["moe_aux"]}
     return loss_fn
 
 

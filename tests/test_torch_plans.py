@@ -71,21 +71,51 @@ def test_plan_f32_splits_only_when_tiles_leave_sms_idle(m, n, k):
         assert tiles * plan.chunks >= min(N_SM, tiles * nk) // 2
 
 
-@pytest.mark.parametrize("S,G,causal", [
-    (2048, 2, True), (2048, 2, False), (256, 2, True), (200, 2, True),
-    (256, 2, False), (320, 2, True), (192, 4, True), (70, 2, True),
-    (1000, 7, True), (64, 1, True), (1, 1, False)])
-def test_plan_dkdv_covers_every_walk_step_once(S, G, causal):
-    plan = fa.plan_dkdv(S, G, causal)
-    nq = -(-S // fa.KV_TILE)
-    want, seen = set(), []
-    for t in range(nq):
-        first = t if causal else 0
-        want |= {(t, g, qt) for g in range(G) for qt in range(first, nq)}
+def _visible_tile_pairs(Sq, Skv, causal, window):
+    """{(key tile, query tile)} holding at least one (query, key) pair
+    the forward's mask lets through (q_offset 0)."""
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Skv)[None]
+    vis = np.ones((Sq, Skv), bool)
+    if causal:
+        vis &= j <= i
+    if window is not None:
+        vis &= j > i - window
+    T = fa.KV_TILE
+    nq, nk = -(-Sq // T), -(-Skv // T)
+    pad = np.zeros((nq * T, nk * T), bool)
+    pad[:Sq, :Skv] = vis
+    tiles = pad.reshape(nq, T, nk, T).any(axis=(1, 3))
+    return {(t, qt) for qt, t in zip(*np.nonzero(tiles))}
+
+
+@pytest.mark.parametrize("Sq,Skv,G,causal,window", [
+    (2048, 2048, 2, True, None), (2048, 2048, 2, False, None),
+    (256, 256, 2, True, None), (200, 200, 2, True, None),
+    (256, 256, 2, False, None), (320, 320, 2, True, None),
+    (192, 192, 4, True, None), (70, 70, 2, True, None),
+    (1000, 1000, 7, True, None), (64, 64, 1, True, None),
+    (1, 1, 1, False, None),
+    (4096, 4096, 10, True, 2048), (256, 256, 10, True, 64),
+    (320, 320, 3, True, 100), (200, 200, 2, False, 70),
+    (64, 1500, 1, False, None), (30, 140, 3, False, None),
+    (100, 300, 2, True, None), (300, 100, 2, True, None)])
+def test_plan_dkdv_covers_every_walk_step_once(Sq, Skv, G, causal, window):
+    """Every (key tile, query head, query tile) whose tiles hold a pair
+    the mask lets through is one walk step of exactly one block, and no
+    other step is walked (windows, Sq != Skv, key tiles no query sees)."""
+    plan = fa.plan_dkdv(Sq, Skv, G, causal, window)
+    nq, nk = -(-Sq // fa.KV_TILE), -(-Skv // fa.KV_TILE)
+    want = {(t, g, qt) for t, qt in _visible_tile_pairs(Sq, Skv, causal,
+                                                        window)
+            for g in range(G)}
+    seen = []
+    assert sorted({it[0] for it in plan.items}) == list(range(nk))
     for t, i0, i1, _ in plan.items:
-        first = t if causal else 0
-        per_head = nq - first
-        assert 0 < i1 - i0 <= plan.chunk
+        first, last = fa.walk_bounds(t, nq, causal, window)
+        per_head = last - first + 1
+        assert 0 <= i1 - i0 <= plan.chunk
+        assert i1 > i0 or per_head <= 0
         seen += [(t, i // per_head, first + i % per_head)
                  for i in range(i0, i1)]
     assert len(seen) == len(set(seen)) and set(seen) == want
@@ -108,25 +138,27 @@ def test_plan_dkdv_covers_every_walk_step_once(S, G, causal):
 
 
 def test_plan_dkdv_depends_on_S_and_G_only():
-    """The plan takes no batch size: every batch row (and kv head) sums
-    its dK/dV in the same order, so a row's gradients do not depend on
-    the rows beside it."""
+    """The plan takes no batch size, only the shapes (Sq, Skv, G) and
+    the mask: every batch row (and kv head) sums its dK/dV in the same
+    order, so a row's gradients do not depend on the rows beside it."""
     assert list(inspect.signature(fa.plan_dkdv).parameters) == \
-        ["S", "G", "causal"]
-    assert fa.plan_dkdv(2048, 2).chunk == 32
-    assert fa.plan_dkdv(256, 2).splits == ()
+        ["Sq", "Skv", "G", "causal", "window"]
+    assert fa.plan_dkdv(2048, 2048, 2).chunk == 32
+    assert fa.plan_dkdv(256, 256, 2).splits == ()
+    # recurrentgemma's local attention: 33 query tiles a key tile, G 10
+    assert fa.plan_dkdv(4096, 4096, 10, True, 2048).chunk == 165
 
 
-@pytest.mark.parametrize("B_,S_,H,KVH,Dh,causal", [
-    (1, 192, 8, 2, 16, True), (2, 320, 4, 2, 16, True),
-    (1, 320, 4, 2, 16, False)],
-    ids=["gqa4_split", "causal_split", "not_causal_split"])
+@pytest.mark.parametrize("B_,S_,H,KVH,Dh,causal,window", [
+    (1, 192, 8, 2, 16, True, None), (2, 320, 4, 2, 16, True, None),
+    (1, 320, 4, 2, 16, False, None), (1, 256, 10, 1, 16, True, 64)],
+    ids=["gqa4_split", "causal_split", "not_causal_split", "window_split"])
 def test_attention_backward_split_runs_match_reference(B_, S_, H, KVH, Dh,
-                                                       causal):
+                                                       causal, window):
     """``flash_attention_bwd_plain`` on shapes whose dK/dV walks the plan
     splits (run by run, then the runs in order) against ``jax.grad`` of
     the reference's attention, in f32."""
-    assert fa.plan_dkdv(S_, H // KVH, causal).splits
+    assert fa.plan_dkdv(S_, S_, H // KVH, causal, window).splits
     rng = np.random.default_rng(Dh + S_)
     q, do = (rng.standard_normal((B_, S_, H, Dh)).astype(np.float32)
              for _ in range(2))
@@ -134,12 +166,13 @@ def test_attention_backward_split_runs_match_reference(B_, S_, H, KVH, Dh,
             for _ in range(2))
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     out, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
-                                        return_lse=True)
-    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal)
+                                        window=window, return_lse=True)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal,
+                                       window)
 
     def f(q, k, v):
         return jnp.sum(JC.flash_attention(q, k, v, causal=causal,
-                                          kv_chunk=16) * do)
+                                          window=window, kv_chunk=16) * do)
     want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,

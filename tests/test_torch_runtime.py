@@ -211,9 +211,8 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_what_it_does_not_train(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        launch_train.main(["--arch", "llama4-scout-17b-a16e", "--smoke",
-                           "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    """Only the production mesh (tensor parallelism, ROADMAP Queue 1
+    item 14): every architecture trains since the families' slice."""
     with pytest.raises(NotImplementedError, match="item 14"):
         launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
                            "cpu", "--production-mesh"])
