@@ -113,7 +113,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the launch gates, the bitwise invariants and the row-bits
                gate; for scout also whether layer 0's routed experts on
                the first chunk equal an f32 recomputation of its router.
-9. **families** the five families the reference serves only through
+9. **tp**      tensor-parallel serving on the one card (``TP_RUNS``):
+               qwen3-0.6b at tp 2 and 4, qwen2-0.5b and stablelm-1.6b
+               at tp 2, full size, seeded random weights, every shard
+               named ``cuda:0`` (``TPServePrograms(model, devices=
+               [...])``: heads, KV heads and d_ff split, the pools on
+               KV heads), on the serve phase's trace on the step clock
+               beside the same engine at tp 1; gated on every stream
+               equal to tp 1's, the dispatch counters equal, each
+               shard's pools equal to tp 1's head slices (``torch.
+               equal``, the null page aside) at 1 / tp of the bytes,
+               each path kernel launched exactly tp times tp 1's count,
+               and one dispatch each of chunk, decode, verify at T 5
+               and fused giving every shard tp 1's logits
+               (``torch.equal``).  Served tok/s and the peak are
+               readings: co-located shards time-share the card.
+10. **families** the five families the reference serves only through
                its lockstep path, one after the other at full published
                widths (seeded random weights, projections stored bf16 as
                they are drawn): deepseek-moe-16b, qwen2-vl-7b,
@@ -131,7 +146,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                These families do not page: their decode steps run the
                flash kernel at one query row, which gives decode the
                bits of the whole prefill's row.
-10. **train**  qwen3-0.6b at full width (28 layers) trains through the
+11. **train**  qwen3-0.6b at full width (28 layers) trains through the
                launcher (``launch.train.main``: B 8 x S 256, 10 steps,
                a checkpoint every 5), gated on finite positive losses
                and gradient norms, no restart, the checkpoints of steps
@@ -144,8 +159,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                gradient, within 5e-2 relative L2 of the CPU's plain path
                (loss within 2e-2); and 8 steps on one fixed batch must
                lower the loss, the last 2 under ``torch.profiler``
-               (device time by kernel group, idle share).
-11. **train_families** the MoE and the lockstep-only families train at
+               (device time by kernel group, idle share); then 5 steps
+               with the parameters stored f32 and 5 stored bf16
+               (``param_dtype="bfloat16"``, AdamW ``keep_master``):
+               step ms and peak GB of each, every loss finite.
+12. **train_families** the MoE and the lockstep-only families train at
                full widths (``FAMILY_TRAIN``; depth cut to fit the card
                with AdamW, seeded random init): whisper-tiny (also
                through the launcher), deepseek-moe-16b (3 of 28
@@ -166,7 +184,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                only (its one layer with Adam needs ~77 GB).
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
-serve, fleet, archs, families, train, train_families and paper paths;
+serve, fleet, archs, tp, families, train, train_families and paper paths;
 the dataflow GEMM's also counted apart for f32 operands,
 ``launches_f32``), the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
@@ -238,6 +256,15 @@ WHISPER_HEADS, WHISPER_DH, WHISPER_FRAMES = 6, 64, 1500
 # whole prefill, whose dispatch shares no rows with the engine's)
 ARCHS_ON_CARD = ("qwen2-0.5b", "stablelm-1.6b", "llama4-scout-17b-a16e")
 SCOUT_LAYERS, SCOUT_CAPACITY = 4, 16.0
+# tp phase: (arch, tp degrees) served at full size with every shard on
+# the one card (named ``cuda:0``, so the shards time-share it); the
+# dispatch check's pool (pages of 16) and chunk length
+TP_RUNS = (("qwen3-0.6b", (2, 4)), ("qwen2-0.5b", (2,)),
+           ("stablelm-1.6b", (2,)))
+TP_PAGES, TP_CHUNK = 16, 32
+# gathers a call of the hand-off timing makes (qwen3-0.6b's decode: two
+# a layer over 28 layers)
+TP_HANDOFF_GATHERS = 56
 # families phase: the five lockstep-only families at full widths, with
 # their prompt lengths (qwen2-vl: 256 patch positions + 64 text tokens;
 # whisper: a 64-token decoder prompt over 1,500 stub frames;
@@ -313,6 +340,8 @@ TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 GRAD_LAYERS, GRAD_BATCH = 2, 2
 GRAD_LOSS_TOL, GRAD_REL_L2 = 2e-2, 5e-2
 OVERFIT_STEPS, PROFILE_STEPS = 8, 2
+# the storage reading: steps of each run (the first one's time dropped)
+STORAGE_STEPS = 5
 # train_families phase: (arch, layers run or None for all, batch, seq,
 # the comparison with the CPU: its layers (one block pattern, or all for
 # whisper) and seq, through the launcher).  Full widths, f32
@@ -2409,6 +2438,248 @@ def phase_archs():
     return total
 
 
+# ------------------------------------------------------------------ tp
+def _tp_dispatches(model, p1, progs, ptp) -> dict:
+    """One dispatch of each program at full width on fresh pools (TP_PAGES
+    pages of 16): a chunk of TP_CHUNK prompt tokens for 2 rows, a
+    decode step, a verify at T 5 and a fused step (the 2 rows decoding,
+    a third prefilling).  Each program's logits on every shard are
+    ``torch.equal`` to tp 1's, and the pools after them equal tp 1's
+    head slices.  These launches are not counted."""
+    import torch
+    cfg, dev = model.cfg, model.device
+    shape = (cfg.n_layers, TP_PAGES, 16, cfg.n_kv_heads, cfg.head_dim)
+    s1 = {n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+          for n in ("k_pages", "v_pages")}
+    stp = {n: progs.prepare_pages(t.clone()) for n, t in s1.items()}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def tok(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+    out = {}
+
+    def both(name, method, *args, extra=None):
+        want = flat(getattr(model, method)(p1, {**s1, **(extra or {})},
+                                           *args)[0])
+        got = progs.map_shards(
+            lambda m, gather, p, st, *a: getattr(m, method)(
+                p, st, *a, gather=gather)[0],
+            ptp, {**stp, **(extra or {})}, *args)
+        out[name] = {
+            "equal_to_tp1": all(torch.equal(a, b) for a, b in
+                                zip(flat(got[0]), want)),
+            "shards_equal": all(torch.equal(a, b) for s in got[1:]
+                                for a, b in zip(flat(s), flat(got[0]))),
+            "max_abs_diff": max(float((a - b).abs().max()) for a, b in
+                                zip(flat(got[0]), want))}
+    tables = i32([[1, 2, 3, 4], [5, 6, 7, 8]])
+    n = TP_CHUNK
+    both("chunk", "prefill_chunk_paged", tok(2, n), tables, i32([0, 0]),
+         i32([n, n]))
+    state = {"page_tables": tables, "lengths": i32([n, n])}
+    both("decode", "decode_step_paged", tok(2, 1), extra=state)
+    both("verify_T5", "verify_step_paged", tok(2, 5),
+         extra={**state, "lengths": i32([n + 1, n + 1])})
+    both("fused", "fused_step_paged", tok(2, 1), tok(1, n),
+         i32([[9, 10, 11, 12]]), i32([0]), i32([n]),
+         extra={**state, "lengths": i32([n + 6, n + 6])})
+    out["pages_equal"] = all(
+        torch.equal(piece[:, 1:], want[:, 1:])
+        for name in ("k_pages", "v_pages")
+        for piece, want in zip(stp[name].shards,
+                               s1[name].chunk(progs.tp, -2)))
+    return out
+
+
+def _tp_run(model, params, programs, reqs, opts):
+    """One engine on ``programs`` serves ``reqs`` on the step clock (so a
+    tp-way engine and tp 1 take the same steps and the same pages).
+    Returns (engine, stats, launches, peak GB)."""
+    import gc
+    import torch
+    from repro_torch.launch.serve import serve_trace
+    engine = opts.build(model, params, programs=programs)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    _launches_reset()
+    stats = serve_trace(engine, reqs, realtime=False)
+    return engine, stats, _launches_read(), _peak_gb()
+
+
+def _count_mesh_calls(progs) -> dict:
+    """Count ``progs``' program calls and their gathers from now on (one
+    gather a layer after attention and one in the FFN; a fused call
+    runs both row groups, so twice that)."""
+    mesh, run = progs._mesh, progs._mesh.run
+    tally = {"calls": 0, "gathers": 0}
+
+    def counted(bodies):
+        out = run(bodies)
+        tally["calls"] += 1
+        tally["gathers"] += mesh._seq[0]    # shard 0's gathers this call
+        return out
+    mesh.run = counted
+    return tally
+
+
+def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
+    """Host time the one-controller design spends apart from the model,
+    against the trace's wall time: the shard mesh runs tp bodies that do
+    nothing (``spawn_ms``: one call's threads started and joined), then
+    tp bodies that make TP_HANDOFF_GATHERS gathers of a one-element
+    tensor each (the turn handed on at each, and its concatenation);
+    medians of ``reps`` calls, each ending in a synchronize.
+    ``share`` = (calls x spawn_ms + gathers x gather_ms) / wall."""
+    import statistics
+    import torch
+    mesh = progs._mesh
+    x = torch.zeros(1, device=progs.devices[0])
+
+    def timed(make):
+        ts = []
+        for _ in range(reps):
+            bodies = [make(i) for i in range(progs.tp)]
+            t = time.perf_counter()
+            mesh.run(bodies)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    def gathers(i):
+        hook = mesh.hook(i)
+
+        def body():
+            for _ in range(TP_HANDOFF_GATHERS):
+                hook(x, 0)
+        return body
+    spawn = timed(lambda i: (lambda: None))
+    gather_ms = max(timed(gathers) - spawn, 0.0) / TP_HANDOFF_GATHERS
+    cost_s = (tally["calls"] * spawn + tally["gathers"] * gather_ms) / 1e3
+    return {"calls": tally["calls"], "gathers": tally["gathers"],
+            "spawn_ms": spawn, "gather_ms": gather_ms,
+            "handoff_s": cost_s, "wall_s": wall_s,
+            "share": cost_s / wall_s}
+
+
+def _serve_tp(name, tps) -> dict:
+    """``name`` at full size (seeded random init, projections bf16) on
+    the serve phase's trace at tp 1 and at each tp of ``tps``, the
+    shards co-located on the card by name; gated on streams, pools,
+    launches and one dispatch of each program."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serve import ServeOptions, ServePrograms
+    from repro_torch.serve.parallel import TPServePrograms
+    t0 = time.perf_counter()
+    cfg = configs.get(name)
+    model = DecoderLM(cfg)
+    one = ServePrograms(model)
+    params = one.prepare_params(model.init(seed=0))
+    opts = ServeOptions(batch=8)
+
+    def trace():
+        return synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
+    opts = opts.sized_for(trace())
+    warm = synth_requests(cfg, 2, PROMPT_LEN, 4, rate=50.0, seed=1)
+    opts.sized_for(warm).build(model, params, programs=one).run(warm)
+    base, st1, l1, peak1 = _tp_run(model, params, one, trace(), opts)
+    streams = {r.rid: r.generated for r in base.finished}
+    readings = {1: {"tok_per_s": st1["tok_per_s"], "wall_s": st1["wall_s"],
+                    "peak_mem_gb": peak1, "launches": l1,
+                    "kv_pool_gb": 2 * base.cache.k_pages.nbytes / 1e9}}
+    ok = len(streams) == N_REQUESTS and all(
+        len(s) == GEN for s in streams.values())
+    failures = [] if ok else [f"tp 1: {len(streams)} streams"]
+    counters = [k for k in st1 if k.startswith("n_")]
+    launches = dict.fromkeys(PATH_COUNTERS, 0)
+    for tp in tps:
+        devices = [model.device] * tp       # co-located, by name
+        progs = TPServePrograms(model, devices=devices)
+        ptp = progs.prepare_params(params)
+        opts.sized_for(warm).build(model, params, programs=progs).run(warm)
+        tally = _count_mesh_calls(progs)
+        eng, st, lt, peak = _tp_run(model, params, progs, trace(), opts)
+        tally = dict(tally)             # the trace's calls only
+        for k, v in lt.items():
+            launches[k] += v
+        got = {r.rid: r.generated for r in eng.finished}
+        # page 0 is the null page: padding and masked rows write there,
+        # in an order no one reads, so it is left out
+        pools = {n: all(
+            torch.equal(piece[:, 1:], want[:, 1:])
+            and piece.shape[-2] == cfg.n_kv_heads // tp
+            for piece, want in zip(getattr(eng.cache, n).shards,
+                                   getattr(base.cache, n).chunk(tp, -2)))
+            for n in ("k_pages", "v_pages")}
+        pool_bytes = [p.nbytes for p in eng.cache.k_pages.shards]
+        dispatch = _tp_dispatches(model, params, progs, ptp)
+        handoff = _tp_handoff(progs, tally, st["wall_s"])
+        gates = {
+            "streams_equal_tp1": got == streams,
+            "dispatch_counters_equal_tp1": all(st[k] == st1[k]
+                                               for k in counters),
+            "pools_equal_tp1_slices": all(pools.values()),
+            "pool_bytes_one_tp_th": all(
+                b * tp == base.cache.k_pages.nbytes for b in pool_bytes),
+            "launches_tp_times_tp1": all(
+                lt[k] == tp * l1[k] and (l1[k] > 0 or k.endswith("_f32"))
+                for k in PATH_COUNTERS),
+            "program_logits_equal_tp1": all(
+                d["equal_to_tp1"] and d["shards_equal"]
+                for k, d in dispatch.items() if k != "pages_equal"),
+            "dispatch_pools_equal": dispatch["pages_equal"]}
+        readings[tp] = {"tok_per_s": st["tok_per_s"], "wall_s": st["wall_s"],
+                        "peak_mem_gb": peak, "launches": lt,
+                        "kv_pool_gb_per_shard": 2 * pool_bytes[0] / 1e9,
+                        "heads_per_shard": [cfg.n_heads // tp,
+                                            cfg.n_kv_heads // tp],
+                        "d_ff_per_shard": cfg.d_ff // tp,
+                        "dispatch": dispatch, "handoff": handoff,
+                        "gates": gates}
+        failures += [f"tp {tp}: {k}" for k, v in gates.items() if not v]
+        del eng, progs, ptp
+        gc.collect()
+    rec = {"phase": "tp", "arch": cfg.name, "layers": cfg.n_layers,
+           "H": cfg.n_heads, "KVH": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+           "requests": N_REQUESTS, "prompt_len": PROMPT_LEN, "gen": GEN,
+           "batch": opts.batch, "spec_k": opts.spec_k, "fused": opts.fused,
+           "n_pages": opts.n_pages, "by_tp": readings,
+           "note": "shards co-located on one card time-share it: no "
+                   "tensor-parallel speed-up is measured",
+           "seconds": time.perf_counter() - t0, "card": nvidia_smi_line()}
+    emit(rec)
+    if failures:
+        fail(f"tp [{cfg.name}]: gates failed: {failures}")
+    del base, model, params, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tp():
+    """Tensor-parallel serving on one card (``TP_RUNS``), every shard
+    named ``cuda:0``.  Returns the path kernels' launches summed over
+    the tp-way engines' traces."""
+    total = dict.fromkeys(PATH_COUNTERS, 0)
+    t0 = time.perf_counter()
+    for name, tps in TP_RUNS:
+        for k, n in _serve_tp(name, tps).items():
+            total[k] += n
+    emit({"phase": "tp", "seconds": time.perf_counter() - t0,
+          "launches": total})
+    return total
+
+
 # ------------------------------------------------------------ families
 def _family_config(name):
     """(FULL config as run on the card, its cuts as {key: [published,
@@ -2948,12 +3219,68 @@ def _train_overfit() -> dict:
     return rec
 
 
+def _train_storage() -> dict:
+    """qwen3-0.6b at full width, B TRAIN_BATCH x TRAIN_SEQ, STORAGE_STEPS
+    steps from one init with the parameters stored f32 (AdamW as the
+    launcher runs it) and stored bf16 (``param_dtype="bfloat16"``, the
+    reference's ``OPT_SETTINGS``, with ``keep_master``: an f32 master
+    in the optimizer state): step ms (median, host clock after the
+    loss's sync) and the peak GB of each.  Gate: every loss finite."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(configs.get(TRAIN_ARCH), param_dtype=dtype)
+        model = DecoderLM(cfg, device="cuda")
+        opt = OptConfig(keep_master=dtype != "float32")
+        step = make_train_step(model, cfg, opt=opt)
+        batch = SyntheticPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ).device_batch(
+            0, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(seed=0)
+        state = init_opt_state(params, opt)
+        param_gb = sum(t.nbytes for t in tree_leaves(params)) / 1e9
+        state_gb = sum(t.nbytes for t in tree_leaves(state)) / 1e9
+        losses, times = [], []
+        for _ in range(STORAGE_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        times = sorted(times[1:])
+        runs[dtype] = {"keep_master": opt.keep_master, "losses": losses,
+                       "step_ms_median": times[len(times) // 2] * 1e3,
+                       "param_gb": param_gb, "opt_state_gb": state_gb,
+                       "peak_mem_gb": _peak_gb(),
+                       "leaf_dtypes": sorted({str(t.dtype) for t in
+                                              tree_leaves(params)})}
+        del model, params, state, step, batch
+    gates = {"losses_finite": all(np.isfinite(x) for r in runs.values()
+                                  for x in r["losses"])}
+    rec = {"phase": "train", "run": "param_dtype", "arch": TRAIN_ARCH,
+           "B": TRAIN_BATCH, "S": TRAIN_SEQ, "steps": STORAGE_STEPS,
+           "runs": runs, "gates": gates, "card": nvidia_smi_line()}
+    emit(rec)
+    if not gates["losses_finite"]:
+        fail(f"train [param_dtype]: a loss is not finite: {runs}")
+    return rec
+
+
 def phase_train():
     """qwen3-0.6b's training path at full width on the card: the
     launcher (10 steps, checkpoints at 5 and 10, launch gates), the
     resumed run after an injected fault (bit for bit), every leaf's
-    gradient against the CPU's plain path, and an overfit run.  Returns
-    the training kernels' launches in the launcher's run."""
+    gradient against the CPU's plain path, an overfit run, and the
+    step with parameters stored bf16 beside f32.  Returns the training
+    kernels' launches in the launcher's run."""
     import gc
     import shutil
     import tempfile
@@ -2967,7 +3294,7 @@ def phase_train():
         _train_resume(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for run in (_train_grads, _train_overfit):
+    for run in (_train_grads, _train_overfit, _train_storage):
         gc.collect()
         torch.cuda.empty_cache()
         run()
@@ -3298,7 +3625,7 @@ def summary_line(kernel_results, launches, by_phase):
 
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
-                 "profile", "fleet", "archs", "families", "train",
+                 "profile", "fleet", "archs", "tp", "families", "train",
                  "train_families")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -3349,6 +3676,8 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         torch.cuda.empty_cache()
     if "archs" in phases:
         count(phase_archs(), "archs")
+    if "tp" in phases:
+        count(phase_tp(), "tp")
     if "families" in phases:
         count(phase_families(), "families")
     if "train" in phases:

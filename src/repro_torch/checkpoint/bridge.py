@@ -6,7 +6,9 @@ of ``layers``, as ``lax.scan`` consumes it, ``dense_layer_N`` and
 unscanned ``layer_NN`` blocks; whisper's ``enc_NN`` / ``dec_NN``), so
 the bridge is a key-for-key copy that checks every key and shape
 against the port's own specs (the shape each initializer makes: RWKV6's
-stacked ``w0`` is one value a layer in both packages).  bf16 leaves
+stacked ``w0`` is one value a layer in both packages) and its storage
+dtype (``cfg.param_dtype``: bf16 leaves of 2 or more dimensions, as
+the reference's ``with_param_dtype`` stores them).  bf16 leaves
 (numpy's ``ml_dtypes`` bfloat16) keep their bits.
 """
 from __future__ import annotations
@@ -46,7 +48,9 @@ def _get(tree, path):
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The port's parameters from the reference's tree (nested dicts of
     numpy arrays, e.g. ``jax.tree.map(np.asarray, model.init(key))``)
-    for config ``cfg``.  Raises on a missing, extra or misshapen leaf."""
+    for config ``cfg``.  Raises on a missing, extra or misshapen leaf,
+    and on a leaf stored in another dtype than ``cfg.param_dtype`` gives
+    it."""
     dev = resolve_device(device)
     specs = list(flatten_specs(param_specs(cfg)))
     n = len(tree_leaves(tree))
@@ -59,10 +63,14 @@ def params_from_jax(tree, cfg, device=None) -> dict:
         if tuple(np.shape(arr)) != ps.init_shape:
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, "
                              f"expected {ps.init_shape}")
+        t = to_tensor(arr, dev)
+        if t.dtype != ps.dtype:
+            raise ValueError(f"{'/'.join(path)}: dtype {t.dtype}, expected "
+                             f"{ps.dtype} (param_dtype {cfg.param_dtype})")
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = to_tensor(arr, dev)
+        node[path[-1]] = t
     return out
 
 

@@ -17,6 +17,15 @@ per-request token streams, SLO classes (every 4th request is
 interactive), and ``--tenant-weights`` fair sharing.  On one GPU every
 replica shares the card.
 
+``--tp N`` shards each engine over the first N CUDA devices
+(``serve/parallel.py``: heads, FFN hidden dim and paged KV cache split,
+the token streams bit-identical to one device) and raises when fewer
+are visible.  To put several shards on one device, name the devices in
+code: ``serve_trace(opts.build(model, params,
+programs=TPServePrograms(model, devices=["cuda:0", "cuda:0"])),
+reqs)``.  Shards that share a card time-share it: that is a check of
+the layout, not a speed-up.
+
 ``--naive`` runs the lockstep loop instead (``run_naive``: one batched
 prefill of a synthetic batch, then one decode step at a time against
 the contiguous cache), the only way the reference serves the families
@@ -30,7 +39,7 @@ refuses them, as the reference's does.
 Runs on the GPU; ``--device cpu`` (with ``--smoke``) runs the plain
 PyTorch versions of the kernels on the CPU instead.  Weights are a
 random init from seed 0.  The reference launcher's deprecated
-``run_engine`` shim is not ported, nor is ``--tp``.
+``run_engine`` shim is not ported.
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ from ..serve import Request, ServeOptions
 from ..serve.step import greedy, make_decode_step
 
 __all__ = ["synth_requests", "synthetic_batch", "fleet_of",
-           "backend_device", "serve_trace", "run_stream", "run_naive",
+           "backend_devices", "serve_trace", "run_stream", "run_naive",
            "main"]
 
 
@@ -101,14 +110,14 @@ def run_naive(model, params, batch: dict, gen: int) -> dict:
     t0 = time.perf_counter()
     last, cache = model.prefill(params, batch, max_len=S + gen)
     tok = greedy(last)[:, None]
-    _sync(device)
+    _sync([device])
     t_prefill = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
         tok, cache = step(params, cache, tok)
         out.append(tok)
-    _sync(device)
+    _sync([device])
     dt = time.perf_counter() - t0
     return {"tokens": torch.cat(out, 1), "prefill_s": t_prefill,
             "decode_s": dt,
@@ -124,14 +133,21 @@ def fleet_of(backend):
     return router, list(getattr(router, "replicas", [backend]))
 
 
-def backend_device(backend) -> torch.device:
-    """The device ``backend`` serves on: its fleet's first replica's."""
-    return fleet_of(backend)[1][0].model.device
+def backend_devices(backend) -> list:
+    """The devices ``backend`` computes on: a tensor-parallel fleet's
+    shard devices (one bundle serves every replica), else its first
+    replica's device."""
+    engine = fleet_of(backend)[1][0]
+    programs = getattr(engine, "programs", None)
+    return list(dict.fromkeys(getattr(programs, "devices", None)
+                              or [engine.model.device]))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    """Wait for the CUDA devices among ``devices``."""
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _number(v):
@@ -145,10 +161,10 @@ def _drive(front, reqs, *, realtime: bool) -> dict:
     replica list here would silently drop the work of replicas that
     left an elastic fleet mid-trace; the protocol's stats fold departed
     replicas in."""
-    device = backend_device(front)       # before any replica can leave
+    devices = backend_devices(front)     # before any replica can leave
     t0 = time.perf_counter()
     done = front.run(reqs, realtime=realtime)
-    _sync(device)
+    _sync(devices)
     dt = time.perf_counter() - t0
     st = front.stats()
     router, engines = fleet_of(front)
@@ -198,7 +214,7 @@ def run_stream(opts: ServeOptions, model, params, reqs, *,
     beside the numbers."""
     fe = opts.build_frontend(model, params, smoke=smoke, programs=programs,
                              realtime=True)
-    device = backend_device(fe.backend)
+    devices = backend_devices(fe.backend)
     tenants = list(opts.tenant_weights) or ["default"]
     pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
     streams = {}
@@ -213,7 +229,7 @@ def run_stream(opts: ServeOptions, model, params, reqs, *,
         if not fe.pump() and pending:
             time.sleep(max(0.0, pending[0].arrival
                            - (time.perf_counter() - t0)))
-    _sync(device)
+    _sync(devices)
     dt = time.perf_counter() - t0
     done = fe.completed
     toks = sum(len(r.generated) for r in done)
@@ -311,14 +327,14 @@ def main(argv=None) -> dict:
     spec_note = (f"{stats['n_spec_rounds']} verify rounds, accept rate "
                  f"{stats['accept_rate']:.2f} ({stats['n_draft_accepted']}"
                  f"/{stats['n_drafted']} drafts), " if opts.spec_k else "")
-    dist_note = ""
+    dist_note = f"tp={opts.tp}, " if opts.tp > 1 else ""
     if opts.replicas > 1 or opts.max_replicas > 0:
-        dist_note = (f"{opts.replicas} replica(s) [{opts.router_policy}] "
-                     f"dispatched {stats['dispatched']}, "
-                     f"{stats['n_affinity_hits']} affinity hits, "
-                     f"{stats['n_failures']} failures "
-                     f"({stats['n_recovered_requests']} requests "
-                     f"recovered), ")
+        dist_note += (f"{opts.replicas} replica(s) [{opts.router_policy}] "
+                      f"dispatched {stats['dispatched']}, "
+                      f"{stats['n_affinity_hits']} affinity hits, "
+                      f"{stats['n_failures']} failures "
+                      f"({stats['n_recovered_requests']} requests "
+                      f"recovered), ")
     if opts.max_replicas > 0:
         dist_note += (f"elastic {opts.min_replicas}..{opts.max_replicas} "
                       f"(peak {stats['n_replicas_peak']}, "

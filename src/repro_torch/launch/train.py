@@ -23,8 +23,8 @@ the MoEs (deepseek-moe, llama4-scout) and the lockstep-only families
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
         --smoke --device cpu --steps 3 --batch 2 --seq 32 --ckpt-dir "$CKPT"
 
-``--production-mesh`` raises ``NotImplementedError`` (no mesh on one
-GPU: ROADMAP Queue 1 item 14).  ``main`` returns the driver (its
+``--production-mesh`` raises ``NotImplementedError`` (the training mesh
+is not ported: ROADMAP Queue 1 item 14b).  ``main`` returns the driver (its
 ``metrics_log`` and ``events``).
 """
 from __future__ import annotations
@@ -64,8 +64,9 @@ def main(argv=None) -> TrainDriver:
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("--production-mesh: the port has no mesh "
-                                  "yet (ROADMAP Queue 1 item 14)")
+        raise NotImplementedError("--production-mesh: the port has no "
+                                  "training mesh yet (ROADMAP Queue 1 "
+                                  "item 14b)")
 
     cfg = (configs.get_smoke if args.smoke else configs.get)(args.arch)
     model = build_model(cfg, device=args.device)

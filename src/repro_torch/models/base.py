@@ -6,9 +6,10 @@ the reference's parameter tree so the weight bridge
 (``checkpoint/bridge.py``) is a key-for-key copy.  The initializers
 draw from the reference's *distributions* (``fan_in`` normal,
 ``normal(0.02)`` embeddings, zero RMSNorm scales, one LayerNorm
-scales, zero biases, uniform gates and mixes, f32 storage), not its
-bits: ``jax.random`` and ``torch.Generator`` give different numbers from
-one seed.
+scales, zero biases, uniform gates and mixes), not its bits:
+``jax.random`` and ``torch.Generator`` give different numbers from one
+seed.  Every leaf is drawn in f32 and stored in its spec's ``dtype``:
+f32, or ``cfg.param_dtype`` where ``with_param_dtype`` retagged it.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["ParamSpec", "normal", "fan_in", "zeros", "ones", "uniform",
-           "linspace_first_axis", "flatten_specs", "init_params"]
+           "linspace_first_axis", "flatten_specs", "with_param_dtype",
+           "init_params"]
 
 InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 
@@ -27,10 +29,13 @@ InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
-    init: Optional[InitFn] = None     # None -> fan_in(shape); f32 storage
+    init: Optional[InitFn] = None     # None -> fan_in(shape)
     #: a weight that enters its product in f32 (a router, RG-LRU's
-    #: gates, RWKV6's decay projection): never cast to the compute dtype
+    #: gates, RWKV6's decay projection): never cast to the compute
+    #: dtype; stored in ``dtype`` all the same, upcast at use
     f32: bool = False
+    #: storage dtype (``with_param_dtype``)
+    dtype: torch.dtype = torch.float32
 
     @property
     def init_shape(self) -> tuple:
@@ -96,13 +101,37 @@ def flatten_specs(tree, prefix: Tuple[str, ...] = ()
         yield from flatten_specs(tree[k], prefix + (k,))
 
 
+def _map_specs(fn, tree):
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def with_param_dtype(spec_tree, dtype: str):
+    """The reference's ``with_param_dtype``: every f32 leaf of 2 or more
+    dimensions *as specified* (a stacked norm scale or bias included)
+    retagged to ``dtype`` ("bfloat16": bf16 storage); the 1-D leaves
+    stay f32.  ``f32`` leaves are retagged too, as the reference's are:
+    their products read an upcast of the stored bits."""
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    if dt == torch.float32:
+        return spec_tree
+
+    def retag(ps):
+        if ps.dtype == torch.float32 and len(ps.shape) >= 2:
+            return dataclasses.replace(ps, dtype=dt)
+        return ps
+    return _map_specs(retag, spec_tree)
+
+
 def init_params(spec_tree, seed: int, device: torch.device,
                 cast: Optional[Callable] = None) -> dict:
     """Initialize a ParamSpec tree from one seeded generator on
     ``device``, leaves drawn in sorted-path order.  ``cast(path, spec,
     tensor)``, when given, maps each leaf as soon as it is drawn (the
     serving programs' bf16 projections, so that a large model never
-    holds all of its f32 weights at once); the draws do not change."""
+    holds all of its f32 weights at once); the draws do not change.
+    Each leaf is drawn in f32 and stored in its spec's ``dtype``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     out: dict = {}
@@ -111,6 +140,6 @@ def init_params(spec_tree, seed: int, device: torch.device,
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        leaf = init(gen, tuple(ps.shape), device)
+        leaf = init(gen, tuple(ps.shape), device).to(ps.dtype)
         node[path[-1]] = leaf if cast is None else cast(path, ps, leaf)
     return out

@@ -7,7 +7,7 @@ part.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
-weights stored f32 and cast to it at use, norms / RoPE / softmax / the
+weights stored in ``cfg.param_dtype`` and cast to it at use, norms / RoPE / softmax / the
 unembedding in f32, attention with bf16 operands and f32 accumulation.
 Attention goes through the port's kernels (``kernels/flash_attention``,
 ``kernels/paged_attention``), and every projection ``x @ W`` through
@@ -386,6 +386,17 @@ def flash_decode_attention(q, k_cache, v_cache, pos: int, window=None):
                            window=window)
 
 
+def _tp_gather_heads(x, gather, dim: int):
+    """Re-assemble a head- or hidden-sharded activation inside a
+    tensor-parallel program (``serve/parallel.py``): ``gather(x, dim)``
+    concatenates every shard's piece along ``dim`` in mesh order on
+    the calling shard's device.  No cross-shard reduction ever runs,
+    so shard i computes exactly the slice of every operation the
+    single device computes for its heads.  ``gather=None`` (one
+    device) is a no-op."""
+    return x if gather is None else gather(x, dim)
+
+
 def chunk_scatter_targets(starts, n_valid, table_rows, n_tokens: int,
                           page_size: int):
     """(page id, slot) write target of token t of row b (absolute
@@ -417,14 +428,15 @@ def verify_scatter_targets(lengths, page_table, n_tokens: int,
 
 
 def paged_verify_attention_block(p, x, cfg, *, positions, k_pages,
-                                 v_pages, page_table, lengths):
+                                 v_pages, page_table, lengths, gather=None):
     """Verification attention sub-layer (paged decode with a query-time
     axis).  x: (B, T, D), token t of row b at position
     ``lengths[b] + t``.  All T tokens' K/V are written into their page
     slots first (in place), then each query attends causally up to its
     own position.  T = 1 is the decode step (the reference's
     ``paged_attention_block``): one code path, so decode and verify at
-    T = 1 agree by construction."""
+    T = 1 agree by construction.  Under tensor parallelism (``gather``)
+    this shard's heads are gathered before the replicated ``wo``."""
     B, T, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, positions)
     pid, slot = verify_scatter_targets(lengths, page_table, T,
@@ -432,11 +444,11 @@ def paged_verify_attention_block(p, x, cfg, *, positions, k_pages,
     k_pages[pid, slot] = k.to(k_pages.dtype)
     v_pages[pid, slot] = v.to(v_pages.dtype)
     out = paged_attention(q, k_pages, v_pages, page_table, lengths)
-    return out_proj(p, out)
+    return out_proj(p, _tp_gather_heads(out, gather, 2))
 
 
 def paged_chunk_attention_block(p, x, cfg, *, positions, starts, n_valid,
-                                k_pages, v_pages, table_rows):
+                                k_pages, v_pages, table_rows, gather=None):
     """Batched chunked-prefill attention sub-layer over the page pool.
 
     x: (B, C, D), token t of row b at position ``starts[b] + t``;
@@ -446,7 +458,8 @@ def paged_chunk_attention_block(p, x, cfg, *, positions, starts, n_valid,
     the flash kernel with a per-row ``q_offset`` — the same anchored
     partition as whole-prompt prefill, so each row is bit-identical to
     it.  The chunk's K/V is then persisted into the pool in place
-    (padding to the null page)."""
+    (padding to the null page).  ``gather`` as in
+    ``paged_verify_attention_block``."""
     B, C, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, positions)
     nb = table_rows.shape[1]
@@ -465,7 +478,7 @@ def paged_chunk_attention_block(p, x, cfg, *, positions, starts, n_valid,
     pid, slot = chunk_scatter_targets(starts, n_valid, table_rows, C, ps)
     k_pages[pid, slot] = k.to(k_pages.dtype)
     v_pages[pid, slot] = v.to(v_pages.dtype)
-    return out_proj(p, out)
+    return out_proj(p, _tp_gather_heads(out, gather, 2))
 
 
 # ------------------------------------------------------------------ mlp
@@ -480,14 +493,18 @@ def mlp_specs(cfg, d_ff=None) -> dict:
             "wd": ParamSpec((f, d))}
 
 
-def mlp_block(p, x, cfg):
+def mlp_block(p, x, cfg, gather=None):
     """Dense FFN in the compute dtype: SwiGLU silu(x Wg) * (x Wu) Wd, or
-    GELU (tanh approximation, ``jax.nn.gelu``'s default) with biases."""
+    GELU (tanh approximation, ``jax.nn.gelu``'s default) with biases.
+    Under tensor parallelism (``gather``) the up projections hold this
+    shard's slice of the hidden dim, which is gathered (concatenated,
+    not reduced) before the replicated down projection."""
     if cfg.mlp_kind == "gelu":
         h = F.gelu(linear(x, p["w1"], p["b1"]), approximate="tanh")
-        return linear(h, p["w2"], p["b2"])
+        return linear(_tp_gather_heads(h, gather, -1), p["w2"], p["b2"])
     g = F.silu(linear(x, p["wg"]))
-    return linear(g * linear(x, p["wu"]), p["wd"])
+    h = _tp_gather_heads(g * linear(x, p["wu"]), gather, -1)
+    return linear(h, p["wd"])
 
 
 # ------------------------------------------------------------------ moe

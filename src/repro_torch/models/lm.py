@@ -27,7 +27,8 @@ Entry points:
 * ``prefill_chunk_paged`` / ``decode_step_paged`` / ``verify_step_paged``
   / ``fused_step_paged``  the serve engine's programs over the paged
   KV pool (``serve/kv_cache.py``), for the stacks that page
-  (``supports_paged_decode``).
+  (``supports_paged_decode``); given ``gather``, each is one shard's
+  body of a tensor-parallel program (``serve/parallel.py``).
 
 ``apply`` and ``prefill`` take a (B, S) token tensor or, as the
 reference does, a batch dict with ``tokens`` and optionally
@@ -49,7 +50,7 @@ from ..tree import tree_map
 from . import components as C
 from . import rglru as R
 from . import rwkv6 as W
-from .base import ParamSpec, init_params
+from .base import ParamSpec, init_params, with_param_dtype
 
 __all__ = ["DecoderLM", "param_specs"]
 
@@ -94,10 +95,11 @@ def _block_specs(cfg, kind: str, use_moe: bool, dense_ff=None) -> dict:
 
 
 def param_specs(cfg) -> dict:
-    """The reference's parameter tree, f32 storage
-    (``param_dtype="float32"``): a scanned stack under ``layers`` (each
-    leaf on a leading layer axis) after ``dense_layer_N`` leading dense
-    layers (width ``moe.dense_d_ff``), or one ``layer_NN`` per layer."""
+    """The reference's parameter tree: a scanned stack under ``layers``
+    (each leaf on a leading layer axis) after ``dense_layer_N`` leading
+    dense layers (width ``moe.dense_d_ff``), or one ``layer_NN`` per
+    layer; stored in ``cfg.param_dtype`` as the reference stores it
+    (``base.with_param_dtype``, applied to the stacked tree)."""
     kinds, fd = cfg.layer_kinds, _first_dense(cfg)
     specs = {"embed": C.embed_specs(cfg),
              "final_norm": C.norm_specs(cfg.d_model, cfg.norm_kind)}
@@ -112,7 +114,7 @@ def param_specs(cfg) -> dict:
         for i, kind in enumerate(kinds):
             specs[f"layer_{i:02d}"] = _block_specs(
                 cfg, kind, cfg.moe is not None and i >= fd)
-    return specs
+    return with_param_dtype(specs, cfg.param_dtype)
 
 
 def _layer(tree, i: int):
@@ -180,14 +182,15 @@ class DecoderLM:
     def _norm(self, p, x):
         return C.apply_norm(p, x, self.cfg.norm_kind, self.cfg.norm_eps)
 
-    def _ffn(self, lp, x):
+    def _ffn(self, lp, x, gather=None):
         """The FFN sub-layer: an MoE block routes this call's rows (its
-        capacity counted over them), else the dense MLP."""
+        capacity counted over them), else the dense MLP (its hidden dim
+        gathered under tensor parallelism)."""
         h = self._norm(lp["ln2"], x)
         if self.cfg.moe is not None:
             f, _ = C.moe_block(lp["ffn"], h, self.cfg)
         else:
-            f = C.mlp_block(lp["ffn"], h, self.cfg)
+            f = C.mlp_block(lp["ffn"], h, self.cfg, gather)
         return x + f
 
     def _block(self, kind, use_moe, p, x, *, positions, mrope, cache,
@@ -391,26 +394,36 @@ class DecoderLM:
         return self._logits(params, x)[:, 0], cache
 
     # ------------------------------------------------------ paged path
-    def _verify_rows(self, params, xd, i, d_positions, state):
+    # ``gather`` (every paged program): the tensor-parallel hook of
+    # ``serve/parallel.py``, given when the model is one shard's view
+    # (heads, KV heads and d_ff divided by tp); None on one device.
+    def _check_tp(self, gather) -> None:
+        if gather is not None and self.cfg.moe is not None:
+            raise ValueError(f"{self.cfg.name}: tensor-parallel serving "
+                             "does not cover MoE FFNs")
+
+    def _verify_rows(self, params, xd, i, d_positions, state, gather):
         """Layer ``i`` of the decode/verify rows (T >= 1 tokens each)."""
         lp = _layer(params["layers"], i)
         h = self._norm(lp["ln1"], xd)
         xd = xd + C.paged_verify_attention_block(
             lp["mix"], h, self.cfg, positions=d_positions,
             k_pages=state["k_pages"][i], v_pages=state["v_pages"][i],
-            page_table=state["page_tables"], lengths=state["lengths"])
-        return self._ffn(lp, xd)
+            page_table=state["page_tables"], lengths=state["lengths"],
+            gather=gather)
+        return self._ffn(lp, xd, gather)
 
     def _chunk_rows(self, params, xp, i, p_positions, state, table_rows,
-                    starts, n_valid):
+                    starts, n_valid, gather):
         """Layer ``i`` of the chunked-prefill rows."""
         lp = _layer(params["layers"], i)
         h = self._norm(lp["ln1"], xp)
         xp = xp + C.paged_chunk_attention_block(
             lp["mix"], h, self.cfg, positions=p_positions, starts=starts,
             n_valid=n_valid, k_pages=state["k_pages"][i],
-            v_pages=state["v_pages"][i], table_rows=table_rows)
-        return self._ffn(lp, xp)
+            v_pages=state["v_pages"][i], table_rows=table_rows,
+            gather=gather)
+        return self._ffn(lp, xp, gather)
 
     def _last_logits(self, params, xp, n_valid):
         """Logits of each row's last valid token: (B, V)."""
@@ -426,44 +439,47 @@ class DecoderLM:
         return tokens, positions
 
     def prefill_chunk_paged(self, params, state, tokens, table_rows,
-                            starts, n_valid):
+                            starts, n_valid, gather=None):
         """Ingest one prompt chunk each for up to B requests (batched
         chunked prefill).  tokens (B, C): row b's token t sits at
         position ``starts[b] + t``; tokens t >= ``n_valid[b]`` are
         padding (written to the null page).  ``table_rows`` (B, nb):
         each row's page table cut to the dispatch's context bucket.
         Returns (last-valid-token logits (B, V), state)."""
+        self._check_tp(gather)
         tokens, positions = self._paged_inputs(tokens, starts)
         x = self._embed(params, tokens)
         for i in range(self.cfg.n_layers):
             x = self._chunk_rows(params, x, i, positions, state, table_rows,
-                                 starts, n_valid)
+                                 starts, n_valid, gather)
         return self._last_logits(params, x, n_valid), state
 
-    def verify_step_paged(self, params, state, tokens):
+    def verify_step_paged(self, params, state, tokens, gather=None):
         """Score T tokens per request against the paged cache: token t
         of row b sits at position ``lengths[b] + t`` and its K/V is
         written before attention.  T = 1 is the decode step.  Returns
         (logits (B, T, V), state) with ``lengths`` unchanged (the host
         owns them)."""
+        self._check_tp(gather)
         tokens, positions = self._paged_inputs(tokens,
                                                state["lengths"])
         x = self._embed(params, tokens)
         for i in range(self.cfg.n_layers):
-            x = self._verify_rows(params, x, i, positions, state)
+            x = self._verify_rows(params, x, i, positions, state, gather)
         return self._logits(params, x), state
 
-    def decode_step_paged(self, params, state, tokens):
+    def decode_step_paged(self, params, state, tokens, gather=None):
         """One continuous-batching decode step, tokens (B, 1): the
         verify step at T = 1, so the two agree by construction.
         Returns (logits (B, V), state)."""
         if tokens.shape[1] != 1:
             raise ValueError("decode_step_paged takes one token per row")
-        logits, state = self.verify_step_paged(params, state, tokens)
+        logits, state = self.verify_step_paged(params, state, tokens,
+                                               gather)
         return logits[:, 0], state
 
     def fused_step_paged(self, params, state, d_tokens, p_tokens,
-                         p_table_rows, p_starts, p_n_valid):
+                         p_table_rows, p_starts, p_n_valid, gather=None):
         """Decode/verify every DECODING row AND ingest one chunk for
         every PREFILLING row in one program.  Each layer runs the
         prefill rows first, then the decode rows, on the in-place page
@@ -475,6 +491,7 @@ class DecoderLM:
         group on its own, with its capacity counted over that group's
         rows, as the reference does.  Returns ((d_logits (B, T, V),
         p_logits (Bp, V)), state)."""
+        self._check_tp(gather)
         d_tokens, d_positions = self._paged_inputs(d_tokens,
                                                    state["lengths"])
         p_tokens, p_positions = self._paged_inputs(p_tokens,
@@ -483,7 +500,8 @@ class DecoderLM:
         xp = self._embed(params, p_tokens)
         for i in range(self.cfg.n_layers):
             xp = self._chunk_rows(params, xp, i, p_positions, state,
-                                  p_table_rows, p_starts, p_n_valid)
-            xd = self._verify_rows(params, xd, i, d_positions, state)
+                                  p_table_rows, p_starts, p_n_valid, gather)
+            xd = self._verify_rows(params, xd, i, d_positions, state,
+                                   gather)
         return ((self._logits(params, xd),
                  self._last_logits(params, xp, p_n_valid)), state)

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import components as C
-from .base import init_params
+from .base import init_params, with_param_dtype
 
 __all__ = ["WhisperModel", "param_specs"]
 
@@ -50,8 +50,8 @@ def _dec_layer(cfg) -> dict:
 
 
 def param_specs(cfg) -> dict:
-    """The reference's parameter tree (f32 storage): ``enc_NN`` and
-    ``dec_NN`` layers, unstacked."""
+    """The reference's parameter tree: ``enc_NN`` and ``dec_NN`` layers,
+    unstacked, stored in ``cfg.param_dtype`` (``with_param_dtype``)."""
     d = cfg.d_model
     specs = {"embed": C.embed_specs(cfg),
              "enc_final_norm": C.norm_specs(d, cfg.norm_kind),
@@ -60,7 +60,7 @@ def param_specs(cfg) -> dict:
         specs[f"enc_{i:02d}"] = _enc_layer(cfg)
     for i in range(cfg.n_layers):
         specs[f"dec_{i:02d}"] = _dec_layer(cfg)
-    return specs
+    return with_param_dtype(specs, cfg.param_dtype)
 
 
 class WhisperModel:

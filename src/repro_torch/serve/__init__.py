@@ -1,7 +1,8 @@
 """Serving of the port: the continuous-batching engine over the paged
 KV cache, its greedy oracle, and the fleet above it (router, elastic
 controller, fault injection and recovery, streaming front-end, drafters)
-— ``repro.serve`` without tensor parallelism."""
+— ``repro.serve``; ``serve.parallel.TPServePrograms`` shards an engine
+over tp devices."""
 from .backend import ServeBackend, StreamEvent  # noqa: F401
 from .elastic import ElasticController, ElasticPolicy  # noqa: F401
 from .faults import (  # noqa: F401

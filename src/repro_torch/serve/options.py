@@ -12,8 +12,10 @@ it directly and skip argparse entirely:
     backend = opts.sized_for(reqs).build(model, params)
 
 Knob semantics are documented in the reference's docs/serving.md; this
-module only owns how they compose into objects.  Tensor parallelism
-(``tp > 1``) is not ported: it raises ``NotImplementedError``.
+module only owns how they compose into objects.  ``tp > 1`` shards
+each engine over the first ``tp`` CUDA devices (``serve/parallel.py``),
+one bundle shared by every replica; to name the shard devices, pass
+``programs=TPServePrograms(model, devices=[...])`` to ``build``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from .elastic import ElasticController, ElasticPolicy
 from .faults import FaultInjector, parse_fault_spec
 from .frontend import ServeFrontend, TenantPolicy
 from .kv_cache import pages_needed
+from .parallel import TPServePrograms
 from .router import ROUTER_POLICIES, RequestRouter
 from .scheduler import ServeEngine
 from .spec import DraftModelDrafter
@@ -61,7 +64,7 @@ class ServeOptions:
     max_pages_per_seq: Optional[int] = None
     eos_id: Optional[int] = None
     # fleet
-    tp: int = 1                      # > 1 is not ported (raises)
+    tp: int = 1
     replicas: int = 1
     router_policy: str = "prefix"
     # elastic fleet (max_replicas > 0 enables the controller: the
@@ -132,8 +135,10 @@ class ServeOptions:
                              "lookup); resolved at the same --smoke "
                              "size as --arch")
         ap.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (not ported: only "
-                             "1 runs)")
+                        help="tensor-parallel degree: shard each "
+                             "engine's attention heads, FFN and paged "
+                             "KV cache over tp devices (token "
+                             "streams unchanged)")
         ap.add_argument("--replicas", type=int, default=1,
                         help="engine replicas behind the request router "
                              "(each gets its own --n-pages pool)")
@@ -279,11 +284,11 @@ class ServeOptions:
         if self.n_pages <= 0:
             raise ValueError("n_pages unresolved: pass it explicitly or "
                              "call sized_for(reqs) first")
-        if self.tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (tp=1 only)")
         if programs is None:
-            programs = ServePrograms(model)
+            if self.tp > 1:
+                programs = TPServePrograms(model, tp=self.tp)
+            else:
+                programs = ServePrograms(model)
         drafter_factory = self.make_drafter_factory(
             model.cfg, smoke=smoke, device=model.device)
         # ONE Telemetry per stack: every engine (including ones the

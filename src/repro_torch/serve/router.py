@@ -5,10 +5,10 @@ independent serve-engine replicas — N *elastic* (the port's copy of
 This is the scale-*out* half of distributed serving: replicas are
 whole engines — each with its own batch slots, page pool, and prefix
 trie — and the router decides *which* replica serves each request.
-(The reference's scale-*up* half, tensor-parallel engines, is not
-ported.)  On one GPU the replicas share the card and one
-``ServePrograms``; the router steps them in turn, so their programs
-never overlap on the device.
+(The scale-*up* half, tensor-parallel engines, is
+``serve/parallel.py``.)  On one GPU the replicas share the card and one
+``ServePrograms`` (or ``TPServePrograms``); the router steps them in
+turn, so their programs never overlap on the device.
 
 Routing policies (``policy=``):
 

@@ -86,6 +86,7 @@ import torch
 
 from .backend import StreamEvent
 from .kv_cache import PagedKVCache
+from .parallel import TPServePrograms
 from .spec import PromptLookupDrafter
 from .step import ServePrograms
 from .telemetry import (SpanEvent, Telemetry, expose_counters,
@@ -173,15 +174,20 @@ class ServeEngine:
             # cost too much gather bandwidth
             max_pages_per_seq = n_pages - 1
         # the serving programs are engine-independent (one bundle
-        # shared by every engine built on the same model)
-        if tp > 1 or mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (tp=1 only)")
+        # shared by every engine built on the same model); tp > 1 or
+        # ``mesh`` (the shard devices, by name) swaps in the
+        # tensor-parallel bundle — the scheduler below cannot tell the
+        # difference
         if programs is None:
-            programs = ServePrograms(model)
+            if tp > 1 or mesh is not None:
+                programs = TPServePrograms(
+                    model, tp=tp if tp > 1 else None, devices=mesh)
+            else:
+                programs = ServePrograms(model)
         elif programs.model is not model:
             raise ValueError("programs were built for a different model")
         self.programs = programs
+        self.tp = programs.tp
         self.model = model
         self.params = programs.prepare_params(params)
         self.eos_id = eos_id
@@ -189,6 +195,8 @@ class ServeEngine:
                                   n_pages=n_pages, page_size=page_size,
                                   max_pages_per_seq=max_pages_per_seq,
                                   prefix_sharing=prefix_sharing)
+        self.cache.k_pages = programs.prepare_pages(self.cache.k_pages)
+        self.cache.v_pages = programs.prepare_pages(self.cache.v_pages)
         self.max_batch = max_batch
         self.chunk_size = chunk_size
         # rows per chunked-prefill dispatch (the program's batch dim).

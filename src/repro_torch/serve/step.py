@@ -6,8 +6,10 @@ logits — the counterpart of ``repro.serve.step``.
 PyTorch runs eagerly, so a "program" here is a plain function and
 ``ServePrograms`` holds no compile caches; it keeps the reference's
 shape (one bundle per model, shared by engines) and its
-``prepare_params`` hook (the reference's tensor-parallel hooks are not
-ported).
+``prepare_params`` / ``prepare_pages`` hooks, through which
+``serve/parallel.TPServePrograms`` shards an engine.  The paged makers
+take ``gather``, the tensor-parallel hook (the reference's
+``tp_axis``): None on one device.
 
 ``greedy_generate`` is the parity oracle: lockstep greedy decoding
 through the contiguous-cache path (``DecoderLM.prefill`` +
@@ -42,36 +44,38 @@ def make_decode_step(model) -> Callable:
     return serve_step
 
 
-def make_paged_decode_step(model) -> Callable:
+def make_paged_decode_step(model, gather=None) -> Callable:
     def paged_step(params, state, tokens):
-        logits, state = model.decode_step_paged(params, state, tokens)
+        logits, state = model.decode_step_paged(params, state, tokens,
+                                                gather)
         return greedy(logits)[:, None], state
     return paged_step
 
 
-def make_verify_step(model) -> Callable:
+def make_verify_step(model, gather=None) -> Callable:
     """Row b's ``nxt[b, t]`` is the model's own greedy prediction after
     consuming tokens 0..t of the row."""
     def verify_step(params, state, tokens):
-        logits, state = model.verify_step_paged(params, state, tokens)
+        logits, state = model.verify_step_paged(params, state, tokens,
+                                                gather)
         return greedy(logits), state
     return verify_step
 
 
-def make_chunk_prefill_step(model) -> Callable:
+def make_chunk_prefill_step(model, gather=None) -> Callable:
     def chunk_step(params, state, tokens, table_rows, starts, n_valid):
         logits, state = model.prefill_chunk_paged(
-            params, state, tokens, table_rows, starts, n_valid)
+            params, state, tokens, table_rows, starts, n_valid, gather)
         return greedy(logits)[:, None], state
     return chunk_step
 
 
-def make_fused_step(model) -> Callable:
+def make_fused_step(model, gather=None) -> Callable:
     def fused_step(params, state, tokens, p_tokens, p_table_rows,
                    p_starts, p_n_valid):
         (d_logits, p_logits), state = model.fused_step_paged(
             params, state, tokens, p_tokens, p_table_rows, p_starts,
-            p_n_valid)
+            p_n_valid, gather)
         return (greedy(d_logits), greedy(p_logits)[:, None]), state
     return fused_step
 
@@ -103,6 +107,8 @@ class ServePrograms:
     """The serving programs of one model, shared by every engine built
     on it."""
 
+    tp = 1
+
     def __init__(self, model):
         self.model = model
         self.decode = make_paged_decode_step(model)
@@ -126,6 +132,11 @@ class ServePrograms:
                 node = node.setdefault(k, {})
             node[path[-1]] = cast(path, spec, leaf)
         return out
+
+    def prepare_pages(self, pages):
+        """The page pool as the programs take it: as it is on one
+        device."""
+        return pages
 
 
 def greedy_generate(model, params, batch, n_steps: int,

@@ -1,10 +1,13 @@
 """Loss and train step of the port: the reference's
 ``repro.train.step`` in PyTorch.
 
-Parameters are f32 leaf tensors.  ``cast_params_for_compute`` casts the
-leaves with ``ndim >= 2`` to the compute dtype before the model sees
-them (on the stacked tree, as the reference does), so the gradients
-reach the f32 leaves through the cast.  The gradient comes from
+Parameters are leaf tensors stored in ``cfg.param_dtype`` (f32, or
+bf16 for every leaf of 2 or more dimensions: ``models/base.py:
+with_param_dtype``).  ``cast_params_for_compute`` casts the f32 leaves
+with ``ndim >= 2`` to the compute dtype before the model sees them (on
+the stacked tree, as the reference does), so the gradients reach the
+leaves through the cast; a bf16 leaf's gradient is bf16, and AdamW
+with ``keep_master`` updates its f32 master copy.  The gradient comes from
 autograd over the model's training forward (``DecoderLM.apply(...,
 train=True)``): on the card every projection's backward runs on the
 dataflow GEMM and the attention's on its backward kernel, so a step is
@@ -139,8 +142,8 @@ def make_train_step(model, cfg, *, opt: OptConfig = OptConfig(),
                     n_micro: int = 1) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  Every batch leaf has the batch dim at axis 0; ``params``
-    are f32 tensors (leaves or not: the step takes its gradient with
-    respect to detached copies that require it)."""
+    are tensors in their storage dtypes (leaves or not: the step takes
+    its gradient with respect to detached copies that require it)."""
     loss_fn = make_loss_fn(model, cfg)
     acc_dt = _DTYPES[cfg.grad_accum_dtype]
 

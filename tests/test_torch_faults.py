@@ -486,6 +486,8 @@ def test_launcher_fleet_with_chaos_on_cpu(capsys):
     assert stats["n_failures"] == 1 and stats["n_recovered_requests"] >= 1
     check_dispatch_identity(stats)
     assert "1 failures" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # --tp 2 takes two CUDA devices; without them it raises, naming
+    # the count
+    with pytest.raises(ValueError, match="tp=2 exceeds 0 visible CUDA"):
         launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                      "--requests", "1", "--tp", "2"])

@@ -10,8 +10,9 @@ oracle prefix).
 router, elastic and fault tests import it.  Arms: fused and unfused
 engines, a fleet with a seeded fault and a kill switch, a fleet grown
 and drained mid-trace, and engines drafting with a second model
-(``DraftModelDrafter``).  The reference's tp=2 arm is not ported.  The
-drafter is also held against the reference's on the same draft weights.
+(``DraftModelDrafter``), and the reference's tp=2 arm, its two shards
+named on the CPU.  The drafter is also held against the reference's on
+the same draft weights.
 """
 import dataclasses
 
@@ -213,6 +214,20 @@ def test_fuzz_fused_and_unfused_match_oracle(bundle, oracle, seed):
     for rid in streams[True].keys() & streams[False].keys():
         np.testing.assert_array_equal(streams[True][rid],
                                       streams[False][rid])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fuzz_tp2_matches_oracle(bundle, oracle, seed):
+    """The reference's tp=2 arm: the same chaos cases on one engine
+    whose programs are sharded over two shards named ``cpu``
+    (``serve/parallel.py``), held to the same bar."""
+    from repro_torch.serve.parallel import TPServePrograms
+    cfg, model, params, _ = bundle
+    tp_programs = TPServePrograms(model, devices=["cpu", "cpu"])
+    reqs, knobs, cancels = _case(seed, cfg)
+    eng = ServeEngine(model, params, fused=True, programs=tp_programs,
+                      **knobs)
+    drive_and_check(eng, _fresh(reqs), oracle=oracle, cancels=cancels)
 
 
 @pytest.mark.parametrize("seed", range(N_CASES))

@@ -36,6 +36,27 @@ from repro_torch.models.lm import DecoderLM
 from repro_torch.serve.step import ServePrograms
 
 ARCH = "qwen3-0.6b"
+
+
+def warm_torch_threads() -> None:
+    """Have every thread of torch's CPU pool make its first call of the
+    transcendental functions now, and drop the results.  torch's CPU
+    ``exp`` on f32 runs MKL's VML, and a pool thread's *first* call now
+    and then returns its share of the array at about 1.5e-4 relative
+    error (a VML low-accuracy result) while other work keeps the cores
+    busy: measured with torch 2.13 (CPU), 8 threads, a 2^20-element exp
+    racing an XLA CPU matmul, 1 to 4 runs in 40; every later call of
+    the same thread was exact, and under ``MKL_CBWR=COMPATIBLE`` no run
+    in 40 was off.  So the first call is made here, where its value is
+    not used: this module is imported by every test process (pytest's
+    workers collect it), and ``test_torch_plans.py`` imports it."""
+    x = torch.linspace(-4.0, 4.0, 1 << 20)
+    for fn in (torch.exp, torch.log1p, torch.tanh, torch.sin, torch.cos,
+               torch.sigmoid):
+        fn(x)
+
+
+warm_torch_threads()
 # f32 logits of the contiguous path: both sides compute in f32 and keep
 # an f32 cache; they differ only in summation order (attention tiles,
 # matmul blocking), a few f32 ulps per op over 2 layers.
@@ -76,7 +97,8 @@ def to_port_config(jcfg):
 
 def _perturb(tree, rng):
     return {k: (_perturb(v, rng) if isinstance(v, dict)
-                else v + 0.1 * rng.standard_normal(v.shape).astype(v.dtype)
+                else (v + 0.1 * rng.standard_normal(v.shape).astype(v.dtype)
+                      ).astype(v.dtype)
                 if k in _CONST_LEAVES else v)
             for k, v in sorted(tree.items())}
 

@@ -24,6 +24,7 @@ from repro.models import components as JC
 from repro_torch.kernels import gemm_dataflow as gd
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.gemm_dataflow import ops as gd_ops
+from test_torch_model import warm_torch_threads  # noqa: F401 (warms)
 
 N_SM = 132     # the H100's SMs
 
