@@ -182,9 +182,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its own router sent elsewhere), with step ms, tokens/s
                and the peak memory.  llama4-scout trains on the CPU
                only (its one layer with Adam needs ~77 GB).
+13. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
+               ranks as processes (``torch.multiprocessing``), every one
+               on this card over gloo (NCCL refuses two ranks on one
+               device), the kernels built before the spawn.  qwen3-0.6b
+               FULL on (data 2, model 2): the first step's loss and
+               every leaf's gradient against the single-device step run
+               here (loss within 2e-2, each leaf within 5e-2 relative
+               L2), each rank's launches equal to it, 2 steps timed;
+               deepseek-moe-16b at full widths, 2 layers, on (1, 4) (16
+               of 64 experts a rank): the final hidden states at C = T
+               (routed as the single device routed) within 2e-2
+               relative L2, at its own capacity factor more than 98 %
+               within 3e-2, and the gradients as above; qwen3's prefill
+               of 8 x 256 and 32 decode steps on (1, 4) with the cache
+               split along its sequence, each step's logits within 2e-2
+               relative L2; a checkpoint saved on (2, 2) from the shards
+               and restored on the (1, 2) ``plan_elastic_mesh`` gives 2
+               ranks, every leaf ``torch.equal``.  Step ms and peak GB
+               per rank and the collectives' bytes and seconds are
+               readings (the ranks time-share the card).
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
-serve, fleet, archs, tp, families, train, train_families and paper paths;
+serve, fleet, archs, tp, families, train, train_families, mesh and paper
+paths;
 the dataflow GEMM's also counted apart for f32 operands,
 ``launches_f32``), the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
@@ -366,6 +387,36 @@ FAMILY_TRAIN = (("whisper-tiny", None, 8, 64, None, 64, True),
                 ("recurrentgemma-2b", 6, 1, 4096, 3, 2048, False),
                 ("rwkv6-3b", 16, 4, 256, 1, 256, False))
 FAMILY_TRAIN_STEPS = 8
+# mesh phase: ranks as processes, all on the one card over gloo.
+# qwen3-0.6b FULL on (data 2, model 2): gradients and MESH_STEPS steps of
+# B x S; deepseek-moe at full widths on (1, 4) (16 of 64 experts a rank),
+# MESH_MOE_LAYERS layers (the dense layer 0 and one MoE layer: the
+# single-device reference's step and the ranks' copies fit the card);
+# qwen3's prefill of B x S and MESH_DECODE_STEPS decode steps on the same
+# (1, 4) ranks, the cache's sequence split over model; a checkpoint of a
+# MESH_CKPT_LAYERS-layer qwen3 saved on (2, 2) and restored on the (1, 2)
+# plan_elastic_mesh gives 2 ranks.  Tolerances: the train phase's card
+# tolerances for loss and gradients (GRAD_LOSS_TOL, GRAD_REL_L2; the MoE
+# routed as the single device routed, as train_families does); the
+# MoE's final hidden states at C = T (so routed) and each decode step's
+# logits within MESH_REL_TOL relative L2, with the share of elements
+# outside the reference test's 2e-2 allclose a reading: the split
+# products add their f32 partials before the one bf16 rounding, the
+# single device's MoE adds its K outputs one bf16 rounding at a time,
+# and 28 bf16 layers carry a one-ulp difference to ~0.03 on a logit
+# near 0 (PERF.md); at its own capacity factor, routed on its
+# own, more than 98 % of the MoE's elements within 3e-2
+# (tests/test_multidevice.py)
+MESH_ARCH, MESH_MOE = "qwen3-0.6b", "deepseek-moe-16b"
+MESH_TRAIN_SHAPE, MESH_MOE_SHAPE = (2, 2), (1, 4)
+MESH_B, MESH_S, MESH_STEPS, MESH_SEED = 8, 256, 2, 5
+MESH_MOE_B, MESH_MOE_LAYERS = 4, 2
+MESH_DECODE_STEPS = 32
+MESH_CKPT_LAYERS = 1
+MESH_REL_TOL = 2e-2
+MESH_CLOSE_TOL, MESH_CLOSE_FRAC = 3e-2, 0.98
+MESH_TIMEOUT_S = 600
+MESH_DEVICE = "cuda:0"
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -2813,7 +2864,7 @@ def _scan_forms(model, params, batch, tokens) -> dict:
 
     with torch.no_grad():
         tok = batch["tokens"]
-        kind, _, lp = next(b for b in model._blocks(params)
+        kind, _, lp, _ = next(b for b in model._blocks(params)
                            if b[0] in ("rglru", "rwkv"))
         h = model._norm(lp["ln1"], model._embed(params, tok))
         mix = lp["mix"]
@@ -3577,6 +3628,532 @@ def phase_train_families():
     return total
 
 
+
+# ----------------------------------------------------------------- mesh
+def _mesh_refs(root) -> dict:
+    """The single-device runs the mesh is held to, on the card in this
+    process, written to ``root`` for the ranks: qwen3's loss and every
+    leaf's gradient (and the grad step's launches); deepseek's final
+    hidden states at C = T and at its own capacity factor, and its loss
+    and gradients at its own; qwen3's prefill and 32 decode steps (the
+    tokens fed and each step's logits).  Returns the readings."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.train.step import make_grad_fn
+    from repro_torch.tree import tree_items
+    out = {}
+
+    def grads(model, cfg, params, batch, name):
+        _train_launches_reset()
+        _mesh_sync()
+        t0 = time.perf_counter()
+        loss, _, g = make_grad_fn(model, cfg)(params, batch)
+        _mesh_sync()
+        out[f"{name}_grad_s"] = time.perf_counter() - t0
+        out[f"{name}_launches"] = _train_launches()
+        out[f"{name}_loss"] = float(loss)
+        return {"/".join(p): t.float().cpu() for (p, _), t in
+                zip(tree_items(params), g)}
+
+    cfg = configs.get(MESH_ARCH)
+    model = DecoderLM(cfg, device=MESH_DEVICE)
+    params = model.init(seed=MESH_SEED)
+    batch = SyntheticPipeline(cfg, MESH_B, MESH_S).device_batch(0, MESH_DEVICE)
+    torch.save(grads(model, cfg, params, batch, "train"),
+               root / "train_ref.pt")
+    del params, batch
+    _mesh_free()
+
+    cfg = _mesh_moe_config()
+    model = DecoderLM(cfg, device=MESH_DEVICE)
+    params = model.init(seed=MESH_SEED)
+    batch = SyntheticPipeline(cfg, MESH_MOE_B, MESH_S).device_batch(0, MESH_DEVICE)
+    ref = {}
+    for name, cf in _mesh_capacities(cfg):
+        m = DecoderLM(_mesh_cf(cfg, cf), device=MESH_DEVICE)
+        ids, undo = _route_as()
+        with torch.no_grad():
+            ref[name] = m.apply(params, batch, want_hidden=True).cpu()
+        undo()
+        ref[f"ids_{name}"] = ids
+    ids, undo = _route_as()
+    torch.save(grads(model, cfg, params, batch, "moe"),
+               root / "moe_grads_ref.pt")
+    undo()
+    ref["ids_grads"] = ids
+    torch.save(ref, root / "moe_ref.pt")
+    del params, batch, ref
+    _mesh_free()
+
+    cfg = configs.get(MESH_ARCH)
+    model = DecoderLM(cfg, device=MESH_DEVICE)
+    params = model.init(seed=MESH_SEED)
+    tokens = SyntheticPipeline(cfg, MESH_B, MESH_S).device_batch(0, MESH_DEVICE)["tokens"]
+    with torch.no_grad():
+        last, cache = model.prefill(params, tokens,
+                                    max_len=MESH_S + MESH_DECODE_STEPS)
+        fed, logits = [], []
+        tok = last.argmax(-1)
+        for _ in range(MESH_DECODE_STEPS):
+            fed.append(tok)
+            lg, cache = model.decode_step(params, cache, tok[:, None])
+            logits.append(lg.cpu())
+            tok = lg.argmax(-1)
+    torch.save({"last": last.cpu(), "fed": torch.stack(fed).cpu(),
+                "logits": torch.stack(logits)}, root / "decode_ref.pt")
+    del params, cache
+    _mesh_free()
+    return out
+
+
+def _mesh_free() -> None:
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _mesh_sync(reset_peak: bool = False) -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        if reset_peak:
+            torch.cuda.reset_peak_memory_stats()
+
+
+def _mesh_peak_gb() -> float:
+    import torch
+    if not torch.cuda.is_available():
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _mesh_moe_config():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(MESH_MOE), n_layers=MESH_MOE_LAYERS)
+
+
+def _mesh_cf(cfg, cf):
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def _mesh_capacities(cfg):
+    """(name, capacity factor): C = T (no token dropped anywhere, so
+    the expert-parallel forward is the single-device one), and the
+    configuration's own (per-shard capacity may drop other tokens)."""
+    m = cfg.moe
+    return (("C=T", m.n_experts / m.top_k), ("own", m.capacity_factor))
+
+
+def _mesh_grad_check(mesh, grads, shardings, ref_path) -> dict:
+    """Each leaf's gradient shard against the same shard of the
+    single-device gradient (``ref_path``, read mapped): the squared
+    difference and the reference's squared norm summed over the
+    elements this rank owns (a replicated leaf counted once), added
+    over every rank; rank 0's result holds each leaf's relative L2."""
+    import torch
+    from repro_torch.sharding.collectives import all_reduce
+    from repro_torch.train.optimizer import _owned
+    from repro_torch.tree import tree_items
+    ref = torch.load(ref_path, mmap=True)
+    names = ["/".join(p) for p, _ in tree_items(shardings)]
+    owned = _owned(shardings, mesh)
+    sums = torch.zeros(len(names), 3, dtype=torch.float64,
+                       device=mesh.device)
+    for i, ((_, spec), g, name) in enumerate(zip(tree_items(shardings),
+                                                 grads, names)):
+        if not owned[i]:
+            continue
+        want = mesh.shard(ref[name], spec).double()
+        got = g.double()
+        sums[i, 0] = torch.sum((got - want) ** 2)
+        sums[i, 1] = torch.sum(want ** 2)
+        sums[i, 2] = float(bool(got.ne(0).any()))
+    sums = all_reduce(sums, mesh, mesh.axis_names)
+    rel = {n: float(torch.sqrt(s[0] / s[1].clamp(min=1e-300)))
+           for n, s in zip(names, sums.cpu())}
+    worst = max(rel, key=rel.get)
+    return {"grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_leaf": worst,
+            "leaves_without_gradient": [n for n, s in zip(names, sums.cpu())
+                                        if s[2] == 0 and s[1] > 0]}
+
+
+def _mesh_rank(rank, world, shape, job, root) -> None:
+    """One rank of a mesh run: every rank on ``cuda:0`` over gloo."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.sharding import collectives
+    init_distributed("gloo", rank=rank, world_size=world,
+                     init_method=f"file://{root}/store_{job}",
+                     timeout_s=MESH_TIMEOUT_S)
+    mesh = make_mesh(shape, ("data", "model"), devices=[MESH_DEVICE] * world)
+    collectives.TIMING = True
+    _mesh_sync(reset_peak=True)
+    rec = {"job": job, "rank": rank, "mesh": list(shape)}
+    {"train": _mesh_train, "moe_decode": _mesh_moe_decode,
+     "restore": _mesh_restore}[job](mesh, root, rec)
+    rec["peak_gb"] = _mesh_peak_gb()
+    (root / f"{job}_{rank}.json").write_text(json.dumps(rec))
+
+
+def _mesh_model(cfg, mesh):
+    """The model and the rank's shards of the seeded parameters."""
+    import torch
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.sharding import tree_shardings
+    from repro_torch.sharding.spmd import shard_tree
+    model = DecoderLM(cfg, device=mesh.device)
+    sh = tree_shardings(model.param_specs(), mesh)
+    params = shard_tree(model.init(seed=MESH_SEED), sh, mesh)
+    _mesh_free()
+    return model, params, sh
+
+
+def _mesh_grads(mesh, model, cfg, params, batch, sh, ref, rec, name):
+    import torch
+    from repro_torch.train.step import make_grad_fn
+    _train_launches_reset()
+    with mesh:
+        _mesh_sync()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(model, cfg)(params, batch)
+        _mesh_sync()
+        rec[f"{name}_grad_s"] = time.perf_counter() - t0
+        rec[f"{name}_launches"] = _train_launches()
+        rec[f"{name}_loss"] = float(loss)
+        rec.update({f"{name}_{k}": v for k, v in _mesh_grad_check(
+            mesh, grads, sh, ref).items()})
+    return grads
+
+
+def _mesh_train(mesh, root, rec) -> None:
+    """(2, 2): qwen3-0.6b's loss and gradients, MESH_STEPS timed steps
+    with the collectives' bytes and seconds, then a checkpoint of a
+    MESH_CKPT_LAYERS-layer model saved from its shards (each file's
+    shard equal to the rank's)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.reader import read_leaf, read_manifest
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.sharding import collectives, tree_shardings
+    from repro_torch.sharding.collectives import all_reduce
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             init_opt_state, opt_state_specs)
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_items, tree_unflatten
+    cfg = configs.get(MESH_ARCH)
+    model, params, sh = _mesh_model(cfg, mesh)
+    pipe = SyntheticPipeline(cfg, MESH_B, MESH_S)
+    opt = OptConfig()
+    state = init_opt_state(params, opt)
+    step = make_train_step(model, cfg, opt=opt)
+    collectives.reset_stats()
+    rec["step_ms"], rec["losses"] = [], []
+    with mesh:
+        for s in range(MESH_STEPS):
+            batch = pipe.device_batch(s, mesh=mesh)
+            if s == 0:
+                # the first step's gradient, held against the single
+                # device's, then its AdamW update: the step's time is
+                # the two parts' (the comparison left out)
+                grads = _mesh_grads(mesh, model, cfg, params, batch, sh,
+                                    root / "train_ref.pt", rec, "train")
+                _mesh_sync()
+                t0 = time.perf_counter()
+                params, state, _ = adamw_update(
+                    params, tree_unflatten(params, grads), state, opt,
+                    shardings=sh)
+                _mesh_sync()
+                rec["step_ms"].append(rec["train_grad_s"] * 1e3
+                                      + (time.perf_counter() - t0) * 1e3)
+                rec["losses"].append(rec["train_loss"])
+                del grads
+                continue
+            _mesh_sync()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            _mesh_sync()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(m["loss"]))
+    rec["collectives"] = collectives.stats()
+    rec["peak_gb_train"] = _mesh_peak_gb()
+    del params, state
+    _mesh_free()
+
+    cfg = dataclasses.replace(cfg, n_layers=MESH_CKPT_LAYERS)
+    model, params, sh = _mesh_model(cfg, mesh)
+    shardings = {"params": sh, "opt": tree_shardings(
+        opt_state_specs(model.param_specs(), opt), mesh)}
+    state = init_opt_state(params, opt)
+    with mesh:
+        params, state, _ = make_train_step(model, cfg, opt=opt)(
+            params, state, pipe.device_batch(0, mesh=mesh))
+        tree = {"params": params, "opt": state}
+        ckpt = save_checkpoint(root / "ckpt", 1, tree, shardings=shardings)
+        leaves = read_manifest(ckpt)["leaves"]
+        bad = sum(not torch.equal(mesh.shard(read_leaf(ckpt, "__".join(p),
+                                                       leaves["__".join(p)]),
+                                             spec), t)
+                  for (p, t), (_, spec) in zip(tree_items(tree),
+                                               tree_items(shardings)))
+        bad = int(all_reduce(torch.tensor(float(bad), device=mesh.device),
+                             mesh, mesh.axis_names))
+    rec["ckpt_leaves"] = len(leaves)
+    rec["ckpt_files_unequal_to_shards"] = bad
+
+
+def _mesh_moe_decode(mesh, root, rec) -> None:
+    """(1, 4): deepseek-moe's expert-parallel forward (16 of 64 experts a
+    rank) at C = T and at its own capacity factor against the single
+    device's, and its gradients; qwen3-0.6b's prefill and
+    MESH_DECODE_STEPS lockstep decode steps on a cache split along its
+    sequence over ``model``, each step's logits against the single
+    device's."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    cfg = _mesh_moe_config()
+    model, params, sh = _mesh_model(cfg, mesh)
+    batch = SyntheticPipeline(cfg, MESH_MOE_B, MESH_S).device_batch(
+        0, mesh=mesh)
+    ref = torch.load(root / "moe_ref.pt", mmap=True)
+    for name, cf in _mesh_capacities(cfg):
+        # at C = T the single device's expert ids (a choice on a knife
+        # edge of the router's bf16 input is not what is held here); at
+        # the own capacity factor the mesh's own routing
+        _, undo = _route_as(ref["ids_C=T"] if name == "C=T" else None)
+        with mesh, torch.no_grad():
+            h = DecoderLM(_mesh_cf(cfg, cf), device=mesh.device).apply(
+                params, batch, want_hidden=True).float().cpu()
+        undo()
+        n = h.shape[0]
+        want = ref[name][mesh.axis_index(mesh.data_axes()) * n:][:n].float()
+        rec[f"moe_{name}_max_abs_err"] = float((h - want).abs().max())
+        rec[f"moe_{name}_rel_l2"] = float((h - want).norm() / want.norm())
+        rec[f"moe_{name}_close"] = float(np.mean(np.isclose(
+            h.numpy(), want.numpy(), rtol=MESH_CLOSE_TOL,
+            atol=MESH_CLOSE_TOL)))
+        rec[f"moe_{name}_outside_allclose"] = float((~torch.isclose(
+            h, want, rtol=ATOL, atol=ATOL)).float().mean())
+    _, undo = _route_as(ref["ids_grads"])
+    _mesh_grads(mesh, model, cfg, params, batch, sh,
+                root / "moe_grads_ref.pt", rec, "moe")
+    undo()
+    del ref
+    del params
+    _mesh_free()
+
+    cfg = configs.get(MESH_ARCH)
+    model, params, sh = _mesh_model(cfg, mesh)
+    ref = torch.load(root / "decode_ref.pt", mmap=True)
+    tokens = SyntheticPipeline(cfg, MESH_B, MESH_S).device_batch(
+        0, mesh=mesh)["tokens"]
+    errs, rel, argmax, outside, times = [], [], [], [], []
+    with mesh, torch.no_grad():
+        last, cache = model.prefill(params, tokens,
+                                    max_len=MESH_S + MESH_DECODE_STEPS)
+        rec["decode_seq_shards"] = cache["seq_shards"]
+        rec["prefill_max_abs_err"] = float(
+            (last.cpu() - ref["last"]).abs().max())
+        for t in range(MESH_DECODE_STEPS):
+            _mesh_sync()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(
+                params, cache, ref["fed"][t].to(mesh.device)[:, None])
+            _mesh_sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got, want = lg.cpu(), ref["logits"][t]
+            errs.append(float((got - want).abs().max()))
+            rel.append(float((got - want).norm() / want.norm()))
+            argmax.append(float((got.argmax(-1) == want.argmax(-1))
+                                .float().mean()))
+            outside.append(float((~torch.isclose(
+                got, want, rtol=ATOL, atol=ATOL)).float().mean()))
+    rec["decode_max_abs_err"] = max(errs)
+    rec["decode_rel_l2_max"] = max(rel)
+    rec["decode_argmax_equal_min"] = min(argmax)
+    rec["decode_outside_allclose_max"] = max(outside)
+    rec["decode_step_ms"] = float(np.median(times))
+
+
+def _mesh_restore(mesh, root, rec) -> None:
+    """(1, 2), the plan ``plan_elastic_mesh`` gives two ranks of a
+    model-parallel-2 run: the (2, 2) run's checkpoint restored onto
+    it, gathered back and held against every stored array."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.checkpoint.reader import read_leaf, read_manifest
+    from repro_torch.sharding import tree_shardings
+    from repro_torch.sharding.spmd import unshard_tree
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             opt_state_specs)
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(configs.get(MESH_ARCH),
+                              n_layers=MESH_CKPT_LAYERS)
+    model, params, sh = _mesh_model(cfg, mesh)
+    shardings = {"params": sh, "opt": tree_shardings(
+        opt_state_specs(model.param_specs()), mesh)}
+    like = {"params": params, "opt": init_opt_state(params)}
+    with mesh:
+        tree, step = restore_checkpoint(root / "ckpt", like,
+                                        shardings=shardings)
+        full = unshard_tree(tree, shardings, mesh)
+    ckpt = root / "ckpt" / f"step_{step:09d}"
+    leaves = read_manifest(ckpt)["leaves"]
+    bad = [k for k, t in (("__".join(p), t) for p, t in tree_items(full))
+           if not torch.equal(t.cpu(), read_leaf(ckpt, k, leaves[k]))]
+    rec["restored_step"] = step
+    rec["restored_leaves"] = len(leaves)
+    rec["restored_unequal"] = bad
+
+
+def _mesh_spawn(job, shape, root) -> list:
+    """Run ``job`` on ``shape``'s ranks (torch.multiprocessing, every
+    rank on this card); a rank that fails fails the phase.  Returns
+    every rank's record."""
+    import torch.multiprocessing as mp
+    world = int(np.prod(shape))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_mesh_rank, args=(world, tuple(shape), job, root),
+                 nprocs=world, join=True)
+    except Exception as e:                           # noqa: BLE001
+        fail(f"mesh [{job}]: a rank failed: {e}")
+    recs = [json.loads((root / f"{job}_{r}.json").read_text())
+            for r in range(world)]
+    for r in recs:
+        r["spawn_s"] = time.perf_counter() - t0
+    return recs
+
+
+def _mesh_sum_launches(recs, key) -> dict:
+    out = {}
+    for r in recs:
+        for k, n in r[key].items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_mesh():
+    """The training mesh on the card: ranks of ``torch.distributed`` as
+    processes, every one on this card over gloo (NCCL refuses two ranks
+    on one device), the kernels built once before the spawn.  Returns
+    the launches of the mesh's grad steps, summed over the ranks."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.runtime import plan_elastic_mesh
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        refs = _mesh_refs(root)
+        train = _mesh_spawn("train", MESH_TRAIN_SHAPE, root)
+        moe = _mesh_spawn("moe_decode", MESH_MOE_SHAPE, root)
+        shape, _ = plan_elastic_mesh(2, model_parallel=MESH_TRAIN_SHAPE[1])
+        restore = _mesh_spawn("restore", shape, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, m0, s0 = train[0], moe[0], restore[0]
+    gates = {
+        "train_loss_close": abs(r0["train_loss"] - refs["train_loss"])
+        <= GRAD_LOSS_TOL,
+        "train_grads_close": r0["train_grad_rel_l2_max"] <= GRAD_REL_L2,
+        "train_every_leaf_has_a_gradient":
+            not r0["train_leaves_without_gradient"],
+        "train_launches_equal_one_device": all(
+            r["train_launches"] == refs["train_launches"] for r in train),
+        "train_losses_finite": all(np.isfinite(r["losses"]).all()
+                                   for r in train),
+        "moe_forward_C=T_close": all(r["moe_C=T_rel_l2"] <= MESH_REL_TOL
+                                     for r in moe),
+        "moe_forward_own_98pct": all(r["moe_own_close"] > MESH_CLOSE_FRAC
+                                     for r in moe),
+        "moe_loss_close": abs(m0["moe_loss"] - refs["moe_loss"])
+        <= GRAD_LOSS_TOL,
+        "moe_grads_close": m0["moe_grad_rel_l2_max"] <= GRAD_REL_L2,
+        "moe_launches_equal_one_device": all(
+            r["moe_launches"] == refs["moe_launches"] for r in moe),
+        "decode_close": all(r["decode_rel_l2_max"] <= MESH_REL_TOL
+                            for r in moe),
+        "decode_cache_split": m0["decode_seq_shards"] == MESH_MOE_SHAPE[1],
+        "ckpt_saved_from_shards": r0["ckpt_files_unequal_to_shards"] == 0,
+        "ckpt_restored_onto_elastic_mesh": (not s0["restored_unequal"]
+                                            and s0["restored_leaves"] > 0),
+    }
+    peaks = [r["peak_gb"] for r in train + moe + restore]
+    rec = {"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
+           "transport": "gloo, every rank on cuda:0 (staged through "
+           "pinned host memory)",
+           "train": {"arch": MESH_ARCH, "mesh": MESH_TRAIN_SHAPE,
+                     "B": MESH_B, "S": MESH_S,
+                     "loss_one_device": refs["train_loss"],
+                     "loss_mesh": r0["train_loss"],
+                     "grad_rel_l2_max": r0["train_grad_rel_l2_max"],
+                     "grad_rel_l2_worst_leaf":
+                         r0["train_grad_rel_l2_worst_leaf"],
+                     "launches_one_device": refs["train_launches"],
+                     "launches_per_rank": [r["train_launches"]
+                                           for r in train],
+                     "grad_s_one_device": refs["train_grad_s"],
+                     "grad_s_per_rank": [r["train_grad_s"] for r in train],
+                     "step_ms_per_rank": [r["step_ms"] for r in train],
+                     "losses": r0["losses"],
+                     "peak_gb_per_rank": [r["peak_gb_train"]
+                                          for r in train],
+                     "collectives_rank0": r0["collectives"],
+                     "spawn_s": r0["spawn_s"]},
+           "moe": {"arch": MESH_MOE, "layers": MESH_MOE_LAYERS,
+                   "mesh": MESH_MOE_SHAPE, "B": MESH_MOE_B, "S": MESH_S,
+                   **{k: m0[k] for k in m0 if k.startswith("moe_")},
+                   "close_per_rank": [r["moe_own_close"] for r in moe],
+                   "loss_one_device": refs["moe_loss"],
+                   "launches_one_device": refs["moe_launches"]},
+           "decode": {"arch": MESH_ARCH, "mesh": MESH_MOE_SHAPE,
+                      "B": MESH_B, "prompt": MESH_S,
+                      "steps": MESH_DECODE_STEPS,
+                      "seq_shards": m0["decode_seq_shards"],
+                      "prefill_max_abs_err": m0["prefill_max_abs_err"],
+                      "max_abs_err": max(r["decode_max_abs_err"]
+                                         for r in moe),
+                      "rel_l2_max": max(r["decode_rel_l2_max"] for r in moe),
+                      "argmax_equal_min": m0["decode_argmax_equal_min"],
+                      "outside_allclose_max":
+                          m0["decode_outside_allclose_max"],
+                      "step_ms_rank0": m0["decode_step_ms"],
+                      "spawn_s": m0["spawn_s"]},
+           "checkpoint": {"saved_on": MESH_TRAIN_SHAPE,
+                          "restored_on": list(shape),
+                          "layers": MESH_CKPT_LAYERS,
+                          "leaves": s0["restored_leaves"],
+                          "spawn_s": s0["spawn_s"]},
+           "peak_gb_per_rank": peaks,
+           "peak_gb_sum_train": sum(r["peak_gb"] for r in train),
+           "peak_gb_sum_moe_decode": sum(r["peak_gb"] for r in moe),
+           "seconds": time.perf_counter() - t0, "gates": gates}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"mesh: gates failed: {bad}")
+    launches = _mesh_sum_launches(train, "train_launches")
+    for k, n in _mesh_sum_launches(moe, "moe_launches").items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 def summary_line(kernel_results, launches, by_phase):
     """One entry for each kernel whose checks and path both ran, its
     launches summed over the phases that ran it (``launches_by_phase``:
@@ -3626,7 +4203,7 @@ def summary_line(kernel_results, launches, by_phase):
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
                  "profile", "fleet", "archs", "tp", "families", "train",
-                 "train_families")) -> int:
+                 "train_families", "mesh")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -3684,6 +4261,8 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         count(phase_train(), "train")
     if "train_families" in phases:
         count(phase_train_families(), "train_families")
+    if "mesh" in phases:
+        count(phase_mesh(), "mesh")
     if results:
         summary_line(results, launches, by_phase)
     print(nvidia_smi_line(), flush=True)

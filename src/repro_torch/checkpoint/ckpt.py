@@ -14,6 +14,13 @@ the restore point; the ``keep`` newest are kept.  A tree is any nested
 dict of tensors: the training driver's ``{"params", "opt"}``, the
 optimizer state's ``mu``, ``nu``, ``step`` (and ``master`` / ``ef``)
 included.
+
+On a mesh (``with mesh:``; ``shardings``: the tree's ``logical_spec``
+tuples) the tree holds this rank's shards: ``save_checkpoint`` gathers
+every leaf to its full array, rank 0 writes, and every rank waits for
+it; ``restore_checkpoint`` reads the full arrays and keeps each rank's
+shard.  The manifest is topology-free, so a checkpoint restores onto
+any mesh (``runtime.plan_elastic_mesh``), or none.
 """
 from __future__ import annotations
 
@@ -24,7 +31,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..launch.mesh import current_mesh
+from ..sharding.spmd import unshard_tree
 from ..tree import tree_items
 from .reader import _SEP, read_leaf, read_manifest, step_dir
 
@@ -44,8 +54,27 @@ def _to_numpy(t: torch.Tensor):
     return t.numpy(), _NAMES[t.dtype]
 
 
-def save_checkpoint(directory, step: int, tree, *, keep: int = 3) -> Path:
-    """Write a checkpoint of ``tree``; returns its path."""
+def save_checkpoint(directory, step: int, tree, *, keep: int = 3,
+                    shardings=None) -> Path:
+    """Write a checkpoint of ``tree``; returns its path.  With
+    ``shardings`` (on a mesh) the full arrays of the rank's shards."""
+    mesh = current_mesh() if shardings is not None else None
+    if mesh is not None:
+        tree = unshard_tree(tree, shardings, mesh)
+        if mesh.rank != 0:
+            return _barrier(mesh, Path(directory) / f"step_{step:09d}")
+        path = _write(directory, step, tree, keep)
+        return _barrier(mesh, path)
+    return _write(directory, step, tree, keep)
+
+
+def _barrier(mesh, path: Path) -> Path:
+    if mesh.size > 1:
+        dist.barrier()
+    return path
+
+
+def _write(directory, step: int, tree, keep: int) -> Path:
     root = Path(directory)
     ckpt = root / f"step_{step:09d}"
     tmp = root / f".tmp_step_{step:09d}"
@@ -80,20 +109,26 @@ def latest_step(directory) -> Optional[int]:
     return int(marker.read_text().strip())
 
 
-def restore_checkpoint(directory, like_tree, *, step: Optional[int] = None):
+def restore_checkpoint(directory, like_tree, *, step: Optional[int] = None,
+                       shardings=None):
     """Restore into the structure of ``like_tree``: each leaf read with
     its stored dtype and bits onto the device of the matching leaf of
-    ``like_tree``.  Returns (tree, step); a leaf the checkpoint lacks
-    raises ``KeyError``."""
+    ``like_tree``.  With ``shardings`` (on a mesh) each leaf is this
+    rank's shard of the stored array, on the mesh's device.  Returns
+    (tree, step); a leaf the checkpoint lacks raises ``KeyError``."""
     ckpt, step = step_dir(Path(directory), step)
     leaves = read_manifest(ckpt)["leaves"]
+    mesh = current_mesh() if shardings is not None else None
 
-    def restore(node, path):
+    def restore(node, spec, path):
         if isinstance(node, dict):
-            return {k: restore(v, path + (str(k),)) for k, v in node.items()}
+            return {k: restore(v, None if spec is None else spec[k],
+                               path + (str(k),)) for k, v in node.items()}
         key = _SEP.join(path)
         if key not in leaves:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        return read_leaf(ckpt, key, leaves[key]).to(
-            torch.as_tensor(node).device)
-    return restore(like_tree, ()), step
+        full = read_leaf(ckpt, key, leaves[key])
+        if mesh is not None:
+            return mesh.shard(full, spec)
+        return full.to(torch.as_tensor(node).device)
+    return restore(like_tree, shardings, ()), step

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sharding.rules import logical_spec
 
 __all__ = ["SyntheticPipeline"]
 
@@ -64,12 +65,20 @@ class SyntheticPipeline:
                 (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
         return batch
 
-    def device_batch(self, step: int, device=None) -> Dict[str, torch.Tensor]:
+    def device_batch(self, step: int, device=None,
+                     mesh=None) -> Dict[str, torch.Tensor]:
         """``batch_for_step(step)`` as tensors on ``device`` (default:
         the GPU): int32 leaves as they are, float inputs as bf16, as the
-        reference's ``device_batch`` casts them."""
-        dev = resolve_device(device)
-        return {k: (torch.from_numpy(v).to(dev) if v.dtype == np.int32
-                    else torch.from_numpy(v).to(device=dev,
-                                                dtype=torch.bfloat16))
-                for k, v in self.batch_for_step(step).items()}
+        reference's ``device_batch`` casts them.  With a ``mesh`` (the
+        reference's ``shardings``) this rank's rows of the data axes
+        (the logical ``batch`` dim), on the mesh's device."""
+        dev = resolve_device(mesh.device if mesh is not None else device)
+        out = {}
+        for k, v in self.batch_for_step(step).items():
+            t = torch.from_numpy(v)
+            if mesh is not None:
+                t = mesh.shard(t, logical_spec(
+                    ("batch",) + (None,) * (t.dim() - 1), t.shape, mesh))
+            out[k] = (t.to(dev) if v.dtype == np.int32
+                      else t.to(device=dev, dtype=torch.bfloat16))
+        return out

@@ -194,11 +194,14 @@ def flash_attention(q, k, v, q_offset=0, causal: bool = True,
     return _forward(q, k, v, q_offset, causal, window, False)
 
 
-def flash_attention_lse(q, k, v, causal: bool = True, window=None):
-    """The forward that training saves for the backward: ``(out, lse)``,
-    lse the f32 ``(B, H, Sq)`` log-sum-exp of each row's scaled scores.
-    The kernel writes it beside the same ``out`` bits."""
-    return _forward(q, k, v, 0, causal, window, True)
+def flash_attention_lse(q, k, v, causal: bool = True, window=None,
+                        q_offset=0):
+    """``(out, lse)``, lse the f32 ``(B, H, Sq)`` log-sum-exp of each
+    row's scaled scores, written by the kernel beside the same ``out``
+    bits: the forward that training saves for the backward (q_offset
+    0), and a decode step's partial over one shard of a cache split
+    along its sequence."""
+    return _forward(q, k, v, q_offset, causal, window, True)
 
 
 def _forward(q, k, v, q_offset, causal, window, want_lse):

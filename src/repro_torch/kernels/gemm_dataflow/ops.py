@@ -46,7 +46,7 @@ from ..build import load
 
 __all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
            "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC",
-           "LinearFn", "project", "plan_f32", "F32Plan"]
+           "LinearFn", "project", "project_f32", "plan_f32", "F32Plan"]
 
 #: the kernel's tile (bm = bn = bk)
 TILE = 128
@@ -249,26 +249,37 @@ def project(a, b):
     return matmul(a, b, Dataflow.OUTPUT_STATIONARY).to(a.dtype)
 
 
+def project_f32(a, b):
+    """``a @ b`` left in f32: the same kernel as ``project``, unrounded
+    (a partial sum that is rounded once after it is added to the
+    others); on the CPU ``a @ b`` in f32."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    return matmul(a, b, Dataflow.OUTPUT_STATIONARY)
+
+
 class LinearFn(torch.autograd.Function):
     """``x @ w`` for x ``(M, K)`` and w ``(K, N)`` of one dtype, with its
     gradient: dX = dY w^T and dW = x^T dY through ``project`` (the
-    transposes made contiguous first), each in its operand's dtype."""
+    transposes made contiguous first), each in its operand's dtype.
+    ``f32_out``: the forward is ``project_f32`` (its gradient arrives in
+    f32 and is rounded to x's dtype first)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, f32_out=False):
         ctx.save_for_backward(x, w)
-        return project(x, w)
+        return (project_f32 if f32_out else project)(x, w)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = project(dy, w.t().contiguous())
         if ctx.needs_input_grad[1]:
             dw = project(x.t().contiguous(), dy)
-        return dx, dw
+        return dx, dw, None
 
 
 def modeled_traffic(m: int, n: int, k: int, dataflow: Dataflow,

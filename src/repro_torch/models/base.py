@@ -1,7 +1,7 @@
 """Parameter specs and seeded initialization.
 
 A model's parameters are declared once as a nested dict of
-:class:`ParamSpec` (shape + initializer), laid out exactly like
+:class:`ParamSpec` (shape + logical axes + initializer), laid out exactly like
 the reference's parameter tree so the weight bridge
 (``checkpoint/bridge.py``) is a key-for-key copy.  The initializers
 draw from the reference's *distributions* (``fan_in`` normal,
@@ -10,6 +10,8 @@ scales, zero biases, uniform gates and mixes), not its bits:
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed.  Every leaf is drawn in f32 and stored in its spec's ``dtype``:
 f32, or ``cfg.param_dtype`` where ``with_param_dtype`` retagged it.
+The logical axes (one name a dim, the reference's) place a leaf on a
+mesh (``sharding.tree_shardings``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["ParamSpec", "normal", "fan_in", "zeros", "ones", "uniform",
-           "linspace_first_axis", "flatten_specs", "with_param_dtype",
+           "linspace_first_axis", "flatten_specs", "map_specs",
+           "with_param_dtype",
            "init_params"]
 
 InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
@@ -29,6 +32,7 @@ InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
+    axes: tuple                       # logical dim names, shape's rank
     init: Optional[InitFn] = None     # None -> fan_in(shape)
     #: a weight that enters its product in f32 (a router, RG-LRU's
     #: gates, RWKV6's decay projection): never cast to the compute
@@ -36,6 +40,10 @@ class ParamSpec:
     f32: bool = False
     #: storage dtype (``with_param_dtype``)
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"rank mismatch: {self.shape} vs {self.axes}")
 
     @property
     def init_shape(self) -> tuple:
@@ -101,10 +109,12 @@ def flatten_specs(tree, prefix: Tuple[str, ...] = ()
         yield from flatten_specs(tree[k], prefix + (k,))
 
 
-def _map_specs(fn, tree):
+def map_specs(fn, tree):
+    """``fn`` over every ``ParamSpec`` of a nested dict, as a tree of
+    the same keys."""
     if isinstance(tree, ParamSpec):
         return fn(tree)
-    return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return {k: map_specs(fn, v) for k, v in tree.items()}
 
 
 def with_param_dtype(spec_tree, dtype: str):
@@ -121,7 +131,7 @@ def with_param_dtype(spec_tree, dtype: str):
         if ps.dtype == torch.float32 and len(ps.shape) >= 2:
             return dataclasses.replace(ps, dtype=dt)
         return ps
-    return _map_specs(retag, spec_tree)
+    return map_specs(retag, spec_tree)
 
 
 def init_params(spec_tree, seed: int, device: torch.device,

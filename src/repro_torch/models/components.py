@@ -1,9 +1,18 @@
 """Model primitives of the port: ``repro.models.components`` (norms,
 rotary and M-RoPE, sinusoidal positions, GQA attention with optional
 QKV bias, sliding-window and cross attention, SwiGLU / GELU MLPs, the
-single-device mixture of experts, tied or untied embeddings with the
-optional scale and logit soft-cap), with the parameter specs of each
-part.
+mixture of experts, tied or untied embeddings with the optional scale
+and logit soft-cap), with the parameter specs (shapes and the
+reference's logical axes) of each part.
+
+On a training mesh a block's functions take ``tp`` (``sharding.spmd.
+TP``), its split over ``model``: attention heads and the FFN's hidden
+dim column-parallel with row-parallel ``wo`` / ``wd`` (f32 partials
+summed, rounded once), experts expert-parallel (the reference's
+``_moe_compute`` at ``ep_size`` = model), the vocabulary split in the
+embedding and the unembedding, and a decode cache split along its
+sequence (``sharded_decode_attention``).  ``tp=None`` is the
+single-device path, unchanged.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
@@ -38,9 +47,12 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import KV_TILE as FLASH_TILE
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_attention.ops import flash_attention_train
-from ..kernels.gemm_dataflow.ops import LinearFn, project
+from ..kernels.flash_attention.ops import (flash_attention_lse,
+                                           flash_attention_train)
+from ..kernels.gemm_dataflow.ops import LinearFn, project, project_f32
 from ..kernels.paged_attention import paged_attention
+from ..sharding.collectives import all_gather, fanout, gather, reduce
+from ..sharding.spmd import MODEL
 from .base import ParamSpec, normal, ones, zeros
 
 __all__ = ["linear", "row_sum", "rms_norm", "layer_norm", "norm_specs",
@@ -48,8 +60,9 @@ __all__ = ["linear", "row_sum", "rms_norm", "layer_norm", "norm_specs",
            "sinusoid_pos", "sinusoid_pos_at", "attn_specs", "project_qkv",
            "out_proj", "attention_block", "cross_attention_block",
            "encode_cross_kv", "mlp_specs", "mlp_block", "moe_specs",
-           "moe_capacity", "moe_route", "moe_block", "embed_specs",
-           "embed_tokens", "unembed", "decode_attention",
+           "moe_capacity", "moe_route", "moe_block",
+           "embed_specs", "embed_tokens", "unembed", "unembed_local",
+           "sharded_decode_attention", "decode_attention",
            "flash_decode_layout", "flash_decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
            "paged_verify_attention_block",
@@ -57,7 +70,7 @@ __all__ = ["linear", "row_sum", "rms_norm", "layer_norm", "norm_specs",
 
 
 # ---------------------------------------------------------- projection
-def linear(x, w, bias=None):
+def linear(x, w, bias=None, f32_out: bool = False):
     """``x @ w`` (+ ``bias``) in x's dtype: the one product every
     projection of the port goes through.  x ``(..., K)``, w ``(K, N)``
     (cast to x's dtype), bias ``(N,)`` added in x's dtype after the
@@ -73,10 +86,15 @@ def linear(x, w, bias=None):
     engine's 8-row decode and the oracle's 16-row decode would not give
     a row the same K/V.  On the CPU it is ``x @ w``.  Where a gradient
     is needed the product is ``LinearFn`` (on the card the same
-    forward bits)."""
+    forward bits).  ``f32_out``: the product left in f32, unrounded (a
+    row-parallel partial sum, rounded once after the sum over
+    ``model``)."""
     w = w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
-    y = LinearFn.apply(x2, w) if _needs_grad(x, w) else project(x2, w)
+    if _needs_grad(x, w):
+        y = LinearFn.apply(x2, w, f32_out)
+    else:
+        y = (project_f32 if f32_out else project)(x2, w)
     y = y.reshape(*x.shape[:-1], w.shape[1])
     if bias is not None:
         y = y + bias.to(x.dtype)
@@ -140,9 +158,9 @@ def layer_norm(x, scale, bias, eps: float):
 
 def norm_specs(d: int, kind: str) -> dict:
     if kind == "rmsnorm":
-        return {"scale": ParamSpec((d,), init=zeros)}
-    return {"scale": ParamSpec((d,), init=ones),
-            "bias": ParamSpec((d,), init=zeros)}
+        return {"scale": ParamSpec((d,), ("stats",), init=zeros)}
+    return {"scale": ParamSpec((d,), ("stats",), init=ones),
+            "bias": ParamSpec((d,), ("stats",), init=zeros)}
 
 
 def apply_norm(p, x, kind: str, eps: float):
@@ -234,30 +252,60 @@ def sinusoid_pos_at(pos, d: int):
 def attn_specs(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    p = {"wq": ParamSpec((d, h * hd)), "wk": ParamSpec((d, kvh * hd)),
-         "wv": ParamSpec((d, kvh * hd)), "wo": ParamSpec((h * hd, d))}
+    p = {"wq": ParamSpec((d, h * hd), ("embed", "q_heads")),
+         "wk": ParamSpec((d, kvh * hd), ("embed", "kv_heads")),
+         "wv": ParamSpec((d, kvh * hd), ("embed", "kv_heads")),
+         "wo": ParamSpec((h * hd, d), ("q_heads", "embed"))}
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((h * hd,), init=zeros)
-        p["bk"] = ParamSpec((kvh * hd,), init=zeros)
-        p["bv"] = ParamSpec((kvh * hd,), init=zeros)
+        p["bq"] = ParamSpec((h * hd,), ("stats",), init=zeros)
+        p["bk"] = ParamSpec((kvh * hd,), ("stats",), init=zeros)
+        p["bv"] = ParamSpec((kvh * hd,), ("stats",), init=zeros)
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec((hd,), init=zeros)
-        p["k_norm"] = ParamSpec((hd,), init=zeros)
+        p["q_norm"] = ParamSpec((hd,), ("stats",), init=zeros)
+        p["k_norm"] = ParamSpec((hd,), ("stats",), init=zeros)
     return p
 
 
-def project_qkv(p, x, cfg, positions, mrope_positions=None):
+def _slice(t, tp, n: int):
+    """This rank's ``n`` entries of a replicated vector whose whole
+    feeds work split over ``model`` (its gradient summed over it)."""
+    return fanout(t, tp.mesh, MODEL).narrow(0, tp.index * n, n)
+
+
+def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     """x: (B, S, D) -> q (B, S, H, Dh), k/v (B, S, KVH, Dh), QKV bias
     (added in the compute dtype after the product), qk-norm and RoPE or
-    M-RoPE applied.  ``p`` is one layer's attention parameters."""
+    M-RoPE applied.  ``p`` is one layer's attention parameters.
+
+    With ``tp.heads`` (heads split over ``model``): this rank's H / m
+    query heads, and its KVH / m KV heads (``tp.kv``) or, where m does
+    not divide KVH, the KV heads repeated G-fold to H and cut to its
+    H / m; the replicated biases and norm scales enter through
+    ``fanout``, as does x."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, h, hd)
-    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, kvh, hd)
-    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, kvh, hd)
+    bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    split = tp is not None and tp.heads
+    if split:
+        h //= tp.size
+        x = fanout(x, tp.mesh, MODEL)
+        qn, kn = (None if t is None else fanout(t, tp.mesh, MODEL)
+                  for t in (qn, kn))
+        bq = None if bq is None else _slice(bq, tp, h * hd)
+        if tp.kv:
+            kvh //= tp.size
+            bk, bv = (None if t is None else _slice(t, tp, kvh * hd)
+                      for t in (bk, bv))
+        else:
+            bk, bv = (None if t is None else fanout(t, tp.mesh, MODEL)
+                      for t in (bk, bv))
+    q = linear(x, p["wq"], bq).reshape(B, S, h, hd)
+    k = linear(x, p["wk"], bk).reshape(B, S, kvh, hd)
+    v = linear(x, p["wv"], bv).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     if cfg.rope_kind == "mrope":
         q = apply_mrope(q, mrope_positions, theta=cfg.rope_theta,
                         sections=cfg.mrope_sections)
@@ -268,18 +316,35 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None):
                        fraction=cfg.rope_fraction)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        fraction=cfg.rope_fraction)
+    if split and not tp.kv:
+        g = cfg.n_heads // cfg.n_kv_heads
+        k, v = (t.repeat_interleave(g, dim=2).narrow(2, tp.index * h, h)
+                for t in (k, v))
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def out_proj(p, out):
-    """(B, S, H, Dh) attention output -> (B, S, D)."""
+def out_proj(p, out, tp=None):
+    """(B, S, H, Dh) attention output -> (B, S, D).  With ``tp.heads``
+    ``wo`` holds this rank's rows: the partial products are summed in
+    f32 over ``model`` and rounded once."""
     B, S = out.shape[:2]
-    return linear(out.reshape(B, S, -1), p["wo"])
+    x = out.reshape(B, S, -1)
+    if tp is None or not tp.heads:
+        return linear(x, p["wo"])
+    return _row_parallel(x, p["wo"], tp)
+
+
+def _row_parallel(x, w, tp):
+    """``x @ w`` for a ``w`` holding this rank's rows of the whole
+    product: the f32 partials summed over ``model``, rounded once to
+    x's dtype (as ``linear`` rounds its one product)."""
+    y = linear(x, w, f32_out=True)
+    return reduce(y, tp.mesh, MODEL).to(x.dtype)
 
 
 def attention_block(p, x, cfg, *, positions, causal: bool = True,
                     window=None, mrope_positions=None, cache=None,
-                    cache_pos=None, paged: bool):
+                    cache_pos=None, paged: bool, tp=None):
     """The attention sub-layer on the contiguous path (the reference's
     ``attention_block``).  Returns (out (B, S, D), kv).
 
@@ -297,8 +362,15 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
     engine's decode does, so this lockstep path is its bit-for-bit
     oracle; any other model's runs the flash kernel at one query row
     (``flash_decode_attention``), which gives the bits of the same row
-    of a whole prefill: decode extends prefill exactly."""
-    q, k, v = project_qkv(p, x, cfg, positions, mrope_positions)
+    of a whole prefill: decode extends prefill exactly.
+
+    ``tp`` (on a mesh): the split over ``model`` (``project_qkv``,
+    ``out_proj``).  A decode cache holds every head: with ``tp.heads``
+    the row's q, k, v heads are gathered (one packed all-gather), every
+    head attends, and this rank's heads go to the row-parallel ``wo``.
+    A cache split along its sequence (``tp.seq_shards``) goes through
+    ``sharded_decode_attention``."""
+    q, k, v = project_qkv(p, x, cfg, positions, mrope_positions, tp)
     if cache is None:
         if window is not None and x.shape[1] % window:
             # the reference's local_attention contract
@@ -307,17 +379,75 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
         attend = (flash_attention_train if _needs_grad(q, k, v)
                   else flash_attention)
         out = attend(q, k, v, q_offset=0, causal=causal, window=window)
-        return out_proj(p, out), {"k": k, "v": v}
+        return out_proj(p, out, tp), {"k": k, "v": v}
     kc, vc = cache["k"], cache["v"]
+    split = tp is not None and tp.heads
+    if split:
+        q, k, v = _gather_heads(tp, q, k, v)
+    if tp is not None and tp.seq_shards > 1:
+        out = sharded_decode_attention(q, k, v, kc, vc, cache_pos, tp)
+    else:
+        out = _decode_whole(q, k, v, kc, vc, cache_pos, window, paged)
+    if split:
+        h = q.shape[2] // tp.size
+        out = out.narrow(2, tp.index * h, h)
+    return out_proj(p, out, tp), cache
+
+
+def _gather_heads(tp, *ts):
+    """Every head of one decode row's q, k, v from this rank's heads: one
+    all-gather over ``model`` of the three packed along the head dim
+    (a decode cache holds every head)."""
+    sizes = [t.shape[2] for t in ts]
+    got = all_gather(torch.cat(ts, 2), tp.mesh, MODEL, 2)
+    parts = torch.split(got, sum(sizes), 2)          # one a rank
+    return tuple(torch.cat([torch.split(r, sizes, 2)[i] for r in parts],
+                           2).contiguous() for i in range(len(ts)))
+
+
+def _decode_whole(q, k, v, kc, vc, cache_pos, window, paged):
+    """One decode step over a whole cache (see ``attention_block``)."""
     ring = window is not None and kc.shape[1] == window
     slot = cache_pos % window if ring else cache_pos
     kc[:, slot] = k[:, 0].to(kc.dtype)
     vc[:, slot] = v[:, 0].to(vc.dtype)
     if paged and window is None:
-        out = decode_attention(q, kc, vc, cache_pos + 1)
+        return decode_attention(q, kc, vc, cache_pos + 1)
+    return flash_decode_attention(q, kc, vc, cache_pos, window=window)
+
+
+def sharded_decode_attention(q, k, v, kc, vc, pos: int, tp):
+    """One decode step over a cache whose sequence is split over
+    ``model`` (the reference's ``kv_seq`` layout, its flash decoding):
+    rank i holds positions [i S_loc, (i+1) S_loc) of every head.  Only
+    the rank that owns position ``pos`` writes the token's K/V (at its
+    local offset); each rank attends over its own keys through the
+    flash kernel with the row's log-sum-exp, and the ranks' partial
+    results are combined (softmax-weighted by their lse, added in rank
+    order, so every rank gets the same bits).  q: (B, 1, H, Dh) of all
+    heads; a rank none of whose keys precede ``pos`` contributes
+    nothing."""
+    s_loc = kc.shape[1]
+    off = pos - tp.index * s_loc
+    if 0 <= off < s_loc:
+        kc[:, off] = k[:, 0].to(kc.dtype)
+        vc[:, off] = v[:, 0].to(vc.dtype)
+    B, _, H, Dh = q.shape
+    if off >= 0:
+        o, lse = flash_attention_lse(q, kc, vc, causal=True, q_offset=off)
     else:
-        out = flash_decode_attention(q, kc, vc, cache_pos, window=window)
-    return out_proj(p, out), cache
+        o = q.new_zeros(B, 1, H, Dh)
+        lse = torch.full((B, H, 1), -math.inf, dtype=torch.float32,
+                         device=q.device)
+    # one all-gather of every rank's (o, lse), packed: (m, B, H, Dh + 1)
+    got = all_gather(torch.cat([o.float()[:, 0], lse], -1)[None],
+                     tp.mesh, MODEL, 0)
+    os_, ls = got[..., :Dh], got[..., Dh:]
+    w = torch.exp(ls - ls.amax(0, keepdim=True))            # (m, B, H, 1)
+    num, den = os_[0] * w[0], w[0]
+    for i in range(1, got.shape[0]):
+        num, den = num + os_[i] * w[i], den + w[i]
+    return (num / den)[:, None].to(q.dtype)
 
 
 def cross_attention_block(p, x, enc_kv, cfg):
@@ -487,18 +617,26 @@ def mlp_specs(cfg, d_ff=None) -> dict:
     dense layer of an MoE stack takes ``moe.dense_d_ff``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_kind == "gelu":
-        return {"w1": ParamSpec((d, f)), "b1": ParamSpec((f,), init=zeros),
-                "w2": ParamSpec((f, d)), "b2": ParamSpec((d,), init=zeros)}
-    return {"wg": ParamSpec((d, f)), "wu": ParamSpec((d, f)),
-            "wd": ParamSpec((f, d))}
+        return {"w1": ParamSpec((d, f), ("embed", "ff")),
+                "b1": ParamSpec((f,), ("stats",), init=zeros),
+                "w2": ParamSpec((f, d), ("ff", "embed")),
+                "b2": ParamSpec((d,), ("stats",), init=zeros)}
+    return {"wg": ParamSpec((d, f), ("embed", "ff")),
+            "wu": ParamSpec((d, f), ("embed", "ff")),
+            "wd": ParamSpec((f, d), ("ff", "embed"))}
 
 
-def mlp_block(p, x, cfg, gather=None):
+def mlp_block(p, x, cfg, gather=None, tp=None):
     """Dense FFN in the compute dtype: SwiGLU silu(x Wg) * (x Wu) Wd, or
     GELU (tanh approximation, ``jax.nn.gelu``'s default) with biases.
-    Under tensor parallelism (``gather``) the up projections hold this
-    shard's slice of the hidden dim, which is gathered (concatenated,
-    not reduced) before the replicated down projection."""
+    Under tensor-parallel serving (``gather``) the up projections hold
+    this shard's slice of the hidden dim, which is gathered
+    (concatenated, not reduced) before the replicated down projection.
+    On a training mesh with ``tp.ff`` the up projections are column-
+    and the down projection row-parallel over ``model``
+    (``_row_parallel``: f32 partials summed, rounded once)."""
+    if tp is not None and tp.ff:
+        return _mlp_split(p, fanout(x, tp.mesh, MODEL), cfg, tp)
     if cfg.mlp_kind == "gelu":
         h = F.gelu(linear(x, p["w1"], p["b1"]), approximate="tanh")
         return linear(_tp_gather_heads(h, gather, -1), p["w2"], p["b2"])
@@ -507,17 +645,32 @@ def mlp_block(p, x, cfg, gather=None):
     return linear(h, p["wd"])
 
 
+def _mlp_split(p, x, cfg, tp):
+    """The FFN over this rank's hidden slice (x entered through
+    ``fanout``)."""
+    if cfg.mlp_kind == "gelu":
+        w1 = p["w1"]
+        h = F.gelu(linear(x, w1, _slice(p["b1"], tp, w1.shape[1])),
+                   approximate="tanh")
+        return _row_parallel(h, p["w2"], tp) + p["b2"].to(x.dtype)
+    h = F.silu(linear(x, p["wg"])) * linear(x, p["wu"])
+    return _row_parallel(h, p["wd"], tp)
+
+
 # ------------------------------------------------------------------ moe
 def moe_specs(cfg) -> dict:
     m = cfg.moe
     d, fe, e = cfg.d_model, m.d_expert_ff, m.n_experts
-    p = {"router": ParamSpec((d, e), init=normal(0.02), f32=True),
-         "wg": ParamSpec((e, d, fe)), "wu": ParamSpec((e, d, fe)),
-         "wd": ParamSpec((e, fe, d))}
+    p = {"router": ParamSpec((d, e), ("embed", None), init=normal(0.02),
+                             f32=True),
+         "wg": ParamSpec((e, d, fe), ("expert", "embed", "expert_ff")),
+         "wu": ParamSpec((e, d, fe), ("expert", "embed", "expert_ff")),
+         "wd": ParamSpec((e, fe, d), ("expert", "expert_ff", "embed"))}
     if m.n_shared:
         fs = fe * m.n_shared
-        p["shared"] = {"wg": ParamSpec((d, fs)), "wu": ParamSpec((d, fs)),
-                       "wd": ParamSpec((fs, d))}
+        p["shared"] = {"wg": ParamSpec((d, fs), ("embed", "ff")),
+                       "wu": ParamSpec((d, fs), ("embed", "ff")),
+                       "wd": ParamSpec((fs, d), ("ff", "embed"))}
     return p
 
 
@@ -562,70 +715,132 @@ class _RepeatRows(torch.autograd.Function):
         return out, None
 
 
-def moe_block(p, x, cfg):
-    """Mixture of experts on one device (the reference's
-    ``_moe_compute`` at ``ep_size = 1``).  x: (B, S, D) -> (y (B, S, D),
-    the Switch load-balance aux loss).
+def moe_block(p, x, cfg, tp=None):
+    """Mixture of experts: the reference's ``_moe_compute``, on one
+    device (``ep_size = 1``) or expert-parallel on a mesh.  x: (B, S,
+    D) -> (y (B, S, D), the Switch load-balance aux loss of this call's
+    tokens).
 
-    Every (token, choice) pair takes the next free slot of its expert in
-    token order; pairs past an expert's capacity C are dropped: they are
-    written to a spare slot C that no product reads, and read back from
-    a zero row there.  The experts' SwiGLU runs as (E, C, D) batched
-    products in the compute dtype; the gate-weighted outputs are added
-    back per token in choice order, then the shared expert's dense
-    SwiGLU.  Under grad a token's K dispatched copies send their
-    gradients back added in choice order too (``_RepeatRows``), and the
-    gathers' backwards write each slot once, so a row's gradient bits
-    rest on no library's choice of order; the experts' products stay
-    ``torch.bmm`` (the reference's ``einsum``s)."""
+    With ``tp.experts`` this rank owns E / m experts (its ``model``
+    index ``ep_index``) and their weights: it routes its own tokens
+    (the router whole, as every rank of ``model`` does), dispatches only
+    the (token, choice) pairs that land on its experts, with the
+    capacity of its own token count, and returns the sum over ``model``
+    of every rank's partial output (``_moe_partial``), the shared
+    expert's row-parallel partial (``tp.shared``) added before the one
+    f32 sum.  An expert's slots are counted over the pairs routed to it
+    in token order, so a rank's dispatch is the single-device dispatch
+    restricted to its experts."""
     m = cfg.moe
     B, S, D = x.shape
-    T, E, K = B * S, m.n_experts, m.top_k
-    C = moe_capacity(T, m)
-    xf = x.reshape(T, D)
+    xf = x.reshape(B * S, D)
     probs, topw, topi = moe_route(p, xf, cfg)
+    ep = tp is not None and tp.experts
+    # the inputs of split work enter through fanout: the router's are
+    # the whole work of every rank
+    xe, gate = ((fanout(xf, tp.mesh, MODEL), fanout(topw, tp.mesh, MODEL))
+                if ep else (xf, topw))
+    y = _moe_partial(p, xe, gate, topi, cfg,
+                    tp.size if ep else 1, tp.index if ep else 0)
+    if m.n_shared:
+        sp = p["shared"]
+        split = tp is not None and tp.shared
+        xs = fanout(xf, tp.mesh, MODEL) if split else xf
+        h = F.silu(linear(xs, sp["wg"])) * linear(xs, sp["wu"])
+        if split:
+            sh = linear(h, sp["wd"], f32_out=True)
+            y = reduce(y.float() + sh, tp.mesh, MODEL) if ep else \
+                y + reduce(sh, tp.mesh, MODEL).to(x.dtype)
+        else:
+            y = (reduce(y.float(), tp.mesh, MODEL).to(x.dtype) if ep
+                 else y) + linear(h, sp["wd"])
+    elif ep:
+        y = reduce(y.float(), tp.mesh, MODEL)
+    E = m.n_experts
+    me = probs.mean(dim=0)
+    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    return y.to(x.dtype).reshape(B, S, D), E * torch.sum(me * ce)
+
+
+def _moe_partial(p, xf, topw, topi, cfg, ep_size: int = 1,
+                ep_index: int = 0):
+    """The experts' part of the reference's ``_moe_compute(p, x, cfg,
+    ep_size, ep_index)``: (T, D) tokens with their gate weights and
+    expert ids (T, K) -> the gate-weighted outputs (T, D) of the (token,
+    choice) pairs that land on the ``E / ep_size`` experts this shard
+    owns (``p``'s expert weights are those experts').
+
+    Every pair takes the next free slot of its expert in token order;
+    pairs past an expert's capacity C (counted from T, as the
+    reference counts it) are dropped: they are written to a spare slot
+    C that no product reads, and read back from a zero row there, as
+    are the pairs of other shards' experts.  The experts' SwiGLU runs
+    as (E_loc, C, D) batched products in the compute dtype; the
+    gate-weighted outputs are added back per token in choice order.
+    Under grad a token's K dispatched copies send their gradients back
+    added in choice order too (``_RepeatRows``), and the gathers'
+    backwards write each slot once, so a row's gradient bits rest on
+    no library's choice of order; the experts' products stay
+    ``torch.bmm`` (the reference's ``einsum``s)."""
+    m = cfg.moe
+    T, D = xf.shape
+    K = m.top_k
+    e_loc = m.n_experts // ep_size
+    C = moe_capacity(T, m)
     eid = topi.reshape(-1)                                   # (T*K,)
     gate = topw.reshape(-1)
-    onehot = F.one_hot(eid, E)
+    lid = eid - ep_index * e_loc
+    mine = (lid >= 0) & (lid < e_loc)
+    lid = torch.where(mine, lid, 0)
+    onehot = F.one_hot(lid, e_loc) * mine[:, None]
     pos = torch.cumsum(onehot, dim=0) - onehot
-    pos = torch.gather(pos, 1, eid[:, None])[:, 0]
-    pos = torch.where(pos < C, pos, C)                       # C: dropped
-    x_e = x.new_zeros(E, C + 1, D)
-    x_e[eid, pos] = _RepeatRows.apply(xf, K)
+    pos = torch.gather(pos, 1, lid[:, None])[:, 0]
+    pos = torch.where(mine & (pos < C), pos, C)              # C: dropped
+    x_e = xf.new_zeros(e_loc, C + 1, D)
+    x_e[lid, pos] = _RepeatRows.apply(xf, K)
     x_e = x_e[:, :C]
-    g = F.silu(torch.bmm(x_e, p["wg"].to(x.dtype)))
-    u = torch.bmm(x_e, p["wu"].to(x.dtype))
-    y_e = F.pad(torch.bmm(g * u, p["wd"].to(x.dtype)), (0, 0, 0, 1))
+    g = F.silu(torch.bmm(x_e, p["wg"].to(xf.dtype)))
+    u = torch.bmm(x_e, p["wu"].to(xf.dtype))
+    y_e = F.pad(torch.bmm(g * u, p["wd"].to(xf.dtype)), (0, 0, 0, 1))
     # each token's K gate-weighted outputs summed in choice order, one
     # rounded add at a time from zero (the reference's scatter-add
     # order); an atomic index_add_ would sum them in whatever order
     # the card's threads arrive, so a row's bits would depend on the
     # other rows of its call and differ between runs
-    y_k = (y_e[eid, pos] * gate[:, None].to(x.dtype)).reshape(T, K, D)
-    y = x.new_zeros(T, D)
+    y_k = (y_e[lid, pos] * gate[:, None].to(xf.dtype)).reshape(T, K, D)
+    y = xf.new_zeros(T, D)
     for k in range(K):
         y = y + y_k[:, k]
-    if m.n_shared:
-        sp = p["shared"]
-        sg = F.silu(linear(xf, sp["wg"]))
-        y = y + linear(sg * linear(xf, sp["wu"]), sp["wd"])
-    me = probs.mean(dim=0)
-    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
-    return y.reshape(B, S, D), E * torch.sum(me * ce)
+    return y
 
 
 # ----------------------------------------------------------- embeddings
 def embed_specs(cfg) -> dict:
-    p = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), init=normal(0.02))}
+    p = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                          init=normal(0.02))}
     if not cfg.tie_embeddings:
-        p["head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+        p["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                              ("embed", "vocab"))
     return p
 
 
-def embed_tokens(p, tokens, cfg, dtype):
+def embed_tokens(p, tokens, cfg, dtype, tp=None):
+    """Token embeddings in ``dtype``.  With ``tp.vocab`` the table holds
+    this rank's vocabulary slice: each rank looks up the tokens it owns
+    (zeros elsewhere) and the ranks' rows are summed over ``model``,
+    one non-zero term each, so the sum is the row itself."""
     # F.embedding: the gather's bits, and a backward that sums a
     # repeated token's gradients in a fixed order on the card
-    x = F.embedding(tokens.long(), p["tok"]).to(dtype)
+    tok = tokens.long()
+    if tp is not None and tp.vocab:
+        n = p["tok"].shape[0]
+        local = tok - tp.index * n
+        mine = (local >= 0) & (local < n)
+        x = F.embedding(torch.where(mine, local, 0), p["tok"])
+        x = torch.where(mine[..., None], x, 0).to(dtype)
+        x = reduce(x, tp.mesh, MODEL)
+    else:
+        x = F.embedding(tok, p["tok"]).to(dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -635,7 +850,7 @@ def embed_tokens(p, tokens, cfg, dtype):
 UNEMBED_ROWS = 64
 
 
-def unembed(p, x, cfg):
+def unembed(p, x, cfg, tp=None):
     """Unembedding in f32: (..., D) -> (..., V), through the tied
     embedding table or the untied ``head``, soft-capped as
     ``c tanh(logits / c)`` when the config sets ``logit_softcap``.
@@ -648,7 +863,23 @@ def unembed(p, x, cfg):
     otherwise depend on how many rows share the call, and the engine's
     logits would not match the oracle's bit for bit.  Training needs no
     such row independence: under grad the rows go through one product,
-    which is deterministic at a fixed shape."""
+    which is deterministic at a fixed shape.
+
+    With ``tp.vocab`` each rank computes its vocabulary slice
+    (``unembed_local``) and the slices are gathered over ``model``."""
+    if tp is not None and tp.vocab:
+        return gather(unembed_local(p, x, cfg, tp), tp.mesh, MODEL,
+                      x.dim() - 1, split=False)
+    return _unembed(p, x, cfg)
+
+
+def unembed_local(p, x, cfg, tp):
+    """This rank's vocabulary slice of the logits, (..., V / m), x
+    entering through ``fanout`` (every rank's slice reads it)."""
+    return _unembed(p, fanout(x, tp.mesh, MODEL), cfg)
+
+
+def _unembed(p, x, cfg):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
     M = x2.shape[0]

@@ -36,6 +36,14 @@ reference does, a batch dict with ``tokens`` and optionally
 
 Caches and page pools are updated **in place** (the reference returns
 new arrays); each program returns the state it was given.
+
+Under ``with mesh:`` (``launch/mesh.py``) ``apply``, ``prefill`` and
+``decode_step`` compute the rank's share of the whole batch: the
+parameters are the rank's shards (``sharding.spmd.shard_tree`` by
+``tree_shardings(param_specs())``), the batch rows the rank's rows of
+the data axes, and each block is computed as ``sharding/spmd.py``
+describes (FSDP gathers over ``data``; over ``model`` only the
+attention stacks split).  ``cache_specs`` places a decode cache.
 """
 from __future__ import annotations
 
@@ -46,11 +54,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..launch.mesh import current_mesh
+from ..sharding import spmd
+from ..sharding.rules import logical_spec, tree_shardings
 from ..tree import tree_map
 from . import components as C
 from . import rglru as R
 from . import rwkv6 as W
-from .base import ParamSpec, init_params, with_param_dtype
+from .base import ParamSpec, init_params, map_specs, with_param_dtype
+from .meshed import MeshModel
 
 __all__ = ["DecoderLM", "param_specs"]
 
@@ -58,9 +70,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _stack(tree, n: int):
-    """Prefix every leaf's shape with a stacked layer axis of ``n``."""
+    """Prefix every leaf's shape with a stacked layer axis of ``n``
+    (logical axis ``"layers"``)."""
     if isinstance(tree, ParamSpec):
-        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape))
+        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape),
+                                   axes=("layers",) + tuple(tree.axes))
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
@@ -117,12 +131,16 @@ def param_specs(cfg) -> dict:
     return with_param_dtype(specs, cfg.param_dtype)
 
 
+#: the logical axes of an attention decode cache (the reference's)
+KV_AXES = ("batch", "kv_seq", "act_heads", None)
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s view of a layer-stacked parameter tree."""
     return tree_map(lambda t: t[i], tree)
 
 
-class DecoderLM:
+class DecoderLM(MeshModel):
     """``wkv_prefill`` chooses the form of an RWKV6 prompt: "step" (the
     decode step's operations token by token, so a decode step extends a
     prefill bit for bit) or "chunked" (the reference's chunked-parallel
@@ -163,20 +181,58 @@ class DecoderLM:
                 and set(cfg.layer_kinds) == {"attn"}
                 and cfg.rope_kind != "mrope")
 
-    def _blocks(self, params):
-        """(kind, uses MoE, parameters) of every layer, in order."""
+    def _blocks(self, params, place=None):
+        """(kind, uses MoE, parameters, their placement or None) of
+        every layer, in order."""
         cfg, fd = self.cfg, self.first_dense
         kinds = cfg.layer_kinds
+
+        def at(name):
+            return None if place is None else place[name]
         if self.scanned:
             for i in range(fd):
-                yield kinds[i], False, params[f"dense_layer_{i}"]
+                name = f"dense_layer_{i}"
+                yield kinds[i], False, params[name], at(name)
+            lp = None if place is None else spmd.unstack(place["layers"])
             for i in range(cfg.n_layers - fd):
-                yield kinds[-1], cfg.moe is not None, _layer(
-                    params["layers"], i)
+                yield (kinds[-1], cfg.moe is not None,
+                       _layer(params["layers"], i), lp)
         else:
             for i, kind in enumerate(kinds):
-                yield (kind, cfg.moe is not None and i >= fd,
-                       params[f"layer_{i:02d}"])
+                name = f"layer_{i:02d}"
+                yield (kind, cfg.moe is not None and i >= fd, params[name],
+                       at(name))
+
+    # -------------------------------------------------------------- mesh
+    # On a mesh (``with mesh:``, launch/mesh.py) every parameter is the
+    # rank's shard of the leaf (``sharding.spmd.shard_tree``), batch rows
+    # are the rank's rows of the data axes, and each block is computed
+    # as ``sharding/spmd.py`` describes.  A one-rank mesh computes what
+    # no mesh computes.
+    def _tp(self, mesh, pl, use_moe: bool, whole_heads: bool = False,
+            cache_step: bool = False, seq_shards: int = 1):
+        """The split over ``model`` of one block placed as ``pl``: heads
+        split where ``model`` divides H (and, in a decode step, whose
+        cache holds every head, KVH too), unless ``whole_heads`` (a
+        prefill that builds a cache); the FFN's hidden dim, the
+        experts, as stored."""
+        m = mesh.axis_size(spmd.MODEL)
+        if m == 1:
+            return spmd.TP(mesh)
+        cfg = self.cfg
+        mix, ffn = pl["mix"], pl["ffn"]
+        heads = (not whole_heads and cfg.n_heads % m == 0
+                 and spmd.splits(mix["wq"][0], 1))
+        kv = (heads and cfg.n_kv_heads % m == 0
+              and spmd.splits(mix["wk"][0], 1))
+        heads = heads and (kv or not cache_step)
+        if use_moe:
+            return spmd.TP(mesh, heads, kv, experts=spmd.splits(
+                ffn["wg"][0], 0), shared="shared" in ffn and spmd.splits(
+                ffn["shared"]["wg"][0], 1), seq_shards=seq_shards)
+        w = "w1" if cfg.mlp_kind == "gelu" else "wg"
+        return spmd.TP(mesh, heads, kv, ff=spmd.splits(ffn[w][0], 1),
+                       seq_shards=seq_shards)
 
     # ------------------------------------------------------------ blocks
     def _norm(self, p, x):
@@ -194,12 +250,16 @@ class DecoderLM:
         return x + f
 
     def _block(self, kind, use_moe, p, x, *, positions, mrope, cache,
-               pos, train: bool = False):
+               pos, train: bool = False, tp=None, pl=None):
         """One block on the contiguous path: prefill (``cache`` None)
         or one decode step at ``pos``; ``train``: the training forward
-        (RWKV6 runs the reference's chunked WKV).  Returns (x, the
-        layer's cache, the MoE's aux loss or None)."""
+        (RWKV6 runs the reference's chunked WKV).  On a mesh ``p`` is
+        the block's stored shards, placed as ``pl``, and ``tp`` its
+        split over ``model``.  Returns (x, the layer's cache, the MoE's
+        aux loss or None)."""
         cfg = self.cfg
+        if tp is not None:
+            p = spmd.localize(p, pl, tp)
         h = self._norm(p["ln1"], x)
         part = (lambda name: None) if cache is None else cache.get
         if kind in ("attn", "local_attn"):
@@ -207,7 +267,7 @@ class DecoderLM:
             mix, kv = C.attention_block(
                 p["mix"], h, cfg, positions=positions, window=window,
                 mrope_positions=mrope, cache=part("kv"), cache_pos=pos,
-                paged=self.supports_paged_decode())
+                paged=self.supports_paged_decode(), tp=tp)
             if window is not None and cache is None:   # prefill -> ring
                 kv = {n: t[:, -window:].contiguous() for n, t in kv.items()}
             new = {"kv": kv}
@@ -226,18 +286,10 @@ class DecoderLM:
             f, new["ffn"] = W.rwkv_channel_block(p["ffn"], h, cfg,
                                                  state=part("ffn"))
         elif use_moe:
-            f, aux = C.moe_block(p["ffn"], h, cfg)
+            f, aux = C.moe_block(p["ffn"], h, cfg, tp=tp)
         else:
-            f = C.mlp_block(p["ffn"], h, cfg)
+            f = C.mlp_block(p["ffn"], h, cfg, tp=tp)
         return x + f, new, aux
-
-    def _embed(self, params, tokens):
-        return C.embed_tokens(params["embed"], tokens.to(self.device),
-                              self.cfg, self.dtype)
-
-    def logits(self, params, h):
-        """f32 logits of final-norm hidden states (..., D)."""
-        return C.unembed(params["embed"], h, self.cfg)
 
     def _logits(self, params, x):
         return self.logits(params, self._norm(params["final_norm"], x))
@@ -263,9 +315,14 @@ class DecoderLM:
                      else torch.as_tensor(mrope, device=self.device))
         return tokens, pe, mrope
 
-    def _forward(self, params, batch, train: bool = False):
+    def _forward(self, params, batch, train: bool = False,
+                 decode_plan: bool = False):
         """Final-norm hidden states (B, S, D), every layer's cache (none
-        with ``train``) and the MoE layers' summed aux loss (f32)."""
+        with ``train``) and the MoE layers' summed aux loss (f32).  On a
+        mesh ``decode_plan`` keeps every head on every rank of ``model``
+        (the layout a decode cache is cut from)."""
+        mesh = current_mesh()
+        place = None if mesh is None else self.placement(mesh)
         tokens, pe, mrope = self._batch(batch)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
@@ -282,13 +339,16 @@ class DecoderLM:
             # zero-padded full-size gradient each
             params = {**params,
                       "layers": tree_map(torch.unbind, params["layers"])}
-        for kind, use_moe, p in self._blocks(params):
+        for kind, use_moe, p, pl in self._blocks(params, place):
+            tp = (None if mesh is None else
+                  self._tp(mesh, pl, use_moe, whole_heads=decode_plan))
             if train:
-                def layer(p, x, kind=kind, use_moe=use_moe):
+                def layer(p, x, kind=kind, use_moe=use_moe, tp=tp, pl=pl):
                     y, _, aux = self._block(kind, use_moe, p, x,
                                             positions=positions,
                                             mrope=mrope, cache=None,
-                                            pos=None, train=True)
+                                            pos=None, train=True, tp=tp,
+                                            pl=pl)
                     return (y, aux) if use_moe else y
                 if self.cfg.remat == "full":
                     # the reference's jax.checkpoint, every block kind:
@@ -305,7 +365,7 @@ class DecoderLM:
                 continue
             x, c, aux = self._block(kind, use_moe, p, x,
                                     positions=positions, mrope=mrope,
-                                    cache=None, pos=None)
+                                    cache=None, pos=None, tp=tp, pl=pl)
             if aux is not None:
                 aux_total = aux_total + aux
             caches.append(c)
@@ -332,8 +392,13 @@ class DecoderLM:
         """Forward + contiguous decode cache.  Returns (last-token logits
         (B, V), cache ``{"layers": [one per layer], "pos": S}``);
         ``max_len`` > S pads the full-attention caches with decode
-        headroom (ring buffers and recurrent states are fixed-size)."""
-        h, caches, _ = self._forward(params, batch)
+        headroom (ring buffers and recurrent states are fixed-size).
+        On a mesh the cache is this rank's shard of the reference's
+        layout (``cache_specs``: batch rows over the data axes, the
+        sequence over ``model``; see ``shard_cache``)."""
+        mesh = current_mesh()
+        h, caches, _ = self._forward(params, batch,
+                                     decode_plan=mesh is not None)
         S = h.shape[1]
         if max_len is not None and max_len > S:
             for kind, c in zip(self.cfg.layer_kinds, caches):
@@ -341,39 +406,94 @@ class DecoderLM:
                     c["kv"] = {n: torch.cat([t, t.new_zeros(
                         (t.shape[0], max_len - S) + t.shape[2:])], 1)
                         for n, t in c["kv"].items()}
-        return self.logits(params, h[:, -1:])[:, 0], {"layers": caches,
-                                                      "pos": S}
+        cache = {"layers": caches, "pos": S}
+        if mesh is not None:
+            cache = self._cut_sequence(cache, mesh)
+        return self.logits(params, h[:, -1:])[:, 0], cache
+
+    def _block_cache_specs(self, kind: str, batch: int,
+                           seq_len: int) -> dict:
+        cfg = self.cfg
+        if kind in ("attn", "local_attn"):
+            s = seq_len if kind == "attn" else min(cfg.local_window,
+                                                   seq_len)
+            shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+            kv = ParamSpec(shape, KV_AXES, dtype=torch.bfloat16)
+            return {"kv": {"k": kv, "v": kv}}
+        if kind == "rglru":
+            return {"rec": R.rglru_state_specs(cfg, batch)}
+        st = W.rwkv_state_specs(cfg, batch)
+        return {"att": {"shift": st["att_shift"], "wkv": st["wkv"]},
+                "ffn": {"shift": st["ffn_shift"]}}
+
+    def cache_specs(self, batch: int, seq_len: int) -> dict:
+        """Specs (shape, logical axes, dtype) of a decode cache of
+        capacity ``seq_len``, in the port's cache layout (one entry a
+        layer: the reference's, unstacked): attention K/V bf16 on
+        ``("batch", "kv_seq", "act_heads", None)``, local attention a
+        ring of min(window, seq_len) slots, recurrent states."""
+        return {"layers": [self._block_cache_specs(k, batch, seq_len)
+                           for k in self.cfg.layer_kinds],
+                "pos": ParamSpec((), (), dtype=torch.int32)}
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
-        """An empty contiguous decode cache of capacity ``seq_len`` (the
-        reference's layout and dtypes: bf16 K/V, local attention a ring
-        of min(window, seq_len) slots, recurrent states)."""
-        cfg = self.cfg
-        dev = self.device
+        """An empty contiguous decode cache of capacity ``seq_len``
+        (zeros of ``cache_specs``; ``pos`` 0)."""
+        def zeros(ps):
+            return torch.zeros(ps.shape, dtype=ps.dtype,
+                               device=self.device)
+        specs = self.cache_specs(batch, seq_len)
+        return {"layers": [map_specs(zeros, c) for c in specs["layers"]],
+                "pos": 0}
 
-        def zeros(shape, dtype=torch.bfloat16):
-            return torch.zeros(shape, dtype=dtype, device=dev)
+    def shard_cache(self, cache, mesh) -> dict:
+        """This rank's shard of a whole decode cache on ``mesh``, placed
+        by ``cache_specs`` (the reference's ``tree_shardings(
+        cache_specs)``); its ``seq_shards`` tells ``decode_step`` how
+        many ranks of ``model`` split the attention caches' sequence."""
+        k0 = next(c["kv"]["k"] for c in cache["layers"] if "kv" in c)
+        specs = self.cache_specs(k0.shape[0], k0.shape[1])
+        out = spmd.shard_tree(cache, tree_shardings(specs, mesh), mesh)
+        return {**out, "seq_shards": self._seq_shards(
+            mesh, k0.shape[0], k0.shape[1], k0.shape[2])}
 
-        def layer(kind):
-            if kind in ("attn", "local_attn"):
-                s = (seq_len if kind == "attn"
-                     else min(cfg.local_window, seq_len))
-                shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-                return {"kv": {"k": zeros(shape), "v": zeros(shape)}}
-            if kind == "rglru":
-                return {"rec": {n: zeros(*sd) for n, sd in
-                                R.rglru_state_shapes(cfg, batch).items()}}
-            st = {n: zeros(*sd) for n, sd in
-                  W.rwkv_state_shapes(cfg, batch).items()}
-            return {"att": {"shift": st["att_shift"], "wkv": st["wkv"]},
-                    "ffn": {"shift": st["ffn_shift"]}}
-        return {"layers": [layer(k) for k in cfg.layer_kinds], "pos": 0}
+    def _seq_shards(self, mesh, batch: int, seq: int, kvh: int) -> int:
+        """How many ranks of ``model`` split an attention cache of
+        ``batch`` rows (whole batch) and ``seq`` positions."""
+        spec = logical_spec(KV_AXES, (batch, seq, kvh, self.cfg.head_dim),
+                            mesh)
+        if spmd.splits(spec, 2):
+            raise ValueError(f"a decode cache of {seq} positions does not "
+                             f"split over model={mesh.axis_size('model')}"
+                             "; its heads would, which the port does not "
+                             "cover: give it a length model divides")
+        return mesh.axis_size("model") if spmd.splits(spec, 1) else 1
+
+    def _cut_sequence(self, cache, mesh):
+        """A prefill's cache (this rank's batch rows, every position) ->
+        this rank's sequence shard of the attention caches."""
+        k0 = next((c["kv"]["k"] for c in cache["layers"] if "kv" in c),
+                  None)
+        if k0 is None:
+            return {**cache, "seq_shards": 1}
+        n = self._seq_shards(mesh, k0.shape[0] * mesh.axis_size(
+            mesh.data_axes()), k0.shape[1], k0.shape[2])
+        if n > 1:
+            step, i = k0.shape[1] // n, mesh.axis_index("model")
+            for c in cache["layers"]:
+                c["kv"] = {k: t.narrow(1, i * step, step).contiguous()
+                           for k, t in c["kv"].items()}
+        return {**cache, "seq_shards": n}
 
     def decode_step(self, params, cache, tokens):
         """One lockstep decode step: tokens (B, 1) at position
         ``cache["pos"]``.  Attention layers write this token's K/V into
         the cache in place; recurrent layers replace their state.
-        Returns (logits (B, V), cache) with ``pos`` advanced."""
+        Returns (logits (B, V), cache) with ``pos`` advanced.  On a mesh
+        the cache is this rank's shard (``prefill`` or ``shard_cache``)
+        and the tokens its batch rows; every head attends on every rank
+        of ``model``, whose ranks split the cache's sequence
+        (``components.sharded_decode_attention``)."""
         cfg = self.cfg
         pos = int(cache["pos"])
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -384,12 +504,19 @@ class DecoderLM:
         mrope = (torch.full((B, 3, 1), pos, dtype=torch.long,
                             device=self.device)
                  if cfg.rope_kind == "mrope" else None)
+        mesh = current_mesh()
+        place = None if mesh is None else self.placement(mesh)
         x = self._embed(params, tokens)
         layers = cache["layers"]
-        for i, (kind, use_moe, p) in enumerate(self._blocks(params)):
+        for i, (kind, use_moe, p, pl) in enumerate(
+                self._blocks(params, place)):
+            tp = None if mesh is None else self._tp(
+                mesh, pl, use_moe, cache_step=True,
+                seq_shards=cache.get("seq_shards", 1))
             x, layers[i], _ = self._block(kind, use_moe, p, x,
                                           positions=positions, mrope=mrope,
-                                          cache=layers[i], pos=pos)
+                                          cache=layers[i], pos=pos, tp=tp,
+                                          pl=pl)
         cache["pos"] = pos + 1
         return self._logits(params, x)[:, 0], cache
 

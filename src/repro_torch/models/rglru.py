@@ -28,7 +28,7 @@ from .base import ParamSpec, normal, uniform, zeros
 
 __all__ = ["C_FACTOR", "CONV_WIDTH", "rglru_block_specs", "rglru_scan",
            "rglru_step", "causal_conv1d", "rglru_block",
-           "rglru_state_shapes"]
+           "rglru_state_specs"]
 
 C_FACTOR = 8.0
 CONV_WIDTH = 4
@@ -37,17 +37,18 @@ CONV_WIDTH = 4
 def rglru_block_specs(cfg) -> dict:
     d, w = cfg.d_model, cfg.lru_width
     return {
-        "w_gate": ParamSpec((d, w)),
-        "w_in": ParamSpec((d, w)),
-        "conv_w": ParamSpec((CONV_WIDTH, w), init=normal(0.1)),
-        "conv_b": ParamSpec((w,), init=zeros),
-        "wr": ParamSpec((w, w), f32=True),
-        "br": ParamSpec((w,), init=zeros),
-        "wi": ParamSpec((w, w), f32=True),
-        "bi": ParamSpec((w,), init=zeros),
+        "w_gate": ParamSpec((d, w), ("embed", "ff")),
+        "w_in": ParamSpec((d, w), ("embed", "ff")),
+        "conv_w": ParamSpec((CONV_WIDTH, w), ("conv", "ff"),
+                            init=normal(0.1)),
+        "conv_b": ParamSpec((w,), ("stats",), init=zeros),
+        "wr": ParamSpec((w, w), ("ff", None), f32=True),
+        "br": ParamSpec((w,), ("stats",), init=zeros),
+        "wi": ParamSpec((w, w), ("ff", None), f32=True),
+        "bi": ParamSpec((w,), ("stats",), init=zeros),
         # Lambda so that a = sigmoid(L)^c spreads over (0.9, 0.999)
-        "lam": ParamSpec((w,), init=uniform(0.38, 0.8)),
-        "w_out": ParamSpec((w, d)),
+        "lam": ParamSpec((w,), ("stats",), init=uniform(0.38, 0.8)),
+        "w_out": ParamSpec((w, d), ("ff", "embed")),
     }
 
 
@@ -125,9 +126,10 @@ def rglru_block(p, x, cfg, *, state=None):
     return out, {"conv": conv, "h": h_last}
 
 
-def rglru_state_shapes(cfg, batch: int) -> dict:
-    """{name: (shape, dtype)} of a decode state (the reference's
-    ``rglru_state_specs``)."""
+def rglru_state_specs(cfg, batch: int) -> dict:
+    """The decode state's specs (the reference's ``rglru_state_specs``:
+    shapes, logical axes, dtypes)."""
     w = cfg.lru_width
-    return {"conv": ((batch, CONV_WIDTH - 1, w), torch.bfloat16),
-            "h": ((batch, w), torch.float32)}
+    return {"conv": ParamSpec((batch, CONV_WIDTH - 1, w),
+                              ("batch", None, "ff"), dtype=torch.bfloat16),
+            "h": ParamSpec((batch, w), ("batch", "ff"))}

@@ -36,7 +36,7 @@ from .base import (ParamSpec, linspace_first_axis, normal, ones, uniform,
 __all__ = ["TM_LORA", "DECAY_LORA", "WW_CLAMP", "rwkv_time_specs",
            "rwkv_ffn_specs", "wkv_scan", "wkv_chunked", "wkv_step",
            "wkv_inputs", "rwkv_time_block",
-           "rwkv_channel_block", "rwkv_state_shapes"]
+           "rwkv_channel_block", "rwkv_state_specs"]
 
 TM_LORA = 32     # token-mix ddlerp low-rank dim
 DECAY_LORA = 64
@@ -47,33 +47,38 @@ CHUNK = 32       # wkv_chunked's chunk length
 def rwkv_time_specs(cfg) -> dict:
     d = cfg.d_model
     h, dh = cfg.n_heads, cfg.head_dim
-    mu = {f"mu_{n}": ParamSpec((d,), init=uniform())
+    mu = {f"mu_{n}": ParamSpec((d,), ("stats",), init=uniform())
           for n in ("x", "w", "k", "v", "r", "g")}
     return {
         **mu,
-        "tm_w1": ParamSpec((d, 5 * TM_LORA), init=normal(1e-3)),
-        "tm_w2": ParamSpec((5, TM_LORA, d), init=normal(1e-3)),
-        "w0": ParamSpec((d,), init=linspace_first_axis(-6.0, -0.5)),
-        "wd1": ParamSpec((d, DECAY_LORA), init=normal(1e-3), f32=True),
-        "wd2": ParamSpec((DECAY_LORA, d), init=normal(1e-3), f32=True),
-        "wr": ParamSpec((d, h * dh)),
-        "wk": ParamSpec((d, h * dh)),
-        "wv": ParamSpec((d, h * dh)),
-        "wg": ParamSpec((d, h * dh)),
-        "wo": ParamSpec((h * dh, d)),
-        "u": ParamSpec((h, dh), init=normal(0.3)),
-        "ln_x_scale": ParamSpec((h, dh), init=ones),
-        "ln_x_bias": ParamSpec((h, dh), init=zeros),
+        "tm_w1": ParamSpec((d, 5 * TM_LORA), ("embed", None),
+                           init=normal(1e-3)),
+        "tm_w2": ParamSpec((5, TM_LORA, d), (None, None, "embed"),
+                           init=normal(1e-3)),
+        "w0": ParamSpec((d,), ("stats",),
+                        init=linspace_first_axis(-6.0, -0.5)),
+        "wd1": ParamSpec((d, DECAY_LORA), ("embed", None), init=normal(1e-3),
+                         f32=True),
+        "wd2": ParamSpec((DECAY_LORA, d), (None, "embed"), init=normal(1e-3),
+                         f32=True),
+        "wr": ParamSpec((d, h * dh), ("embed", "q_heads")),
+        "wk": ParamSpec((d, h * dh), ("embed", "q_heads")),
+        "wv": ParamSpec((d, h * dh), ("embed", "q_heads")),
+        "wg": ParamSpec((d, h * dh), ("embed", "q_heads")),
+        "wo": ParamSpec((h * dh, d), ("q_heads", "embed")),
+        "u": ParamSpec((h, dh), ("act_heads", None), init=normal(0.3)),
+        "ln_x_scale": ParamSpec((h, dh), ("act_heads", None), init=ones),
+        "ln_x_bias": ParamSpec((h, dh), ("act_heads", None), init=zeros),
     }
 
 
 def rwkv_ffn_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"mu_k": ParamSpec((d,), init=uniform()),
-            "mu_r": ParamSpec((d,), init=uniform()),
-            "wk": ParamSpec((d, f)),
-            "wv": ParamSpec((f, d)),
-            "wr": ParamSpec((d, d))}
+    return {"mu_k": ParamSpec((d,), ("stats",), init=uniform()),
+            "mu_r": ParamSpec((d,), ("stats",), init=uniform()),
+            "wk": ParamSpec((d, f), ("embed", "ff")),
+            "wv": ParamSpec((f, d), ("ff", "embed")),
+            "wr": ParamSpec((d, d), ("embed", None))}
 
 
 def _shift(x, state):
@@ -205,10 +210,13 @@ def rwkv_channel_block(p, x, cfg, *, state=None):
     return out, {"shift": x[:, -1]}
 
 
-def rwkv_state_shapes(cfg, batch: int) -> dict:
-    """{name: (shape, dtype)} of a layer's decode state (the reference's
-    ``rwkv_state_specs``)."""
+def rwkv_state_specs(cfg, batch: int) -> dict:
+    """A layer's decode state specs (the reference's
+    ``rwkv_state_specs``: shapes, logical axes, dtypes)."""
     h, dh, d = cfg.n_heads, cfg.head_dim, cfg.d_model
-    return {"att_shift": ((batch, d), torch.bfloat16),
-            "ffn_shift": ((batch, d), torch.bfloat16),
-            "wkv": ((batch, h, dh, dh), torch.float32)}
+    return {"att_shift": ParamSpec((batch, d), ("batch", None),
+                                   dtype=torch.bfloat16),
+            "ffn_shift": ParamSpec((batch, d), ("batch", None),
+                                   dtype=torch.bfloat16),
+            "wkv": ParamSpec((batch, h, dh, dh),
+                             ("batch", "act_heads", None, None))}

@@ -28,8 +28,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..launch.mesh import current_mesh
+from ..sharding import spmd
 from . import components as C
-from .base import init_params, with_param_dtype
+from .base import ParamSpec, init_params, with_param_dtype
+from .meshed import MeshModel
 
 __all__ = ["WhisperModel", "param_specs"]
 
@@ -63,7 +66,7 @@ def param_specs(cfg) -> dict:
     return with_param_dtype(specs, cfg.param_dtype)
 
 
-class WhisperModel:
+class WhisperModel(MeshModel):
     def __init__(self, cfg, device=None):
         if not cfg.is_encoder_decoder:
             raise ValueError(f"{cfg.name} is not an encoder-decoder")
@@ -91,7 +94,17 @@ class WhisperModel:
         return fn(*args)
 
     # ----------------------------------------------------------- encoder
-    def _enc_block(self, p, x, pos):
+    def _local(self, name, p):
+        """A layer's stored shards as its computation reads them: on a
+        mesh (FSDP over ``data``; a model axis is refused) each
+        data-sharded leaf gathered (``sharding.spmd.localize``)."""
+        mesh = current_mesh()
+        if mesh is None:
+            return p
+        return spmd.localize(p, self.placement(mesh)[name], spmd.TP(mesh))
+
+    def _enc_block(self, name, p, x, pos):
+        p = self._local(name, p)
         a, _ = C.attention_block(p["attn"], self._norm(p["ln1"], x),
                                  self.cfg, positions=pos, causal=False,
                                  paged=False)
@@ -107,19 +120,21 @@ class WhisperModel:
              + C.sinusoid_pos(F, D, self.device).to(self.dtype)[None])
         pos = torch.arange(F, device=self.device)[None].expand(B, F)
         for i in range(cfg.n_encoder_layers):
-            x = self._remat(train, self._enc_block, params[f"enc_{i:02d}"],
-                            x, pos)
+            name = f"enc_{i:02d}"
+            x = self._remat(train, lambda p, x, n=name: self._enc_block(
+                n, p, x, pos), params[name], x)
         return self._norm(params["enc_final_norm"], x)
 
     def cross_kv(self, params, enc_out) -> dict:
-        return {f"dec_{i:02d}": C.encode_cross_kv(
-                    params[f"dec_{i:02d}"]["cross_attn"], enc_out, self.cfg)
-                for i in range(self.cfg.n_layers)}
+        names = [f"dec_{i:02d}" for i in range(self.cfg.n_layers)]
+        return {n: C.encode_cross_kv(self._local(n, params[n])["cross_attn"],
+                                     enc_out, self.cfg) for n in names}
 
     # ----------------------------------------------------------- decoder
-    def _dec_block(self, p, x, positions, cross, cache=None,
+    def _dec_block(self, name, p, x, positions, cross, cache=None,
                    cache_pos=None):
         cfg = self.cfg
+        p = self._local(name, p)
         a, kv = C.attention_block(
             p["self_attn"], self._norm(p["ln1"], x), cfg,
             positions=positions, cache=cache, cache_pos=cache_pos,
@@ -136,23 +151,18 @@ class WhisperModel:
             name = f"dec_{i:02d}"
             if train:
                 x = self._remat(
-                    True, lambda p, x, k, v: self._dec_block(
-                        p, x, positions, (k, v))[0],
+                    True, lambda p, x, k, v, n=name: self._dec_block(
+                        n, p, x, positions, (k, v))[0],
                     params[name], x, *cross[name])
                 continue
             x, kvs[name] = self._dec_block(
-                params[name], x, positions, cross[name],
+                name, params[name], x, positions, cross[name],
                 None if caches is None else caches[name], cache_pos)
         return x, kvs
 
-    def _embed(self, params, tokens, pe):
+    def _embed_at(self, params, tokens, pe):
         """Token embeddings plus sinusoidal positions ``pe`` (S, D)."""
-        x = C.embed_tokens(params["embed"], tokens, self.cfg, self.dtype)
-        return x + pe.to(self.dtype)[None]
-
-    def logits(self, params, h):
-        """f32 logits of final-norm hidden states (..., D)."""
-        return C.unembed(params["embed"], h, self.cfg)
+        return self._embed(params, tokens) + pe.to(self.dtype)[None]
 
     def apply(self, params, batch, *, train: bool = False,
               want_hidden: bool = False, want_aux: bool = False):
@@ -174,25 +184,38 @@ class WhisperModel:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
-        x = self._embed(params, tokens,
-                        C.sinusoid_pos(S, self.cfg.d_model, self.device))
+        x = self._embed_at(params, tokens,
+                           C.sinusoid_pos(S, self.cfg.d_model, self.device))
         x, kvs = self._decoder(params, x, pos, cross, train=train)
         return self._norm(params["final_norm"], x), kvs, cross
 
     # ----------------------------------------------------------- serving
-    def init_cache(self, batch: int, seq_len: int) -> dict:
-        """An empty cache: self-attention K/V of capacity ``seq_len`` and
-        cross K/V of ``n_frames``, bf16 (the reference's layout)."""
+    def cache_specs(self, batch: int, seq_len: int) -> dict:
+        """Specs of a cache (the reference's): self-attention K/V of
+        capacity ``seq_len`` and cross K/V of ``n_frames``, bf16 on
+        ``("batch", "kv_seq", "act_heads", None)``."""
         cfg = self.cfg
 
         def kv(s):
-            return torch.zeros((batch, s, cfg.n_kv_heads, cfg.head_dim),
-                               dtype=torch.bfloat16, device=self.device)
+            return ParamSpec((batch, s, cfg.n_kv_heads, cfg.head_dim),
+                             ("batch", "kv_seq", "act_heads", None),
+                             dtype=torch.bfloat16)
         names = [f"dec_{i:02d}" for i in range(cfg.n_layers)]
         return {"self": {n: {"k": kv(seq_len), "v": kv(seq_len)}
                          for n in names},
                 "cross": {n: (kv(cfg.n_frames), kv(cfg.n_frames))
                           for n in names},
+                "pos": ParamSpec((), (), dtype=torch.int32)}
+
+    def init_cache(self, batch: int, seq_len: int) -> dict:
+        """An empty cache: zeros of ``cache_specs``, ``pos`` 0."""
+        def zeros(ps):
+            return torch.zeros(ps.shape, dtype=ps.dtype, device=self.device)
+        specs = self.cache_specs(batch, seq_len)
+        return {"self": {n: {k: zeros(ps) for k, ps in kv.items()}
+                         for n, kv in specs["self"].items()},
+                "cross": {n: tuple(map(zeros, kv))
+                          for n, kv in specs["cross"].items()},
                 "pos": 0}
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
@@ -216,7 +239,7 @@ class WhisperModel:
         pos = int(cache["pos"])
         tokens = torch.as_tensor(tokens, device=self.device)
         B = tokens.shape[0]
-        x = self._embed(params, tokens, C.sinusoid_pos_at(
+        x = self._embed_at(params, tokens, C.sinusoid_pos_at(
             torch.tensor([pos], device=self.device), self.cfg.d_model))
         positions = torch.full((B, 1), pos, dtype=torch.long,
                                device=self.device)

@@ -57,13 +57,18 @@ class TrainDriver:
     (``train.make_train_step``); ``batch_fn(step) -> batch`` must be
     stateless-resumable (``data.SyntheticPipeline`` is).
     ``metrics_log`` holds every ``log_every``-th step's loss, gradient
-    norm (when the step reports one) and wall time.
+    norm (when the step reports one) and wall time.  On a mesh (run it
+    under ``with mesh:``) ``shardings`` holds the ``logical_spec``
+    tuples of ``{"params", "opt"}``: checkpoints are written from the
+    shards and restored onto them.
     """
 
     def __init__(self, cfg: DriverConfig, step_fn: Callable,
                  batch_fn: Callable, *,
-                 fault_hook: Optional[Callable[[int], None]] = None):
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 shardings=None):
         self.cfg = cfg
+        self.shardings = shardings
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.fault_hook = fault_hook     # tests inject failures here
@@ -77,7 +82,8 @@ class TrainDriver:
         if step is None:
             return params, opt_state, 0
         tree, step = restore_checkpoint(
-            self.cfg.ckpt_dir, {"params": params, "opt": opt_state})
+            self.cfg.ckpt_dir, {"params": params, "opt": opt_state},
+            shardings=self.shardings)
         return tree["params"], tree["opt"], step
 
     def run(self, params, opt_state, *, start_step: int = 0):
@@ -108,7 +114,8 @@ class TrainDriver:
                 step += 1
                 if step % cfg.ckpt_every == 0 or step == cfg.total_steps:
                     save_checkpoint(cfg.ckpt_dir, step,
-                                    {"params": params, "opt": opt_state})
+                                    {"params": params, "opt": opt_state},
+                                    shardings=self.shardings)
                     self.events.append(StepEvent(step, "checkpoint"))
             except KeyboardInterrupt:
                 raise

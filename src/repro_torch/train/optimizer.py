@@ -22,9 +22,12 @@ from typing import Any, Optional
 
 import torch
 
+from ..launch.mesh import current_mesh
+from ..sharding.collectives import all_reduce
+from ..sharding.rules import spec_axes
 from ..tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["OptConfig", "init_opt_state", "adamw_update",
+__all__ = ["OptConfig", "init_opt_state", "opt_state_specs", "adamw_update",
            "clip_by_global_norm", "compress_int8", "decompress_int8"]
 
 
@@ -64,23 +67,64 @@ def init_opt_state(params, cfg: OptConfig = OptConfig()):
     return state
 
 
-def _clip_scale(grads, max_norm: float):
+def opt_state_specs(param_specs, cfg: OptConfig = OptConfig()):
+    """Specs of the optimizer state (the reference's): the moments (and
+    ``ef`` / ``master``) f32 with their parameter's shape and logical
+    axes, ``step`` an int32 scalar."""
+    from ..models.base import ParamSpec, map_specs
+
+    def f32(ps):
+        return ParamSpec(ps.shape, ps.axes, dtype=torch.float32)
+    moments = map_specs(f32, param_specs)
+    tree = {"mu": moments, "nu": moments,
+            "step": ParamSpec((), (), dtype=torch.int32)}
+    if cfg.compress_grads:
+        tree["ef"] = moments
+    if cfg.keep_master:
+        tree["master"] = moments
+    return tree
+
+
+def _owned(shardings, mesh):
+    """Per leaf (tree order) whether this rank counts it in the global
+    norm: a leaf replicated over an axis is counted by the rank at
+    index 0 of that axis only, so every element is counted once."""
+    out = []
+    for _, spec in tree_items(shardings):
+        used = {a for e in spec for a in spec_axes(e)}
+        out.append(all(mesh.coords[a] == 0 for a in mesh.axis_names
+                       if a not in used))
+    return out
+
+
+def _clip_scale(grads, max_norm: float, shardings=None):
     """(the global L2 norm, the factor that scales it to at most
     ``max_norm``); the norm sums the leaves' squares in tree order, as
-    the reference's Python ``sum`` does."""
+    the reference's Python ``sum`` does.  On a mesh (``shardings``, the
+    leaves' ``logical_spec`` tuples) each rank sums the leaves it owns
+    (``_owned``) and the sums are added over every rank."""
+    mesh = current_mesh() if shardings is not None else None
+    owned = None if mesh is None else _owned(shardings, mesh)
     gn = None
-    for g in tree_leaves(grads):
+    for i, g in enumerate(tree_leaves(grads)):
+        if owned is not None and not owned[i]:
+            continue
         s = torch.sum(torch.square(g.float()))
         gn = s if gn is None else gn + s
+    if gn is None:
+        gn = torch.zeros((), dtype=torch.float32,
+                         device=tree_leaves(grads)[0].device)
+    if mesh is not None:
+        gn = all_reduce(gn, mesh, mesh.axis_names)
     gn = torch.sqrt(gn)
     return gn, torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the
-    norm before clipping)."""
+    norm before clipping); ``shardings`` as in ``_clip_scale``."""
     with torch.no_grad():
-        gn, scale = _clip_scale(grads, max_norm)
+        gn, scale = _clip_scale(grads, max_norm, shardings)
         return tree_map(lambda g: g * scale, grads), gn
 
 
@@ -103,19 +147,27 @@ def decompress_int8(q, scale):
 
 
 def adamw_update(params, grads, state, cfg: OptConfig = OptConfig(),
-                 compress_gen: Optional[torch.Generator] = None):
+                 compress_gen: Optional[torch.Generator] = None,
+                 shardings=None):
     """One AdamW step.  Returns (params, state, metrics): new trees (the
     inputs are not modified), ``metrics`` with ``grad_norm`` and ``lr``.
     With ``cfg.compress_grads`` the gradients pass through int8 with
     error feedback first, each leaf's noise drawn from ``compress_gen``
-    in tree order."""
+    in tree order.  On a mesh the trees are this rank's shards and
+    ``shardings`` their ``logical_spec`` tuples: the clip's norm is the
+    whole gradient's (``_clip_scale``), the update each shard's."""
     with torch.no_grad():
-        return _adamw(params, grads, state, cfg, compress_gen)
+        return _adamw(params, grads, state, cfg, compress_gen, shardings)
 
 
-def _adamw(params, grads, state, cfg, compress_gen):
+def _adamw(params, grads, state, cfg, compress_gen, shardings):
     step = state["step"]
     metrics: dict[str, Any] = {}
+    mesh = current_mesh()
+    if cfg.compress_grads and mesh is not None and mesh.size > 1:
+        raise ValueError("compress_grads on a mesh of more than one rank "
+                         "is not ported: its int8 scale is the whole "
+                         "leaf's maximum")
     if cfg.compress_grads:
         if compress_gen is None:
             raise ValueError("compress_grads needs a compress_gen")
@@ -131,7 +183,7 @@ def _adamw(params, grads, state, cfg, compress_gen):
     # the clip's scale is applied leaf by leaf in ``upd`` (the same
     # product as ``clip_by_global_norm``'s), so no clipped copy of the
     # whole gradient tree is held beside it
-    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
+    gnorm, scale = _clip_scale(grads, cfg.grad_clip, shardings)
     metrics["grad_norm"] = gnorm
     lr = _lr_at(cfg, step)
     metrics["lr"] = lr

@@ -1,0 +1,380 @@
+"""The port's training mesh against the JAX package on the CPU: gloo
+process groups of 4 and 2 ranks (``tests/torch_mesh_ranks.py``), the
+counterparts of the reference's ``tests/test_multidevice.py``.
+
+One (2, 2) group (data 2, model 2) runs every multi-rank check in one
+spawn (module fixture ``runs``): the train step of a dense stack
+(qwen3 smoke) and of an MoE (llama4-scout smoke, ``n_micro=2``), expert
+parallelism (deepseek-moe smoke: top 2 of 8 experts and 2 shared
+experts; the MoE block, and the whole model's logits) and the decode
+over a cache whose sequence is split over ``model``; a (1, 2) group restores its checkpoint (the plan
+``plan_elastic_mesh`` gives 2 ranks).
+
+The train steps are held in f32 against the reference's single-device
+step with ``test_torch_train.py``'s tolerances (loss rel 1e-5; each
+gradient rtol 1e-4 / atol 1e-6; parameters after three steps atol 2e-5,
+its f32-noise elements at 2 lr a step, fewer than 1 % of a leaf beyond
+2e-5).  The mesh's step takes each
+rank's rows in ``n_micro`` microbatches, so an MoE routes (and counts
+its capacity and aux loss over) groups of B / (2 n_micro) rows: the
+single-device step it equals is the reference's at ``2 n_micro``
+microbatches.  Expert parallelism is held against the reference's
+``_moe_compute(p, x, cfg, ep_size, ep_index)`` summed over the shards
+(rtol 1e-5), and the model against the reference's unsharded model by
+the reference test's criterion (more than 98 % of the logits within
+3e-2); the sharded decode
+against the reference's unsharded ``decode_step`` (f32 on both sides:
+the contiguous path's 1e-4 of ``test_torch_model.py``, inside the
+reference test's 2e-2).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data.pipeline import SyntheticPipeline as JPipeline
+from repro.models import build_model as jbuild
+from repro.models import components as JC
+from repro.train import optimizer as jopt
+from repro.train import step as jstep
+from repro_torch import configs
+from repro_torch.checkpoint import params_from_jax
+from repro_torch.data import SyntheticPipeline
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import train as launch_train
+from repro_torch.models import build_model
+from repro_torch.runtime import plan_elastic_mesh
+from repro_torch.train import optimizer as topt
+from repro_torch.train import step as tstep
+from repro_torch.tree import tree_items, tree_leaves
+from test_torch_model import CONTIG_TOL, reference, to_port_config
+from test_torch_train import (GRAD_ATOL, GRAD_RTOL, LOSS_RTOL, PARAM_ATOL,
+                              _jcfg)
+import torch_mesh_ranks as ranks
+
+MESH = (2, 2)
+B, S, STEPS, LR = 8, 16, 3, 1e-3
+TRAIN = {"dense": ("qwen3-0.6b", 1), "moe": ("llama4-scout-17b-a16e", 2)}
+DECODE_ROWS, DECODE_PROMPT, DECODE_LEN, DECODE_STEPS = 4, 32, 48, 3
+MOE_TOL = 1e-5
+CLOSE_TOL, CLOSE_FRAC = 3e-2, 0.98
+
+
+def _port_params(jcfg, tmp, name):
+    """The reference's seeded parameters as the port's, saved for the
+    ranks; (reference model, its params, port config)."""
+    _, jparams, tree = reference(jcfg)
+    cfg = to_port_config(jcfg)
+    path = tmp / f"{name}.pt"
+    torch.save(params_from_jax(tree, cfg, device="cpu"), path)
+    return jbuild(jcfg), jparams, cfg, path
+
+
+def _moe_inputs():
+    """deepseek-moe smoke in f32: seeded MoE parameters (numpy) and
+    tokens x (4, 8, D)."""
+    jcfg = _jcfg("deepseek-moe-16b")
+    rng = np.random.default_rng(7)
+    specs = JC.moe_specs(jcfg)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return (0.2 * rng.standard_normal(node.shape)).astype(np.float32)
+    p = draw(specs)
+    x = rng.standard_normal((4, 8, jcfg.d_model)).astype(np.float32)
+    return jcfg, p, x
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The (2, 2) group's results beside the reference's inputs."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    payload, refs = {"train": {}}, {}
+    for name, (arch, n_micro) in TRAIN.items():
+        jcfg = _jcfg(arch)
+        jmodel, jparams, cfg, path = _port_params(jcfg, tmp, name)
+        refs[name] = (jcfg, jmodel, jparams, n_micro)
+        payload["train"][name] = {
+            "cfg": cfg, "params": str(path), "B": B, "S": S,
+            "n_micro": n_micro, "steps": STEPS,
+            "ckpt": str(tmp / "ckpt") if name == "dense" else None}
+    jcfg, p, x = _moe_inputs()
+    payload["ep"] = {"cfg": to_port_config(jcfg), "x": torch.from_numpy(x),
+                      "p": jax.tree.map(torch.from_numpy, p)}
+    refs["moe_inputs"] = (jcfg, p, x)
+
+    jcfg = _jcfg("deepseek-moe-16b")
+    jmodel, jparams, cfg, path = _port_params(jcfg, tmp, "ep_model")
+    batch = JPipeline(jcfg, B, 32).device_batch(0)
+    refs["ep_model"] = (jcfg, jmodel, jparams, batch)
+    payload["ep_model"] = {"cfg": cfg, "params": str(path), "B": B, "S": 32}
+
+    jcfg, jmodel, jparams, _ = refs["dense"]
+    batch = JPipeline(jcfg, DECODE_ROWS, DECODE_PROMPT).device_batch(0)
+    _, cache = jmodel.prefill(jparams, batch, max_len=DECODE_LEN)
+    tok = batch["tokens"][:, :1]
+    feed, logits = [], []
+    for _ in range(DECODE_STEPS):
+        feed.append(torch.from_numpy(np.array(tok[:, 0])).long())
+        lg, cache = jmodel.decode_step(jparams, cache, tok)
+        logits.append(np.asarray(lg, np.float32))
+        tok = jnp.argmax(lg, -1)[:, None].astype(jnp.int32)
+    payload["decode"] = {
+        "cfg": payload["train"]["dense"]["cfg"],
+        "params": payload["train"]["dense"]["params"],
+        "tokens": torch.from_numpy(np.array(batch["tokens"])).long(),
+        "max_len": DECODE_LEN, "feed": feed}
+    refs["decode"] = np.stack(logits)
+    return {"tmp": tmp, "payload": payload, "refs": refs,
+            "out": ranks.spawn("mesh22", MESH, tmp, payload)}
+
+
+def _reference_grads(jmodel, jcfg, jparams, batch, n_ref):
+    """The reference step's gradient: the mean over ``n_ref``
+    microbatches of ``jax.grad`` of its loss, and its loss."""
+    grad = jax.jit(jax.value_and_grad(jstep.make_loss_fn(jmodel, jcfg),
+                                      has_aux=True))
+    u = B // n_ref
+    loss, gsum = 0.0, None
+    for i in range(n_ref):
+        mb = {k: v[i * u:(i + 1) * u] for k, v in batch.items()}
+        (lv, _), g = grad(jparams, mb)
+        loss += float(lv) / n_ref
+        g = [np.asarray(t) for t in jax.tree.leaves(g)]
+        gsum = g if gsum is None else [a + c for a, c in zip(gsum, g)]
+    return loss, [g / n_ref for g in gsum]
+
+
+def _expert_shard(p, ep: int, i: int):
+    """Shard i of ``ep`` of the MoE parameters as the reference's
+    ``moe_block`` hands them to ``_moe_compute``: its experts, and its
+    slice of the shared expert's hidden dim."""
+    def cut(t, dim):
+        n = t.shape[dim] // ep
+        return jax.lax.slice_in_dim(t, i * n, (i + 1) * n, axis=dim)
+    return {"router": p["router"],
+            **{k: cut(p[k], 0) for k in ("wg", "wu", "wd")},
+            "shared": {"wg": cut(p["shared"]["wg"], 1),
+                       "wu": cut(p["shared"]["wu"], 1),
+                       "wd": cut(p["shared"]["wd"], 0)}}
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_train_step_on_mesh_matches_reference(runs, name):
+    """The (2, 2) mesh's loss, every leaf's gradient and the parameters
+    after three steps against the reference's single-device step at
+    2 x n_micro microbatches."""
+    jcfg, jmodel, jparams, n_micro = runs["refs"][name]
+    out = runs["out"][0][name]
+    n_ref = MESH[0] * n_micro
+    pipe = JPipeline(jcfg, B, S)
+    loss, want = _reference_grads(jmodel, jcfg, jparams,
+                                  pipe.device_batch(0), n_ref)
+    np.testing.assert_allclose(out["grad_loss"], loss, rtol=LOSS_RTOL)
+    names = ["/".join(p) for p, _ in tree_items(out["params"])]
+    assert len(out["grads"]) == len(want) == len(names)
+    for n, g, w in zip(names, out["grads"], want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=n)
+
+    opt = jopt.OptConfig(lr=LR, warmup_steps=1)
+    jtrain = jax.jit(jstep.make_train_step(jmodel, jcfg, opt=opt,
+                                           n_micro=n_ref))
+    state = jopt.init_opt_state(jparams, opt)
+    noise = [np.zeros(np.shape(w), bool) for w in want]
+    params = jparams
+    for step in range(STEPS):
+        jb = pipe.device_batch(step)
+        _, g = _reference_grads(jmodel, jcfg, params, jb, n_ref)
+        noise = [m | ((np.abs(a) < GRAD_ATOL) & (a != 0))
+                 for m, a in zip(noise, g)]
+        params, state, m = jtrain(params, state, jb)
+        np.testing.assert_allclose(out["losses"][step], float(m["loss"]),
+                                   rtol=LOSS_RTOL)
+    for n, p, jp, mask in zip(names, tree_leaves(out["params"]),
+                              jax.tree.leaves(params), noise):
+        d = np.abs(p.numpy() - np.asarray(jp))
+        # the f32-noise elements that needed their looser bound: fewer
+        # than 1 % of the leaf (a leaf of 32 elements may hold one whose
+        # reference gradient was noise and still land within PARAM_ATOL)
+        assert (mask & (d > PARAM_ATOL)).mean() < 1e-2, n
+        assert d[~mask].max(initial=0) <= PARAM_ATOL, n
+        assert d[mask].max(initial=0) <= 2 * STEPS * LR, n
+
+
+def test_expert_parallel_moe_matches_reference_shards(runs):
+    """Each rank's MoE output on its data rows equals the reference's
+    ``_moe_compute`` at ``ep_size`` 2 summed over the two expert shards
+    (rtol 1e-5), the aux loss its shard's."""
+    jcfg, p, x = runs["refs"]["moe_inputs"]
+    jp = jax.tree.map(jnp.asarray, p)
+    ep, dp = MESH[1], MESH[0]
+    n = x.shape[0] // dp
+    for rank, out in enumerate(runs["out"]):
+        d = rank // MESH[1]
+        assert out["ep"]["tp"] == (True, True)
+        xs = jnp.asarray(x[d * n:(d + 1) * n])
+        parts = [JC._moe_compute(_expert_shard(jp, ep, i), xs, jcfg, ep, i)
+                 for i in range(ep)]
+        want = sum(np.asarray(y) for y, _ in parts)
+        np.testing.assert_allclose(out["ep"]["y"].numpy(), want,
+                                   rtol=MOE_TOL, atol=MOE_TOL)
+        np.testing.assert_allclose(out["ep"]["aux"], float(parts[0][1]),
+                                   rtol=MOE_TOL)
+
+
+def test_expert_parallel_model_close_to_unsharded_reference(runs):
+    """The reference test's criterion (``test_moe_shardmap_matches_
+    single_device``: deepseek-moe smoke, B 8 x S 32): the mesh's logits,
+    each data shard routed with its own capacity, against the
+    reference's unsharded ``apply``: more than 98 % within 3e-2."""
+    jcfg, jmodel, jparams, batch = runs["refs"]["ep_model"]
+    want = np.asarray(jmodel.apply(jparams, batch, train=False)[0],
+                      np.float32)
+    got = np.concatenate([out["ep_model"].numpy() for rank, out in
+                          enumerate(runs["out"]) if rank % MESH[1] == 0])
+    close = np.mean(np.isclose(got, want, rtol=CLOSE_TOL, atol=CLOSE_TOL))
+    assert close > CLOSE_FRAC, close
+
+
+def test_decode_on_sequence_sharded_cache_matches_reference(runs):
+    """Decode steps over a cache whose sequence is split over ``model``
+    (cut from the whole prefill, or made by a prefill on the mesh)
+    against the reference's unsharded ``decode_step``: every rank holds
+    its data rows' logits."""
+    want = runs["refs"]["decode"]
+    n = DECODE_ROWS // MESH[0]
+    for rank, out in enumerate(runs["out"]):
+        dec = out["decode"]
+        assert dec["seq_shards"] == (MESH[1], MESH[1])
+        rows = want[:, (rank // MESH[1]) * n:][:, :n]
+        for form in ("cut", "made"):
+            np.testing.assert_allclose(dec[form].numpy(), rows,
+                                       rtol=CONTIG_TOL, atol=CONTIG_TOL,
+                                       err_msg=form)
+
+
+def test_checkpoint_restores_onto_elastic_mesh(runs):
+    """The (2, 2) run's checkpoint (params and optimizer state, saved
+    from the shards) restored onto the mesh ``plan_elastic_mesh`` gives
+    2 ranks at model parallelism 2: every leaf gathered back equal to
+    what was saved."""
+    shape, axes = plan_elastic_mesh(2, model_parallel=MESH[1])
+    assert (shape, axes) == ((1, 2), ("data", "model"))
+    case = runs["payload"]["train"]["dense"]
+    got = ranks.spawn("restore", shape, runs["tmp"],
+                      {"cfg": case["cfg"], "params": case["params"],
+                       "ckpt": case["ckpt"]})
+    saved = runs["out"][0]["dense"]["saved"]
+    for r in got:
+        assert r["step"] == STEPS
+        for (path, a), (_, b) in zip(tree_items(r["full"]),
+                                     tree_items(saved)):
+            assert torch.equal(a, b), "/".join(path)
+    # the shards are halves over model where the rules split a leaf
+    assert any(s != t.shape for s, t in zip(got[0]["shard_shapes"],
+                                            tree_leaves(saved)))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-moe-16b"])
+def test_one_rank_mesh_is_no_mesh(arch):
+    """Two train steps (bf16 compute) under a (1, 1) mesh give every
+    leaf, moment and metric ``torch.equal`` to the steps without one."""
+    cfg = configs.get_smoke(arch)
+    model = build_model(cfg, device="cpu")
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    step = tstep.make_train_step(model, cfg)
+    pipe = SyntheticPipeline(cfg, 4, 16)
+    runs_ = []
+    for under in (False, True):
+        params = model.init(seed=3)
+        state = topt.init_opt_state(params)
+        metrics = []
+        for s in range(2):
+            if under:
+                with mesh:
+                    params, state, m = step(params, state,
+                                            pipe.device_batch(s, mesh=mesh))
+            else:
+                params, state, m = step(params, state,
+                                        pipe.device_batch(s, "cpu"))
+            metrics.append(m)
+        runs_.append((params, state, metrics))
+    (p0, s0, m0), (p1, s1, m1) = runs_
+    for a, b in zip(tree_leaves({"p": p0, "s": s0}),
+                    tree_leaves({"p": p1, "s": s1})):
+        assert torch.equal(a, b)
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_launcher_at_world_one_is_the_one_device_run(tmp_path):
+    """Without torchrun the launcher builds no mesh and trains as the
+    single-device step does."""
+    drv = launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
+                             "cpu", "--steps", "2", "--batch", "2", "--seq",
+                             "16", "--log-every", "1", "--ckpt-dir",
+                             str(tmp_path)])
+    cfg = configs.get_smoke("qwen3-0.6b")
+    model = build_model(cfg, device="cpu")
+    step = tstep.make_train_step(model, cfg)
+    params = model.init(seed=0)
+    state = topt.init_opt_state(params)
+    pipe = SyntheticPipeline(cfg, 2, 16)
+    for s in range(2):
+        params, state, m = step(params, state, pipe.device_batch(s, "cpu"))
+        assert drv.metrics_log[s]["loss"] == float(m["loss"])
+
+
+def test_production_mesh_refuses_other_worlds(monkeypatch):
+    """(16, 16) needs 256 ranks and (2, 16, 16) 512; a world of another
+    size is refused, never shrunk to fit."""
+    for world, multi in ((4, False), (1, False), (256, True)):
+        monkeypatch.setenv("WORLD_SIZE", str(world))
+        with pytest.raises(ValueError, match="needs (256|512) ranks"):
+            tmesh.make_production_mesh(multi_pod=multi)
+    with pytest.raises(ValueError, match="does not divide"):
+        tmesh.make_local_mesh(model=3, devices=["cpu"] * 4)
+
+
+class _Mesh:
+    """Axis sizes without ranks (placement only)."""
+
+    def __init__(self, **sizes):
+        self.axis_names = tuple(sizes)
+        self.shape = tuple(sizes.values())
+
+    def axis_size(self, axes):
+        axes = (axes,) if isinstance(axes, str) else axes
+        return int(np.prod([self.shape[self.axis_names.index(a)]
+                            for a in axes if a in self.axis_names]))
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-2b",
+                                  "rwkv6-3b"])
+def test_model_axis_refused_where_not_ported(arch):
+    """whisper, recurrentgemma and rwkv6 refuse a model axis wider than
+    1, naming the ROADMAP item; on (n, 1) they are placed (FSDP)."""
+    model = build_model(configs.get_smoke(arch), device="cpu")
+    with pytest.raises(ValueError, match="item 14c"):
+        model.placement(_Mesh(data=2, model=2))
+    assert model.placement(_Mesh(data=4, model=1))
+    dense = build_model(configs.get_smoke("qwen3-0.6b"), device="cpu")
+    assert dense.placement(_Mesh(data=2, model=2))
+
+
+def test_production_mesh_places_every_leaf():
+    """On the (16, 16) production mesh every leaf of qwen3-0.6b and
+    deepseek-moe-16b is split only by axes that divide it (the ranks'
+    shards cover it exactly)."""
+    for arch in ("qwen3-0.6b", "deepseek-moe-16b"):
+        model = build_model(configs.get(arch), device="cpu")
+        mesh = _Mesh(data=16, model=16)
+        for (path, (spec, axes)), (_, ps) in zip(
+                tree_items(model.placement(mesh)),
+                tree_items(model.param_specs())):
+            for dim, entry in enumerate(spec):
+                n = mesh.axis_size(tmesh.spec_axes(entry))
+                assert ps.shape[dim] % n == 0, path

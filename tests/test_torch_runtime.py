@@ -211,8 +211,10 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_what_it_does_not_train(tmp_path):
-    """Only the production mesh (tensor parallelism, ROADMAP Queue 1
-    item 14): every architecture trains since the families' slice."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """The production mesh needs its 256 ranks: in a world of one the
+    launcher refuses it instead of shrinking the mesh (every
+    architecture trains since the families' slice)."""
+    with pytest.raises(ValueError, match=r"\(16, 16\) needs 256 ranks"):
         launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
-                           "cpu", "--production-mesh"])
+                           "cpu", "--production-mesh", "--ckpt-dir",
+                           str(tmp_path)])

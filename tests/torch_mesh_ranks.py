@@ -1,0 +1,197 @@
+"""Rank bodies of ``tests/test_torch_mesh.py``.
+
+Each job runs in every process of a gloo group on the CPU
+(``torch.multiprocessing``), imports nothing of JAX, and saves what the
+test holds against the reference to ``<tmp>/<job>_<rank>.pt``.  The
+rendezvous is a ``FileStore`` in the test's own directory, so parallel
+test workers never share a port.
+"""
+import math
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.data import SyntheticPipeline
+from repro_torch.launch.mesh import init_distributed, make_mesh
+from repro_torch.models import build_model
+from repro_torch.models import components as C
+from repro_torch.sharding import spmd, tree_shardings
+from repro_torch.sharding.spmd import shard_tree, unshard_tree
+from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                         opt_state_specs)
+from repro_torch.train.step import make_grad_fn, make_train_step
+from repro_torch.tree import tree_items
+
+AXES = ("data", "model")
+
+
+def spawn(job, shape, tmp, payload) -> list:
+    """Run ``job`` on every rank of a ``shape`` mesh; returns each
+    rank's saved result, rank order."""
+    world = math.prod(shape)
+    mp.spawn(_entry, args=(world, tuple(shape), job, str(tmp), payload),
+             nprocs=world, join=True)
+    return [torch.load(f"{tmp}/{job}_{r}.pt") for r in range(world)]
+
+
+def _warm() -> None:
+    """The first call of each transcendental function, made before any
+    value is used (``test_torch_model.warm_torch_threads``)."""
+    x = torch.linspace(-4.0, 4.0, 1 << 16)
+    for fn in (torch.exp, torch.log1p, torch.tanh, torch.sin, torch.cos,
+               torch.sigmoid):
+        fn(x)
+
+
+def _entry(rank, world, shape, job, tmp, payload) -> None:
+    torch.set_num_threads(1)
+    _warm()
+    init_distributed("gloo", rank=rank, world_size=world,
+                     init_method=f"file://{tmp}/store_{job}", timeout_s=300)
+    mesh = make_mesh(shape, AXES, devices=["cpu"] * world)
+    out = JOBS[job](mesh, tmp, payload)
+    torch.save(out, f"{tmp}/{job}_{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sharded(model, mesh, full):
+    sh = tree_shardings(model.param_specs(), mesh)
+    return shard_tree(full, sh, mesh), sh
+
+
+def train_case(mesh, case) -> dict:
+    """The gradient of step 0 and ``steps`` train steps of one model on
+    the mesh; the whole arrays (gathered), and the checkpoint of the
+    last state when ``case`` names a directory."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, torch.load(case["params"]))
+    pipe = SyntheticPipeline(cfg, case["B"], case["S"])
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    out = {"losses": []}
+    with mesh:
+        loss, _, grads = make_grad_fn(model, cfg, n_micro=case["n_micro"])(
+            params, pipe.device_batch(0, mesh=mesh))
+        out["grad_loss"] = float(loss)
+        out["grads"] = [mesh.unshard(g, spec) for g, spec in
+                        zip(grads, _specs(sh))]
+        state = init_opt_state(params, opt)
+        step = make_train_step(model, cfg, opt=opt, n_micro=case["n_micro"])
+        for s in range(case["steps"]):
+            params, state, m = step(params, state,
+                                    pipe.device_batch(s, mesh=mesh))
+            out["losses"].append(float(m["loss"]))
+        out["params"] = unshard_tree(params, sh, mesh)
+        if case.get("ckpt"):
+            shardings = {"params": sh, "opt": tree_shardings(
+                opt_state_specs(model.param_specs(), opt), mesh)}
+            tree = {"params": params, "opt": state}
+            save_checkpoint(case["ckpt"], case["steps"], tree,
+                            shardings=shardings)
+            out["saved"] = unshard_tree(tree, shardings, mesh)
+    return out
+
+
+def _specs(tree) -> list:
+    """The leaves of a tree (``logical_spec`` tuples or tensors) in
+    ``tree_leaves`` order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def moe_case(mesh, case) -> dict:
+    """``components.moe_block`` expert-parallel over ``model`` on the
+    rank's data rows of ``x``, its parameters stored as the mesh places
+    them (experts over model, the embed dim over data)."""
+    cfg = case["cfg"]
+    place = spmd.placements(C.moe_specs(cfg), mesh)
+    stored = shard_tree(case["p"], {k: _spec_tree(v) for k, v in
+                                    place.items()}, mesh)
+    tp = spmd.TP(mesh, experts=spmd.splits(place["wg"][0], 0),
+                 shared=spmd.splits(place["shared"]["wg"][0], 1))
+    x = case["x"]
+    n = x.shape[0] // mesh.axis_size("data")
+    xs = x[mesh.axis_index("data") * n:][:n]
+    with mesh, torch.no_grad():
+        y, aux = C.moe_block(spmd.localize(stored, place, tp), xs, cfg, tp)
+    return {"y": y, "aux": float(aux), "tp": (tp.experts, tp.shared)}
+
+
+def _spec_tree(place):
+    if isinstance(place, dict):
+        return {k: _spec_tree(v) for k, v in place.items()}
+    return place[0]
+
+
+def decode_case(mesh, case) -> dict:
+    """A whole cache from the unsharded prefill cut for the mesh
+    (``shard_cache``), and a prefill on the mesh, each followed by
+    decode steps; the rank's rows of each step's logits."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    full = torch.load(case["params"])
+    params, _ = _sharded(model, mesh, full)
+    tokens = case["tokens"]
+    n = tokens.shape[0] // mesh.axis_size("data")
+    mine = tokens[mesh.axis_index("data") * n:][:n]
+    with torch.no_grad():
+        _, whole = model.prefill(full, tokens, max_len=case["max_len"])
+    out = {}
+    with mesh, torch.no_grad():
+        cut = model.shard_cache(whole, mesh)
+        _, made = model.prefill(params, mine, max_len=case["max_len"])
+        out["seq_shards"] = (cut["seq_shards"], made["seq_shards"])
+        for name, cache in (("cut", cut), ("made", made)):
+            steps = []
+            for t in case["feed"]:
+                lg, cache = model.decode_step(params, cache,
+                                              t[mesh.axis_index("data") * n:]
+                                              [:n, None])
+                steps.append(lg)
+            out[name] = torch.stack(steps)
+    return out
+
+
+def model_logits(mesh, case) -> torch.Tensor:
+    """The whole model's logits on the rank's data rows (``apply`` on
+    the mesh)."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, _ = _sharded(model, mesh, torch.load(case["params"]))
+    batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+        0, mesh=mesh)
+    with mesh, torch.no_grad():
+        return model.apply(params, batch)
+
+
+def mesh22(mesh, tmp, payload) -> dict:
+    """Everything the (2, 2) group checks, in one spawn."""
+    out = {name: train_case(mesh, case)
+           for name, case in payload["train"].items()}
+    out["ep"] = moe_case(mesh, payload["ep"])
+    out["ep_model"] = model_logits(mesh, payload["ep_model"])
+    out["decode"] = decode_case(mesh, payload["decode"])
+    return out if mesh.rank == 0 else {k: v for k, v in out.items()
+                                       if k in ("ep", "ep_model", "decode")}
+
+
+def restore(mesh, tmp, payload) -> dict:
+    """The (2, 2) run's checkpoint restored onto this mesh, gathered."""
+    cfg = payload["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, torch.load(payload["params"]))
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    shardings = {"params": sh, "opt": tree_shardings(
+        opt_state_specs(model.param_specs(), opt), mesh)}
+    like = {"params": params, "opt": init_opt_state(params, opt)}
+    with mesh:
+        tree, step = restore_checkpoint(payload["ckpt"], like,
+                                        shardings=shardings)
+        full = unshard_tree(tree, shardings, mesh)
+    return {"step": step, "full": full,
+            "shard_shapes": [t.shape for t in _specs(tree)]}
+
+
+JOBS = {"mesh22": mesh22, "restore": restore}
