@@ -415,6 +415,22 @@ MESH_DECODE_STEPS = 32
 MESH_CKPT_LAYERS = 1
 MESH_REL_TOL = 2e-2
 MESH_CLOSE_TOL, MESH_CLOSE_FRAC = 3e-2, 0.98
+# the families on the mesh: (arch, layers or None for all, B, S) at full
+# widths.  (2, 2): the first step's loss and gradients against the
+# single device's on the card (GRAD_LOSS_TOL, GRAD_REL_L2), launches
+# per rank equal, MESH_STEPS steps timed; (1, 4): a prefill of the same
+# batch and MESH_FAMILY_DECODE_STEPS decode steps against the single
+# device's (MESH_REL_TOL at every step), the caches and states cut as
+# ``cache_specs`` places them.  whisper-tiny every layer (4 + 4), 1,500
+# frames; recurrentgemma one (RG-LRU, RG-LRU, local attention) pattern
+# at S 4,096, twice its 2,048-key window (its ring wrapped before the
+# first decode step); rwkv6 2 of 32 layers.  On (1, 4) whisper's 6 and
+# recurrentgemma's 10 heads do not divide 4: their attention runs whole
+# on every rank, their FFN / RG-LRU split.
+MESH_FAMILIES = (("whisper-tiny", None, 8, 64),
+                 ("recurrentgemma-2b", 3, 2, 4096),
+                 ("rwkv6-3b", 2, 4, 256))
+MESH_FAMILY_DECODE_STEPS = 8
 MESH_TIMEOUT_S = 600
 MESH_DEVICE = "cuda:0"
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
@@ -801,8 +817,8 @@ def _flash_bwd_cases(g, flush, results) -> None:
     on the same inputs (dq, dk, dv within ATOL / RTOL), the forward's
     lse against the plain forward's, and two calls bit for bit equal
     (no atomics); timed beside the plain version, SDPA's backward and
-    the bound (the bytes of q, k, v, o, do, lse, dq, dk, dv; 2.5 times
-    the forward's operations: five products of its size)."""
+    the bound (the bytes of q, k, v, do, lse, dq, dk, dv; 2.5 times the
+    forward's operations: five products of its size)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
 
@@ -817,7 +833,7 @@ def _flash_bwd_cases(g, flush, results) -> None:
         _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
                                                 window=window,
                                                 return_lse=True)
-        args = (q, k, v, out, lse, do, causal, window)
+        args = (q, k, v, lse, do, causal, window)
         plan = fa.plan_dkdv(Sq, Skv, H // KVH, causal, window)
         got = fa.flash_attention_bwd(*args)
         dev = device_ms(lambda: fa.flash_attention_bwd(*args),
@@ -832,7 +848,7 @@ def _flash_bwd_cases(g, flush, results) -> None:
         zeros = torch.zeros(B, dtype=torch.int32)
         fwd_bytes, fwd_flops = _flash_numbers(q, k, v, zeros, causal,
                                               window)
-        n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+        n_bytes = (3 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
         flops = 2.5 * fwd_flops
         b_ms, b_by = bound_ms(n_bytes, flops)
         ok = all(o for _, o in errs.values())
@@ -3705,7 +3721,47 @@ def _mesh_refs(root) -> dict:
                 "logits": torch.stack(logits)}, root / "decode_ref.pt")
     del params, cache
     _mesh_free()
+
+    from repro_torch.models import build_model
+    for arch, layers, B, S in MESH_FAMILIES:
+        cfg = _mesh_family_config(arch, layers)
+        model = build_model(cfg, device=MESH_DEVICE)
+        params = model.init(seed=MESH_SEED)
+        batch = SyntheticPipeline(cfg, B, S).device_batch(0, MESH_DEVICE)
+        _mesh_sync(reset_peak=True)
+        torch.save(grads(model, cfg, params, batch, arch),
+                   root / f"{arch}_grads_ref.pt")
+        out[f"{arch}_peak_gb"] = _mesh_peak_gb()
+        with torch.no_grad():
+            last, cache = model.prefill(
+                params, _mesh_prompt(batch),
+                max_len=S + MESH_FAMILY_DECODE_STEPS)
+            fed, logits = [], []
+            tok = last.argmax(-1)
+            for _ in range(MESH_FAMILY_DECODE_STEPS):
+                fed.append(tok)
+                lg, cache = model.decode_step(params, cache, tok[:, None])
+                logits.append(lg.cpu())
+                tok = lg.argmax(-1)
+        torch.save({"fed": torch.stack(fed).cpu(),
+                    "logits": torch.stack(logits)},
+                   root / f"{arch}_decode_ref.pt")
+        del params, batch, cache
+        _mesh_free()
     return out
+
+
+def _mesh_family_config(arch, layers):
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _mesh_prompt(batch) -> dict:
+    """A training batch's prompt: its tokens (and whisper's frames)."""
+    return {k: batch[k] for k in ("tokens", "frames") if k in batch}
 
 
 def _mesh_free() -> None:
@@ -3807,10 +3863,10 @@ def _mesh_rank(rank, world, shape, job, root) -> None:
 def _mesh_model(cfg, mesh):
     """The model and the rank's shards of the seeded parameters."""
     import torch
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models import build_model
     from repro_torch.sharding import tree_shardings
     from repro_torch.sharding.spmd import shard_tree
-    model = DecoderLM(cfg, device=mesh.device)
+    model = build_model(cfg, device=mesh.device)
     sh = tree_shardings(model.param_specs(), mesh)
     params = shard_tree(model.init(seed=MESH_SEED), sh, mesh)
     _mesh_free()
@@ -3910,6 +3966,60 @@ def _mesh_train(mesh, root, rec) -> None:
                              mesh, mesh.axis_names))
     rec["ckpt_leaves"] = len(leaves)
     rec["ckpt_files_unequal_to_shards"] = bad
+    del params, state, tree
+    _mesh_free()
+    _mesh_family_train(mesh, root, rec)
+
+
+def _mesh_family_train(mesh, root, rec) -> None:
+    """(2, 2): each of MESH_FAMILIES' first-step loss and gradients
+    against the single device's (the grad step's launches beside its),
+    then its AdamW update, and a second, whole step: each step's ms,
+    the peak, the collectives' bytes and seconds."""
+    import torch
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.sharding import collectives
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_unflatten
+    opt = OptConfig()
+    for arch, layers, B, S in MESH_FAMILIES:
+        cfg = _mesh_family_config(arch, layers)
+        model, params, sh = _mesh_model(cfg, mesh)
+        pipe = SyntheticPipeline(cfg, B, S)
+        state = init_opt_state(params, opt)
+        step = make_train_step(model, cfg, opt=opt)
+        _mesh_sync(reset_peak=True)
+        collectives.reset_stats()
+        step_ms, losses = [], []
+        with mesh:
+            grads = _mesh_grads(mesh, model, cfg, params,
+                                pipe.device_batch(0, mesh=mesh), sh,
+                                root / f"{arch}_grads_ref.pt", rec, arch)
+            t0 = time.perf_counter()
+            params, state, _ = adamw_update(
+                params, tree_unflatten(params, grads), state, opt,
+                shardings=sh)
+            _mesh_sync()
+            step_ms.append(rec[f"{arch}_grad_s"] * 1e3
+                           + (time.perf_counter() - t0) * 1e3)
+            losses.append(rec[f"{arch}_loss"])
+            del grads
+            for s in range(1, MESH_STEPS):
+                batch = pipe.device_batch(s, mesh=mesh)
+                _mesh_sync()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                _mesh_sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+        rec[f"{arch}_step_ms"] = step_ms
+        rec[f"{arch}_losses"] = losses
+        rec[f"{arch}_collectives"] = collectives.stats()
+        rec[f"{arch}_peak_gb"] = _mesh_peak_gb()
+        del params, state, step
+        _mesh_free()
 
 
 def _mesh_moe_decode(mesh, root, rec) -> None:
@@ -3986,6 +4096,63 @@ def _mesh_moe_decode(mesh, root, rec) -> None:
     rec["decode_argmax_equal_min"] = min(argmax)
     rec["decode_outside_allclose_max"] = max(outside)
     rec["decode_step_ms"] = float(np.median(times))
+    del params, cache
+    _mesh_free()
+    _mesh_family_decode(mesh, root, rec)
+
+
+def _mesh_family_decode(mesh, root, rec) -> None:
+    """(1, 4): each of MESH_FAMILIES' prefill on the mesh and
+    MESH_FAMILY_DECODE_STEPS decode steps fed the single device's
+    tokens, each step's logits against the single device's; the cache's
+    leaves against the shards ``cache_specs`` places."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.sharding import tree_shardings
+    for arch, layers, B, S in MESH_FAMILIES:
+        cfg = _mesh_family_config(arch, layers)
+        model, params, _ = _mesh_model(cfg, mesh)
+        ref = torch.load(root / f"{arch}_decode_ref.pt", mmap=True)
+        batch = SyntheticPipeline(cfg, B, S).device_batch(0, mesh=mesh)
+        rows = batch["tokens"].shape[0]
+        first = mesh.axis_index(mesh.data_axes()) * rows
+        _mesh_sync(reset_peak=True)
+        rel, times = [], []
+        with mesh, torch.no_grad():
+            _, cache = model.prefill(
+                params, _mesh_prompt(batch),
+                max_len=S + MESH_FAMILY_DECODE_STEPS)
+            specs = model.cache_specs(B, S + MESH_FAMILY_DECODE_STEPS)
+            split = _mesh_cache_split(cache, specs, tree_shardings(
+                specs, mesh), mesh)
+            rec[f"{arch}_seq_shards"] = cache["seq_shards"]
+            for t in range(MESH_FAMILY_DECODE_STEPS):
+                _mesh_sync()
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(
+                    params, cache,
+                    ref["fed"][t][first:first + rows].to(mesh.device)[:, None])
+                _mesh_sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+                got = lg.float().cpu()
+                want = ref["logits"][t][first:first + rows].float()
+                rel.append(float((got - want).norm() / want.norm()))
+        rec[f"{arch}_decode_rel_l2"] = rel
+        rec[f"{arch}_decode_step_ms"] = float(np.median(times))
+        rec[f"{arch}_cache_leaves"] = split[0]
+        rec[f"{arch}_cache_leaves_misplaced"] = split[1]
+        rec[f"{arch}_decode_peak_gb"] = _mesh_peak_gb()
+        del params, cache, ref
+        _mesh_free()
+
+
+def _mesh_cache_split(cache, specs, shardings, mesh):
+    """(leaves, paths of the cache tensors whose shape is not the shard
+    of ``cache_specs`` that ``shardings`` places)."""
+    from repro_torch.sharding.spmd import shard_shapes
+    got = shard_shapes(cache, specs, shardings, mesh)
+    return len(got), [path for path, shape, want in got if shape != want]
 
 
 def _mesh_restore(mesh, root, rec) -> None:
@@ -4094,6 +4261,55 @@ def phase_mesh():
         "ckpt_restored_onto_elastic_mesh": (not s0["restored_unequal"]
                                             and s0["restored_leaves"] > 0),
     }
+    families = {}
+    for arch, layers, B, S in MESH_FAMILIES:
+        cfg = _mesh_family_config(arch, layers)
+        gates.update({
+            f"{arch}_train_loss_close":
+                abs(r0[f"{arch}_loss"] - refs[f"{arch}_loss"])
+                <= GRAD_LOSS_TOL,
+            f"{arch}_train_grads_close":
+                r0[f"{arch}_grad_rel_l2_max"] <= GRAD_REL_L2,
+            f"{arch}_train_every_leaf_has_a_gradient":
+                not r0[f"{arch}_leaves_without_gradient"],
+            f"{arch}_train_launches_equal_one_device": all(
+                r[f"{arch}_launches"] == refs[f"{arch}_launches"]
+                for r in train),
+            f"{arch}_train_losses_finite": all(
+                np.isfinite(r[f"{arch}_losses"]).all() for r in train),
+            f"{arch}_decode_close": all(
+                max(r[f"{arch}_decode_rel_l2"]) <= MESH_REL_TOL
+                for r in moe),
+            f"{arch}_decode_cache_split_as_cache_specs": all(
+                r[f"{arch}_cache_leaves"] > 0
+                and not r[f"{arch}_cache_leaves_misplaced"] for r in moe)})
+        if "local_attn" in cfg.layer_kinds:
+            gates[f"{arch}_decode_ring_wrapped"] = S > cfg.local_window
+        families[arch] = {
+            "layers": cfg.n_layers, "n_encoder_layers":
+                cfg.n_encoder_layers, "B": B, "S": S,
+            "train_mesh": MESH_TRAIN_SHAPE, "decode_mesh": MESH_MOE_SHAPE,
+            "loss_one_device": refs[f"{arch}_loss"],
+            "loss_mesh": r0[f"{arch}_loss"],
+            "grad_rel_l2_max": r0[f"{arch}_grad_rel_l2_max"],
+            "grad_rel_l2_worst_leaf": r0[f"{arch}_grad_rel_l2_worst_leaf"],
+            "launches_one_device": refs[f"{arch}_launches"],
+            "launches_per_rank": [r[f"{arch}_launches"] for r in train],
+            "grad_s_one_device": refs[f"{arch}_grad_s"],
+            "peak_gb_one_device": refs[f"{arch}_peak_gb"],
+            "step_ms_per_rank": [r[f"{arch}_step_ms"] for r in train],
+            "losses": r0[f"{arch}_losses"],
+            "peak_gb_per_rank": [r[f"{arch}_peak_gb"] for r in train],
+            "collectives_rank0": r0[f"{arch}_collectives"],
+            "decode_steps": MESH_FAMILY_DECODE_STEPS,
+            "decode_seq_shards": m0[f"{arch}_seq_shards"],
+            "decode_rel_l2_max": max(max(r[f"{arch}_decode_rel_l2"])
+                                     for r in moe),
+            "decode_rel_l2_rank0": m0[f"{arch}_decode_rel_l2"],
+            "decode_step_ms_rank0": m0[f"{arch}_decode_step_ms"],
+            "decode_peak_gb_per_rank": [r[f"{arch}_decode_peak_gb"]
+                                        for r in moe],
+            "cache_leaves": m0[f"{arch}_cache_leaves"]}
     peaks = [r["peak_gb"] for r in train + moe + restore]
     rec = {"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
            "transport": "gloo, every rank on cuda:0 (staged through "
@@ -4140,6 +4356,7 @@ def phase_mesh():
                           "layers": MESH_CKPT_LAYERS,
                           "leaves": s0["restored_leaves"],
                           "spawn_s": s0["spawn_s"]},
+           "families": families,
            "peak_gb_per_rank": peaks,
            "peak_gb_sum_train": sum(r["peak_gb"] for r in train),
            "peak_gb_sum_moe_decode": sum(r["peak_gb"] for r in moe),
@@ -4149,8 +4366,10 @@ def phase_mesh():
     if bad:
         fail(f"mesh: gates failed: {bad}")
     launches = _mesh_sum_launches(train, "train_launches")
-    for k, n in _mesh_sum_launches(moe, "moe_launches").items():
-        launches[k] = launches.get(k, 0) + n
+    for recs, key in ((moe, "moe_launches"),
+                      *((train, f"{a[0]}_launches") for a in MESH_FAMILIES)):
+        for k, n in _mesh_sum_launches(recs, key).items():
+            launches[k] = launches.get(k, 0) + n
     return launches
 
 

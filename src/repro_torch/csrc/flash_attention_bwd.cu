@@ -1,6 +1,6 @@
 // The backward of the flash attention kernel (flash_attention.cu):
-// given q, k, v, the forward's output o, its per-row log-sum-exp lse
-// and the output's gradient do, the gradients dq, dk and dv.
+// given q, k, v, the forward's per-row log-sum-exp lse and the output's
+// gradient do, the gradients dq, dk and dv.
 //
 // Replaces the JAX package's autodiff of the attention its model path
 // differentiates, src/repro/models/components.py:flash_attention (the
@@ -12,10 +12,10 @@
 // reference's flash_attention and its banded local_attention) and GQA
 // (kv head h / G), Sq queries against Skv keys:
 //
-//     D  = rowsum(do * o)                      (f32, per query row)
 //     P  = exp(S scale - lse)                  (f32)
-//     dV = sum over the G heads of P^T do
 //     dP = do V^T
+//     D  = rowsum(P * dP)                      (f32, per query row)
+//     dV = sum over the G heads of P^T do
 //     dS = P * (dP - D)
 //     dQ = dS K scale,  dK = sum over the G heads of dS^T Q scale
 //
@@ -28,12 +28,13 @@
 // stream:
 //   * flash_bwd_dq: one block per (64-row query tile, head, batch row),
 //     issued longest walk first (block l takes query tile nq - 1 -
-//     l / (H B) when causal).  It first computes D of its rows (each
-//     row's 4-lane quad sums a fixed quarter of Dh each, then two xor
-//     shuffles) and writes it out for the second kernel, then walks the
-//     key tiles (64 keys, anchored at 0, as the forward) in ascending
-//     order from the tile of its first row's window start up to the
-//     causal frontier, recomputing P and dS, and accumulates dQ in
+//     l / (H B) when causal).  It walks the key tiles (64 keys, anchored
+//     at 0, as the forward) in ascending order from the tile of its
+//     first row's window start up to the causal frontier twice.  The
+//     first walk recomputes P and dP and sums D of its rows (each thread
+//     its columns in a fixed order, then its row's 4-lane quad by two
+//     xor shuffles), which it writes out for the second kernel; the
+//     second recomputes P and dP, forms dS and accumulates dQ in
 //     registers.
 //   * flash_bwd_dkdv: one block per item of the plan (ops.plan_dkdv),
 //     kv head and batch row, items longest first.  The walk of a key
@@ -54,7 +55,7 @@
 //
 // What bounds it on the H100: at S 2,048 (B 1, H 16, KVH 8, Dh 128)
 // the tensor-core operations (0.043 ms of them); at qwen3's training
-// shape (B 8, S 256) the bytes (0.015 ms) and the latency of a few
+// shape (B 8, S 256) the bytes (0.013 ms) and the latency of a few
 // tiles a block.  The first version of these kernels lost to three
 // things, in this order: its products ran on mma.sync with ldmatrix
 // operand traffic; the block of key tile 0 walked 64 steps alone where
@@ -89,21 +90,28 @@
 //     registers a thread are those of Dh 128; S and dP are formed twice
 //     (6 products of the tile pair's size where 4 would do).
 //
-// S and dP are still computed in both kernels (7 products a tile pair
-// where 5 suffice): without atomics, dQ's sum over key tiles and dK/dV's
-// over query tiles need two walks.
+// S and dP are computed in both walks of the dQ kernel and again in the
+// dK/dV kernel (9 products a tile pair where 5 suffice): without
+// atomics, dQ's sum over key tiles and dK/dV's over query tiles need
+// two kernels, and D needs a walk of its own.  D = rowsum(do * o), the
+// usual shortcut, would read the output rounded to bf16: its error
+// (~2^-9 of |o| a row) leaves dS rows that do not sum to zero, and
+// where the keys (the queries) of a head share a large component, as
+// the keys of whisper's decoder, which carry no rotary position, do at
+// init, that residue lands on dQ and on dK's sum over keys, and so on
+// Wq's and Wk's gradients.  The rowsum of the same P and dP that form
+// dS (the reference's softmax gradient) keeps each row's sum at f32
+// rounding.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W, L2 flushed
-// before each call): 0.067 ms at B 8 x S 256 (SDPA's backward on the
-// same mask 0.083; bound 0.015 ms, bytes) and 0.196 ms at B 1 x S 2,048
-// (SDPA 0.240; bound 0.043 ms, operations), from the first version's
-// 0.109 and 0.589 ms.  By the profiler's kernel time 0.057 and 0.187 ms
-// against SDPA's 0.071 and 0.175.  The families' training shapes (same
-// card): recurrentgemma's window 2,048 at Dh 256 and G 10 over B 1 x S
-// 4,096, 1.188 ms against SDPA's backward under the same mask 2.545
-// (bound 0.163 ms, operations); whisper's cross-attention 64 x 1,500
-// keys, B 8, 0.063 ms (SDPA 0.265, device 0.055 vs 0.034); its encoder
-// B 8 x 1,500, 0.444 ms (SDPA 0.415, device 0.437 vs 0.232).
+// before each call; device = the profiler's kernel time): 0.069 ms at
+// B 8 x S 256 (device 0.059; SDPA's backward 0.099; bound 0.013 ms,
+// bytes) and 0.255 ms at B 1 x S 2,048 (device 0.243; SDPA 0.210;
+// bound 0.043 ms, operations).  The families' training shapes, device
+// time: recurrentgemma's window 2,048 at Dh 256 and G 10 over B 1 x S
+// 4,096, 1.354 ms (SDPA 2.513 wall; bound 0.163 ms, operations);
+// whisper's cross-attention 64 x 1,500 keys, B 8, 0.074 ms, and its
+// encoder B 8 x 1,500, 0.523 ms.
 //
 // Head dims 64, 128 and 256.
 
@@ -370,7 +378,6 @@ __global__ void __launch_bounds__(DH > 128 ? 2 * WG : WG, DH > 128 ? 1 : 2)
 flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,Sq,H,DH)
              const __nv_bfloat16* __restrict__ k,    // (B,Skv,KVH,DH)
              const __nv_bfloat16* __restrict__ v,
-             const __nv_bfloat16* __restrict__ o,    // (B,Sq,H,DH)
              const __nv_bfloat16* __restrict__ dout, // (B,Sq,H,DH)
              const float* __restrict__ lse,          // (B,H,Sq)
              float* __restrict__ dsum,               // (B,H,Sq) out: D
@@ -421,40 +428,6 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,Sq,H,DH)
     const int row0 = q0 + rq, row1 = row0 + 8;
     const size_t lrow = ((size_t)b * H + h) * Sq;
 
-    // D of the two rows: lane (lane & 3) of the quad sums the products
-    // of its quarter of Dh in order, then the quad adds the quarters
-    // (each warpgroup alike; the first writes it out)
-    float d0 = 0.f, d1 = 0.f;
-    {
-        constexpr int QW = DH / 4;
-        const int c0 = (lane & 3) * QW;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int r = half ? row1 : row0;
-            float acc = 0.f;
-            if (r < Sq) {
-                const size_t base = (((size_t)b * Sq + r) * H + h) * DH + c0;
-                const __nv_bfloat162* op =
-                    reinterpret_cast<const __nv_bfloat162*>(o + base);
-                const __nv_bfloat162* dp =
-                    reinterpret_cast<const __nv_bfloat162*>(dout + base);
-#pragma unroll 8
-                for (int i = 0; i < QW / 2; ++i) {
-                    const float2 a = __bfloat1622float2(op[i]);
-                    const float2 c = __bfloat1622float2(dp[i]);
-                    acc += a.x * c.x;
-                    acc += a.y * c.y;
-                }
-            }
-            acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-            acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-            if (half) d1 = acc; else d0 = acc;
-        }
-        if (wg == 0 && (lane & 3) == 0) {
-            if (row0 < Sq) dsum[lrow + row0] = d0;
-            if (row1 < Sq) dsum[lrow + row1] = d1;
-        }
-    }
     const float l0 = row0 < Sq ? lse[lrow + row0] * LOG2E : 0.f;
     const float l1 = row1 < Sq ? lse[lrow + row1] * LOG2E : 0.f;
     const float sl2 = scale * LOG2E;
@@ -463,78 +436,114 @@ flash_bwd_dq(const __nv_bfloat16* __restrict__ q,    // (B,Sq,H,DH)
 #pragma unroll
     for (int e = 0; e < NO * 4; ++e) acc[e] = 0.f;
 
-    for (int t = 0; t < ntiles; ++t) {
-        const int buf = t & 1;
-        const int j0 = (kt0 + t) * TILE;
-        if (t + 1 < ntiles) {
-            load_rows<DH>(sk + (buf ^ 1) * KT, kb, kv_ld, j0 + TILE, Skv);
-            load_rows<DH>(sv + (buf ^ 1) * KT, vb, kv_ld, j0 + TILE, Skv);
+    // walk 0 sums D of the two rows (d0, d1: this thread's columns, then
+    // the quad's), walk 1 forms dS and accumulates dQ
+    float d0 = 0.f, d1 = 0.f;
+    for (int walk = 0; walk < 2; ++walk) {
+        if (walk == 1 && ntiles > 0) {   // the first K and V tiles again
+            load_rows<DH>(sk, kb, kv_ld, kt0 * TILE, Skv);
+            load_rows<DH>(sv, vb, kv_ld, kt0 * TILE, Skv);
             cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
         }
-        proxy_fence();
-        __syncthreads();
-        const uint32_t kt = sk + buf * KT, vt = sv + buf * KT;
-
-        // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, one warpgroup
-        float s[32], dp[32];
-#pragma unroll
-        for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
-        fence_regs(s);
-        fence_regs(dp);
-        wg_fence();
-        mma_ss_tile<DH>(s, sq, kt);
-        wg_commit();
-        mma_ss_tile<DH>(dp, sdo, vt);
-        wg_commit();
-
-        // P = exp(S scale - lse) on the visible keys (while dP is in
-        // flight), then dS = P (dP - D), packed to bf16 A fragments (one
-        // per k16 step of 16 keys); values e of n8 block n: row rq (+8
-        // for e >= 2), key 8 n + 2 (lane & 3) + (e & 1).  A tile wholly
-        // inside the mask needs no element test.
-        const bool whole = whole_tile(q0, j0, Sq, Skv, causal, window);
-        wg_wait<1>();
-        fence_regs(s);
-        float pr[32];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int j = j0 + 8 * n + 2 * (lane & 3) + (e & 1);
-                const int r = e < 2 ? row0 : row1;
-                const bool vis =
-                    whole || visible(r, j, Sq, Skv, causal, window);
-                pr[4 * n + e] = vis ? exp2_approx(s[4 * n + e] * sl2 -
-                                                  (e < 2 ? l0 : l1))
-                                    : 0.f;
+        for (int t = 0; t < ntiles; ++t) {
+            const int buf = t & 1;
+            const int j0 = (kt0 + t) * TILE;
+            if (t + 1 < ntiles) {
+                load_rows<DH>(sk + (buf ^ 1) * KT, kb, kv_ld, j0 + TILE, Skv);
+                load_rows<DH>(sv + (buf ^ 1) * KT, vb, kv_ld, j0 + TILE, Skv);
+                cp_async_commit();
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
             }
-        wg_wait<0>();
-        fence_regs(dp);
-        uint32_t dsa[4][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-            float ds[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                ds[e] = pr[4 * n + e] * (dp[4 * n + e] - (e < 2 ? d0 : d1));
-            dsa[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
-            dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-        }
+            proxy_fence();
+            __syncthreads();
+            const uint32_t kt = sk + buf * KT, vt = sv + buf * KT;
 
-        // dQ += dS K: this warpgroup's DO columns of K (keys x DH) read
-        // MN-major
-        fence_regs(acc);
-        fence_frags(dsa);
-        wg_fence();
-        mma_rs_tile<DO>(acc, dsa, kt + wg * (DO / 64) * BOX);
-        wg_commit();
-        wg_wait<0>();
-        fence_regs(acc);
-        fence_frags(dsa);
-        __syncthreads();   // this buffer is the next prefetch's target
+            // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, one warpgroup
+            float s[32], dp[32];
+#pragma unroll
+            for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+            fence_regs(s);
+            fence_regs(dp);
+            wg_fence();
+            mma_ss_tile<DH>(s, sq, kt);
+            wg_commit();
+            mma_ss_tile<DH>(dp, sdo, vt);
+            wg_commit();
+
+            // P = exp(S scale - lse) on the visible keys (while dP is in
+            // flight); values e of n8 block n: row rq (+8 for e >= 2), key
+            // 8 n + 2 (lane & 3) + (e & 1).  A tile wholly inside the mask
+            // needs no element test.
+            const bool whole = whole_tile(q0, j0, Sq, Skv, causal, window);
+            wg_wait<1>();
+            fence_regs(s);
+            float pr[32];
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int j = j0 + 8 * n + 2 * (lane & 3) + (e & 1);
+                    const int r = e < 2 ? row0 : row1;
+                    const bool vis =
+                        whole || visible(r, j, Sq, Skv, causal, window);
+                    pr[4 * n + e] = vis ? exp2_approx(s[4 * n + e] * sl2 -
+                                                      (e < 2 ? l0 : l1))
+                                        : 0.f;
+                }
+            wg_wait<0>();
+            fence_regs(dp);
+            if (walk == 0) {
+                // D += P dP over this thread's keys, in ascending order
+#pragma unroll
+                for (int n = 0; n < 8; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float x = pr[4 * n + e] * dp[4 * n + e];
+                        if (e < 2) d0 += x; else d1 += x;
+                    }
+                __syncthreads();   // the next prefetch's target
+                continue;
+            }
+            // dS = P (dP - D), packed to bf16 A fragments (one per k16
+            // step of 16 keys)
+            uint32_t dsa[4][4];
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+                float ds[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    ds[e] = pr[4 * n + e] *
+                            (dp[4 * n + e] - (e < 2 ? d0 : d1));
+                dsa[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+                dsa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+            }
+
+            // dQ += dS K: this warpgroup's DO columns of K (keys x DH)
+            // read MN-major
+            fence_regs(acc);
+            fence_frags(dsa);
+            wg_fence();
+            mma_rs_tile<DO>(acc, dsa, kt + wg * (DO / 64) * BOX);
+            wg_commit();
+            wg_wait<0>();
+            fence_regs(acc);
+            fence_frags(dsa);
+            __syncthreads();   // this buffer is the next prefetch's target
+        }
+        if (walk == 0) {
+            // the quad's four column sets, then written out (each
+            // warpgroup alike; the first writes)
+            d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+            d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+            d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+            d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+            if (wg == 0 && (lane & 3) == 0) {
+                if (row0 < Sq) dsum[lrow + row0] = d0;
+                if (row1 < Sq) dsum[lrow + row1] = d1;
+            }
+        }
     }
 
     const int col = wg * DO + 2 * (lane & 3);
@@ -784,12 +793,11 @@ flash_bwd_dkdv_combine(const float* __restrict__ ws,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dsum, void* dq,
-           void* dk, void* dv, const int4* items, int n_items,
-           const int4* splits, int n_splits, float* ws, int B, int Sq,
-           int Skv, int H, int KVH, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, float* dsum, void* dq, void* dk, void* dv,
+           const int4* items, int n_items, const int4* splits,
+           int n_splits, float* ws, int B, int Sq, int Skv, int H, int KVH,
+           int causal, int window, cudaStream_t stream) {
     using bf = __nv_bfloat16;
     constexpr int NT = WG * n_wg(DH);
     const size_t s1 = dq_smem_bytes<DH>(), s2 = dkdv_smem_bytes<DH>();
@@ -806,9 +814,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     const int nq = (Sq + TILE - 1) / TILE;
     flash_bwd_dq<DH><<<nq * H * B, NT, s1, stream>>>(
         static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), static_cast<const bf*>(o),
-        static_cast<const bf*>(dout), lse, dsum, static_cast<bf*>(dq), B,
-        Sq, Skv, H, KVH, causal, window, scale);
+        static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dsum,
+        static_cast<bf*>(dq), B, Sq, Skv, H, KVH, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     flash_bwd_dkdv<DH><<<n_items * KVH * B, NT, s2, stream>>>(
@@ -826,20 +833,20 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// q, o, dout, dq: (B, Sq, H, Dh); k, v, dk, dv: (B, Skv, KVH, Dh), all
+// q, dout, dq: (B, Sq, H, Dh); k, v, dk, dv: (B, Skv, KVH, Dh), all
 // bf16 and contiguous; lse: the forward's (B, H, Sq) f32 log-sum-exp;
-// dsum: an f32 (B, H, Sq) scratch buffer that receives D = rowsum(dout
-// * o).  window: 0 for none.  items (n_items x int4) and splits
+// dsum: an f32 (B, H, Sq) scratch buffer that receives D = rowsum(P *
+// dP).  window: 0 for none.  items (n_items x int4) and splits
 // (n_splits x int4): the dK/dV plan of ops.plan_dkdv on the device; ws:
 // f32 scratch of n_slots x B x KVH x 2 x 64 x Dh floats (null when
 // n_splits is 0).  Returns the cudaError_t of the launches (0 on
 // success).
 extern "C" int repro_flash_attention_bwd_bf16(
-        const void* q, const void* k, const void* v, const void* o,
-        const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-        void* dv, const void* items, int n_items, const void* splits,
-        int n_splits, void* ws, int B, int Sq, int Skv, int H, int KVH,
-        int Dh, int causal, int window, void* stream) {
+        const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, void* dsum, void* dq, void* dk, void* dv,
+        const void* items, int n_items, const void* splits, int n_splits,
+        void* ws, int B, int Sq, int Skv, int H, int KVH, int Dh,
+        int causal, int window, void* stream) {
     auto s = static_cast<cudaStream_t>(stream);
     auto l = static_cast<const float*>(lse);
     auto d = static_cast<float*>(dsum);
@@ -849,15 +856,15 @@ extern "C" int repro_flash_attention_bwd_bf16(
     if (n_items < 1 || (n_splits > 0 && w == nullptr))
         return (int)cudaErrorInvalidValue;
     if (Dh == 64)
-        return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
+        return launch<64>(q, k, v, dout, l, d, dq, dk, dv, it, n_items,
                           sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
                           window, s);
     if (Dh == 128)
-        return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
+        return launch<128>(q, k, v, dout, l, d, dq, dk, dv, it, n_items,
                            sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
                            window, s);
     if (Dh == 256)
-        return launch<256>(q, k, v, o, dout, l, d, dq, dk, dv, it, n_items,
+        return launch<256>(q, k, v, dout, l, d, dq, dk, dv, it, n_items,
                            sp, n_splits, w, B, Sq, Skv, H, KVH, causal,
                            window, s);
     return (int)cudaErrorInvalidValue;

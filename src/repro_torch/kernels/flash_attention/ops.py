@@ -77,7 +77,7 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         f = load("flash_attention_bwd").repro_flash_attention_bwd_bf16
-        f.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p,
+        f.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p,
                                                 ctypes.c_int, ctypes.c_void_p]
                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
@@ -324,13 +324,16 @@ def plan_dkdv(Sq: int, Skv: int, G: int, causal: bool = True,
     return DkdvPlan(chunk, tuple(items), tuple(splits), slot)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
+def flash_attention_bwd_plain(q, k, v, lse, dout, causal: bool = True,
                               window=None):
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) in
-    the inputs' dtypes from the forward's ``out`` and ``lse``.  D =
-    rowsum(dout * out), P = exp(S scale - lse) on the forward's mask and
-    dS = P (dP - D) in f32; P and dS are rounded to the value dtype where
-    they enter a product (as the kernels round them to bf16).  Query
+    the inputs' dtypes from the forward's ``lse``.  P = exp(S scale -
+    lse) on the forward's mask, dP = dout V^T, D = rowsum(P dP) and dS =
+    P (dP - D) in f32 (D from the forward's output, rounded to its dtype,
+    would leave each dS row a residue that a large component the keys
+    share turns into dQ and Wk gradient: the kernel's header); P and dS
+    are rounded to the value dtype where they enter a product (as the
+    kernels round them to bf16).  Query
     heads, then query tiles of KV_TILE rows, in ascending order, as the
     dK/dV walks run them; each key tile's dK and dV are summed in f32
     run by run of ``plan_dkdv``, and the runs added in ascending
@@ -345,10 +348,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
 
     def heads(t):                       # (B, Sq, H, Dh) -> (B,KVH,G,Sq,Dh)
         return t.float().reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)
-    qf, of, dof = heads(q), heads(out), heads(dout)
+    qf, dof = heads(q), heads(dout)
     kf = k.float().permute(0, 2, 1, 3)                 # (B,KVH,Skv,Dh)
     vf = v.float().permute(0, 2, 1, 3)
-    d = (dof * of).sum(-1)                             # (B,KVH,G,Sq)
     lse = lse.float().reshape(B, KVH, G, Sq)
     plan = plan_dkdv(Sq, Skv, G, causal, window)
     nq = -(-Sq // KV_TILE)
@@ -373,7 +375,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
                 vis = vis & (j[None] > i - window)
             p = torch.where(vis, p, 0.0)
             dp = dof[:, :, g, rows] @ vf.transpose(-1, -2)
-            ds = p * (dp - d[:, :, g, rows, None])
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
             pb, dsb = p.to(dt).float(), ds.to(dt).float()
             dq[:, :, g, rows] = dsb @ kf
             steps = (dsb.transpose(-1, -2) @ qf[:, :, g, rows],
@@ -411,22 +413,21 @@ def _dkdv_tables(Sq: int, Skv: int, G: int, causal: bool, window, device):
     return _plan_tables[key]
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
                         window=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
-    window=window)`` given its ``out``, its ``lse``
-    (``flash_attention_lse``) and the output's gradient ``dout``: the
-    kernels for CUDA tensors, the plain version for CPU tensors."""
+    window=window)`` given its ``lse`` (``flash_attention_lse``) and the
+    output's gradient ``dout``: the kernels for CUDA tensors, the plain
+    version for CPU tensors."""
     _check_bwd(q, k, v, window)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
-                                         window)
+        return flash_attention_bwd_plain(q, k, v, lse, dout, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
-                    ("dout", dout), ("lse", lse)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout),
+                    ("lse", lse)):
         want = torch.float32 if name == "lse" else torch.bfloat16
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -436,8 +437,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError("out and dout must have q's shape")
+    if dout.shape != q.shape:
+        raise ValueError("dout must have q's shape")
     if tuple(lse.shape) != (B, H, Sq):
         raise ValueError(f"lse must be (B, H, Sq) = {(B, H, Sq)}, got "
                          f"{tuple(lse.shape)}")
@@ -456,7 +457,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     global bwd_launches
     bwd_launches += 1
     err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        dout.data_ptr(), lse.data_ptr(),
                         dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                         dv.data_ptr(), items.data_ptr(), len(plan.items),
                         splits.data_ptr(), len(plan.splits),
@@ -478,15 +479,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         out, lse = flash_attention_lse(q, k, v, causal, window)
         ctx.causal, ctx.window = causal, window
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.causal,
-                                         ctx.window)
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout.contiguous(),
+                                         ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 

@@ -10,9 +10,10 @@ TP``), its split over ``model``: attention heads and the FFN's hidden
 dim column-parallel with row-parallel ``wo`` / ``wd`` (f32 partials
 summed, rounded once), experts expert-parallel (the reference's
 ``_moe_compute`` at ``ep_size`` = model), the vocabulary split in the
-embedding and the unembedding, and a decode cache split along its
-sequence (``sharded_decode_attention``).  ``tp=None`` is the
-single-device path, unchanged.
+embedding and the unembedding, and a decode cache (a local-attention
+ring, whisper's cross cache) split along its sequence
+(``sharded_decode_attention``, ``cross_attention_block``).  ``tp=None``
+is the single-device path, unchanged.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
@@ -51,18 +52,21 @@ from ..kernels.flash_attention.ops import (flash_attention_lse,
                                            flash_attention_train)
 from ..kernels.gemm_dataflow.ops import LinearFn, project, project_f32
 from ..kernels.paged_attention import paged_attention
-from ..sharding.collectives import all_gather, fanout, gather, reduce
+from ..sharding.collectives import (all_gather, all_reduce, fanout, gather,
+                                    reduce)
 from ..sharding.spmd import MODEL
 from .base import ParamSpec, normal, ones, zeros
 
-__all__ = ["linear", "row_sum", "rms_norm", "layer_norm", "norm_specs",
+__all__ = ["linear", "fanout_linear", "row_sum", "rms_norm", "layer_norm",
+           "norm_specs",
            "apply_norm", "group_norm_heads", "rope_freqs", "apply_rope", "apply_mrope",
            "sinusoid_pos", "sinusoid_pos_at", "attn_specs", "project_qkv",
            "out_proj", "attention_block", "cross_attention_block",
            "encode_cross_kv", "mlp_specs", "mlp_block", "moe_specs",
            "moe_capacity", "moe_route", "moe_block",
            "embed_specs", "embed_tokens", "unembed", "unembed_local",
-           "sharded_decode_attention", "decode_attention",
+           "rank_slice", "row_parallel", "sharded_decode_attention",
+           "decode_attention",
            "flash_decode_layout", "flash_decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
            "paged_verify_attention_block",
@@ -103,6 +107,60 @@ def linear(x, w, bias=None, f32_out: bool = False):
 
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def fanout_linear(x, *ws, tp):
+    """``linear(x, w)`` for each of ``ws`` (a tuple, one output a
+    weight; biases are the caller's), where x is replicated over
+    ``model`` and each product is split work (``w`` this rank's
+    columns, or whole weights whose output this rank cuts): the
+    forwards are ``linear``'s, and x's gradient is this rank's f32
+    partials dY w^T added, summed over ``model`` by one all-reduce and
+    rounded once.  ``fanout(x)`` before each ``linear`` would round
+    every partial to x's dtype before the sum: a second rounding, which
+    put RWKV6's decay bias ``w0`` (its most cancelling bf16 gradient)
+    8.7e-2 relative L2 from the single device's on an H100, 4.2e-2
+    without it (PERF.md)."""
+    ws = tuple(w.to(x.dtype) for w in ws)
+    x2 = x.reshape(-1, x.shape[-1])
+    if _needs_grad(x, *ws):
+        ys = _FanoutLinearFn.apply(x2, tp.mesh, *ws)
+    else:
+        ys = tuple(project(x2, w) for w in ws)
+    return tuple(y.reshape(*x.shape[:-1], w.shape[1])
+                 for y, w in zip(ys, ws))
+
+
+def _add_bias(y, bias):
+    """``y`` plus ``bias`` in y's dtype, as ``linear`` adds it."""
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+class _FanoutLinearFn(torch.autograd.Function):
+    """``x @ w`` for each w (``fanout_linear``): dW = x^T dY as
+    ``LinearFn``'s, dX the products' f32 partials added in order, then
+    one all-reduce over ``model`` and one rounding."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.mesh = mesh
+        return tuple(project(x, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *ws = ctx.saved_tensors
+        dys = [dy.to(x.dtype).contiguous() for dy in dys]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            for dy, w in zip(dys, ws):
+                part = project_f32(dy, w.t().contiguous())
+                dx = part if dx is None else dx + part
+            dx = all_reduce(dx, ctx.mesh, MODEL).to(x.dtype)
+        xt = x.t().contiguous() if any(ctx.needs_input_grad[2:]) else None
+        dws = [project(xt, dy) if need else None
+               for dy, need in zip(dys, ctx.needs_input_grad[2:])]
+        return (dx, None, *dws)
 
 
 # ---------------------------------------------------------------- norms
@@ -266,10 +324,11 @@ def attn_specs(cfg) -> dict:
     return p
 
 
-def _slice(t, tp, n: int):
-    """This rank's ``n`` entries of a replicated vector whose whole
-    feeds work split over ``model`` (its gradient summed over it)."""
-    return fanout(t, tp.mesh, MODEL).narrow(0, tp.index * n, n)
+def rank_slice(t, tp, n: int, dim: int = 0):
+    """This rank's ``n`` entries along ``dim`` of a tensor replicated
+    over ``model`` whose whole feeds work split over it (its gradient
+    summed over ``model``)."""
+    return fanout(t, tp.mesh, MODEL).narrow(dim, tp.index * n, n)
 
 
 def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
@@ -281,7 +340,7 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     query heads, and its KVH / m KV heads (``tp.kv``) or, where m does
     not divide KVH, the KV heads repeated G-fold to H and cut to its
     H / m; the replicated biases and norm scales enter through
-    ``fanout``, as does x."""
+    ``fanout``, x through ``fanout_linear``."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
@@ -289,20 +348,22 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     split = tp is not None and tp.heads
     if split:
         h //= tp.size
-        x = fanout(x, tp.mesh, MODEL)
         qn, kn = (None if t is None else fanout(t, tp.mesh, MODEL)
                   for t in (qn, kn))
-        bq = None if bq is None else _slice(bq, tp, h * hd)
+        bq = None if bq is None else rank_slice(bq, tp, h * hd)
         if tp.kv:
             kvh //= tp.size
-            bk, bv = (None if t is None else _slice(t, tp, kvh * hd)
+            bk, bv = (None if t is None else rank_slice(t, tp, kvh * hd)
                       for t in (bk, bv))
         else:
             bk, bv = (None if t is None else fanout(t, tp.mesh, MODEL)
                       for t in (bk, bv))
-    q = linear(x, p["wq"], bq).reshape(B, S, h, hd)
-    k = linear(x, p["wk"], bk).reshape(B, S, kvh, hd)
-    v = linear(x, p["wv"], bv).reshape(B, S, kvh, hd)
+    ws = (p["wq"], p["wk"], p["wv"])
+    q, k, v = (fanout_linear(x, *ws, tp=tp) if split
+               else tuple(linear(x, w) for w in ws))
+    q = _add_bias(q, bq).reshape(B, S, h, hd)
+    k = _add_bias(k, bk).reshape(B, S, kvh, hd)
+    v = _add_bias(v, bv).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, qn, cfg.norm_eps)
         k = rms_norm(k, kn, cfg.norm_eps)
@@ -317,10 +378,16 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        fraction=cfg.rope_fraction)
     if split and not tp.kv:
-        g = cfg.n_heads // cfg.n_kv_heads
-        k, v = (t.repeat_interleave(g, dim=2).narrow(2, tp.index * h, h)
-                for t in (k, v))
+        k, v = _expand_kv(cfg, tp, k, v)
     return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _expand_kv(cfg, tp, *ts):
+    """Every KV head (B, S, KVH, Dh) repeated G-fold to the H query
+    heads and cut to this rank's H / m."""
+    g, h = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // tp.size
+    return tuple(t.repeat_interleave(g, dim=2).narrow(2, tp.index * h, h)
+                 for t in ts)
 
 
 def out_proj(p, out, tp=None):
@@ -331,10 +398,10 @@ def out_proj(p, out, tp=None):
     x = out.reshape(B, S, -1)
     if tp is None or not tp.heads:
         return linear(x, p["wo"])
-    return _row_parallel(x, p["wo"], tp)
+    return row_parallel(x, p["wo"], tp)
 
 
-def _row_parallel(x, w, tp):
+def row_parallel(x, w, tp):
     """``x @ w`` for a ``w`` holding this rank's rows of the whole
     product: the f32 partials summed over ``model``, rounded once to
     x's dtype (as ``linear`` rounds its one product)."""
@@ -385,7 +452,8 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
     if split:
         q, k, v = _gather_heads(tp, q, k, v)
     if tp is not None and tp.seq_shards > 1:
-        out = sharded_decode_attention(q, k, v, kc, vc, cache_pos, tp)
+        out = sharded_decode_attention(q, k, v, kc, vc, cache_pos, tp,
+                                       window)
     else:
         out = _decode_whole(q, k, v, kc, vc, cache_pos, window, paged)
     if split:
@@ -416,22 +484,31 @@ def _decode_whole(q, k, v, kc, vc, cache_pos, window, paged):
     return flash_decode_attention(q, kc, vc, cache_pos, window=window)
 
 
-def sharded_decode_attention(q, k, v, kc, vc, pos: int, tp):
+def sharded_decode_attention(q, k, v, kc, vc, pos: int, tp, window=None):
     """One decode step over a cache whose sequence is split over
     ``model`` (the reference's ``kv_seq`` layout, its flash decoding):
-    rank i holds positions [i S_loc, (i+1) S_loc) of every head.  Only
-    the rank that owns position ``pos`` writes the token's K/V (at its
-    local offset); each rank attends over its own keys through the
-    flash kernel with the row's log-sum-exp, and the ranks' partial
-    results are combined (softmax-weighted by their lse, added in rank
-    order, so every rank gets the same bits).  q: (B, 1, H, Dh) of all
-    heads; a rank none of whose keys precede ``pos`` contributes
-    nothing."""
+    rank i holds slots [i S_loc, (i+1) S_loc) of every head.  Only the
+    rank that owns the token's slot writes its K/V (at its local
+    offset); each rank attends over its own keys through the flash
+    kernel with the row's log-sum-exp, and the ranks' partial results
+    are combined (``_combine_shards``).  q: (B, 1, H, Dh) of all heads.
+
+    A contiguous cache holds position p at slot p, and key j of rank i
+    is live iff i S_loc + j <= ``pos``.  A local-attention ring of
+    ``window`` slots (the cache's whole length) holds position p at
+    slot p % window: the last ``window`` positions once ``pos`` >=
+    window - 1, every slot then live and within the window (the
+    reference's ring decode attends every written slot), and slots 0 ..
+    ``pos`` before, as a contiguous cache.  A rank none of whose keys
+    is live contributes nothing."""
     s_loc = kc.shape[1]
-    off = pos - tp.index * s_loc
-    if 0 <= off < s_loc:
-        kc[:, off] = k[:, 0].to(kc.dtype)
-        vc[:, off] = v[:, 0].to(vc.dtype)
+    ring = window is not None and s_loc * tp.size == window
+    base = tp.index * s_loc
+    at = (pos % window if ring else pos) - base
+    if 0 <= at < s_loc:
+        kc[:, at] = k[:, 0].to(kc.dtype)
+        vc[:, at] = v[:, 0].to(vc.dtype)
+    off = (min(pos, window - 1) if ring else pos) - base
     B, _, H, Dh = q.shape
     if off >= 0:
         o, lse = flash_attention_lse(q, kc, vc, causal=True, q_offset=off)
@@ -439,39 +516,81 @@ def sharded_decode_attention(q, k, v, kc, vc, pos: int, tp):
         o = q.new_zeros(B, 1, H, Dh)
         lse = torch.full((B, H, 1), -math.inf, dtype=torch.float32,
                          device=q.device)
-    # one all-gather of every rank's (o, lse), packed: (m, B, H, Dh + 1)
+    return _combine_shards(o, lse, tp)
+
+
+def _combine_shards(o, lse, tp):
+    """The attention of one query row over a cache split along its
+    sequence over ``model``, from each rank's partial (o (B, 1, H, Dh),
+    its lse (B, H, 1)): one all-gather of every rank's (o, lse), packed;
+    the partials softmax-weighted by their lse and added in rank order,
+    so every rank gets the same bits."""
+    Dh = o.shape[-1]
     got = all_gather(torch.cat([o.float()[:, 0], lse], -1)[None],
-                     tp.mesh, MODEL, 0)
+                     tp.mesh, MODEL, 0)                   # (m, B, H, Dh + 1)
     os_, ls = got[..., :Dh], got[..., Dh:]
     w = torch.exp(ls - ls.amax(0, keepdim=True))            # (m, B, H, 1)
     num, den = os_[0] * w[0], w[0]
     for i in range(1, got.shape[0]):
         num, den = num + os_[i] * w[i], den + w[i]
-    return (num / den)[:, None].to(q.dtype)
+    return (num / den)[:, None].to(o.dtype)
 
 
-def cross_attention_block(p, x, enc_kv, cfg):
+def cross_attention_block(p, x, enc_kv, cfg, tp=None, step: bool = False):
     """Decoder cross-attention (whisper); ``enc_kv`` = (k, v) of the
     encoder output, (B, S_enc, KVH, Dh) each, attended whole (not
     causal) through the flash kernel (under grad with its backward
-    kernel, Sq queries against S_enc keys)."""
+    kernel, Sq queries against S_enc keys).
+
+    ``tp`` (on a mesh): with ``tp.heads`` this rank's q heads
+    (column-parallel ``wq``, ``fanout_linear``) and a row-parallel
+    ``wo``; ``enc_kv`` then holds this rank's heads
+    (``encode_cross_kv``), except in a decode ``step``, whose cache
+    holds every head: the row's q heads are gathered, every head
+    attends, and this rank's go on.  A step's cache split along its
+    frames (``tp.seq_shards``) is attended shard by shard and the
+    partials combined (``_combine_shards``), with no causal mask."""
     B, S, _ = x.shape
-    q = linear(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    split = tp is not None and tp.heads
+    h = cfg.n_heads // tp.size if split else cfg.n_heads
+    q = fanout_linear(x, p["wq"], tp=tp)[0] if split else linear(x, p["wq"])
+    q = q.reshape(B, S, h, cfg.head_dim).contiguous()
     k, v = enc_kv
-    q = q.contiguous()
-    attend = (flash_attention_train if _needs_grad(q, k, v)
-              else flash_attention)
-    out = attend(q, k, v, q_offset=0, causal=False)
-    return out_proj(p, out)
+    if step and split:
+        q = _gather_heads(tp, q)[0]
+    if step and tp is not None and tp.seq_shards > 1:
+        out = _combine_shards(*flash_attention_lse(q, k, v, causal=False),
+                              tp)
+    else:
+        attend = (flash_attention_train if _needs_grad(q, k, v)
+                  else flash_attention)
+        out = attend(q, k, v, q_offset=0, causal=False)
+    if step and split:
+        out = out.narrow(2, tp.index * h, h)
+    return out_proj(p, out, tp)
 
 
-def encode_cross_kv(p, enc_out, cfg):
+def encode_cross_kv(p, enc_out, cfg, tp=None):
     """The cross-attention K/V of one decoder layer from the encoder
-    output (B, S_enc, D): computed once per prompt."""
+    output (B, S_enc, D): computed once per prompt.  With ``tp.heads``
+    this rank's heads: ``wk`` / ``wv`` column-parallel (or, where
+    ``model`` does not divide KVH, every KV head expanded and cut as in
+    ``project_qkv``), ``enc_out`` entering through ``fanout_linear`` at
+    each use, so its gradient into the encoder is summed over ``model``
+    layer by layer."""
     B, S, _ = enc_out.shape
-    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
-    return (linear(enc_out, p["wk"]).reshape(shape).contiguous(),
-            linear(enc_out, p["wv"]).reshape(shape).contiguous())
+    kvh = cfg.n_kv_heads
+    split = tp is not None and tp.heads
+    if split and tp.kv:
+        kvh //= tp.size
+    shape = (B, S, kvh, cfg.head_dim)
+    ws = (p["wk"], p["wv"])
+    k, v = (t.reshape(shape) for t in (
+        fanout_linear(enc_out, *ws, tp=tp) if split
+        else tuple(linear(enc_out, w) for w in ws)))
+    if split and not tp.kv:
+        k, v = _expand_kv(cfg, tp, k, v)
+    return k.contiguous(), v.contiguous()
 
 
 def decode_attention(q, k_cache, v_cache, pos: int):
@@ -634,9 +753,9 @@ def mlp_block(p, x, cfg, gather=None, tp=None):
     (concatenated, not reduced) before the replicated down projection.
     On a training mesh with ``tp.ff`` the up projections are column-
     and the down projection row-parallel over ``model``
-    (``_row_parallel``: f32 partials summed, rounded once)."""
+    (``row_parallel``: f32 partials summed, rounded once)."""
     if tp is not None and tp.ff:
-        return _mlp_split(p, fanout(x, tp.mesh, MODEL), cfg, tp)
+        return _mlp_split(p, x, cfg, tp)
     if cfg.mlp_kind == "gelu":
         h = F.gelu(linear(x, p["w1"], p["b1"]), approximate="tanh")
         return linear(_tp_gather_heads(h, gather, -1), p["w2"], p["b2"])
@@ -646,15 +765,16 @@ def mlp_block(p, x, cfg, gather=None, tp=None):
 
 
 def _mlp_split(p, x, cfg, tp):
-    """The FFN over this rank's hidden slice (x entered through
-    ``fanout``)."""
+    """The FFN over this rank's hidden slice (x through
+    ``fanout_linear``)."""
     if cfg.mlp_kind == "gelu":
         w1 = p["w1"]
-        h = F.gelu(linear(x, w1, _slice(p["b1"], tp, w1.shape[1])),
-                   approximate="tanh")
-        return _row_parallel(h, p["w2"], tp) + p["b2"].to(x.dtype)
-    h = F.silu(linear(x, p["wg"])) * linear(x, p["wu"])
-    return _row_parallel(h, p["wd"], tp)
+        h = _add_bias(fanout_linear(x, w1, tp=tp)[0],
+                      rank_slice(p["b1"], tp, w1.shape[1]))
+        h = F.gelu(h, approximate="tanh")
+        return row_parallel(h, p["w2"], tp) + p["b2"].to(x.dtype)
+    g, u = fanout_linear(x, p["wg"], p["wu"], tp=tp)
+    return row_parallel(F.silu(g) * u, p["wd"], tp)
 
 
 # ------------------------------------------------------------------ moe
@@ -745,8 +865,9 @@ def moe_block(p, x, cfg, tp=None):
     if m.n_shared:
         sp = p["shared"]
         split = tp is not None and tp.shared
-        xs = fanout(xf, tp.mesh, MODEL) if split else xf
-        h = F.silu(linear(xs, sp["wg"])) * linear(xs, sp["wu"])
+        g, u = (fanout_linear(xf, sp["wg"], sp["wu"], tp=tp) if split
+                else (linear(xf, sp["wg"]), linear(xf, sp["wu"])))
+        h = F.silu(g) * u
         if split:
             sh = linear(h, sp["wd"], f32_out=True)
             y = reduce(y.float() + sh, tp.mesh, MODEL) if ep else \
@@ -875,8 +996,10 @@ def unembed(p, x, cfg, tp=None):
 
 def unembed_local(p, x, cfg, tp):
     """This rank's vocabulary slice of the logits, (..., V / m), x
-    entering through ``fanout`` (every rank's slice reads it)."""
-    return _unembed(p, fanout(x, tp.mesh, MODEL), cfg)
+    entering through ``fanout`` (every rank's slice reads it) in f32,
+    so its gradient's f32 partials are summed before their one
+    rounding."""
+    return _unembed(p, fanout(x.float(), tp.mesh, MODEL), cfg)
 
 
 def _unembed(p, x, cfg):

@@ -42,8 +42,9 @@ Under ``with mesh:`` (``launch/mesh.py``) ``apply``, ``prefill`` and
 parameters are the rank's shards (``sharding.spmd.shard_tree`` by
 ``tree_shardings(param_specs())``), the batch rows the rank's rows of
 the data axes, and each block is computed as ``sharding/spmd.py``
-describes (FSDP gathers over ``data``; over ``model`` only the
-attention stacks split).  ``cache_specs`` places a decode cache.
+describes (FSDP gathers over ``data``; over ``model`` every block kind
+splits: attention heads, FFN, experts, the RG-LRU width, RWKV6's heads
+and channel mix).  ``cache_specs`` places a decode cache.
 """
 from __future__ import annotations
 
@@ -56,13 +57,13 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..launch.mesh import current_mesh
 from ..sharding import spmd
-from ..sharding.rules import logical_spec, tree_shardings
-from ..tree import tree_map
+from ..sharding.rules import tree_shardings
+from ..tree import tree_leaves, tree_map
 from . import components as C
 from . import rglru as R
 from . import rwkv6 as W
 from .base import ParamSpec, init_params, map_specs, with_param_dtype
-from .meshed import MeshModel
+from .meshed import KV_AXES, MeshModel
 
 __all__ = ["DecoderLM", "param_specs"]
 
@@ -129,10 +130,6 @@ def param_specs(cfg) -> dict:
             specs[f"layer_{i:02d}"] = _block_specs(
                 cfg, kind, cfg.moe is not None and i >= fd)
     return with_param_dtype(specs, cfg.param_dtype)
-
-
-#: the logical axes of an attention decode cache (the reference's)
-KV_AXES = ("batch", "kv_seq", "act_heads", None)
 
 
 def _layer(tree, i: int):
@@ -209,30 +206,36 @@ class DecoderLM(MeshModel):
     # are the rank's rows of the data axes, and each block is computed
     # as ``sharding/spmd.py`` describes.  A one-rank mesh computes what
     # no mesh computes.
-    def _tp(self, mesh, pl, use_moe: bool, whole_heads: bool = False,
+    def _tp(self, mesh, kind, pl, use_moe: bool, whole_heads: bool = False,
             cache_step: bool = False, seq_shards: int = 1):
-        """The split over ``model`` of one block placed as ``pl``: heads
-        split where ``model`` divides H (and, in a decode step, whose
-        cache holds every head, KVH too), unless ``whole_heads`` (a
-        prefill that builds a cache); the FFN's hidden dim, the
-        experts, as stored."""
+        """The split over ``model`` of one ``kind`` block placed as
+        ``pl``, as stored: attention heads as ``_heads_split`` says
+        (``whole_heads``: a prefill that builds a cache;
+        ``cache_step``: a decode step), the RG-LRU width, RWKV6's heads
+        (its states are cut by heads as they are computed, so neither
+        flag applies), the FFN's hidden dim, the experts."""
         m = mesh.axis_size(spmd.MODEL)
         if m == 1:
             return spmd.TP(mesh)
         cfg = self.cfg
         mix, ffn = pl["mix"], pl["ffn"]
-        heads = (not whole_heads and cfg.n_heads % m == 0
-                 and spmd.splits(mix["wq"][0], 1))
-        kv = (heads and cfg.n_kv_heads % m == 0
-              and spmd.splits(mix["wk"][0], 1))
-        heads = heads and (kv or not cache_step)
+        if kind == "rwkv":
+            return spmd.TP(mesh, heads=cfg.n_heads % m == 0
+                           and spmd.splits(mix["wr"][0], 1),
+                           ff=spmd.splits(ffn["wk"][0], 1))
+        heads = kv = lru = False
+        if kind == "rglru":
+            lru = spmd.splits(mix["w_in"][0], 1)
+        else:
+            heads, kv = self._heads_split(mesh, mix, whole_heads,
+                                          cache_step)
         if use_moe:
             return spmd.TP(mesh, heads, kv, experts=spmd.splits(
                 ffn["wg"][0], 0), shared="shared" in ffn and spmd.splits(
-                ffn["shared"]["wg"][0], 1), seq_shards=seq_shards)
+                ffn["shared"]["wg"][0], 1), lru=lru, seq_shards=seq_shards)
         w = "w1" if cfg.mlp_kind == "gelu" else "wg"
         return spmd.TP(mesh, heads, kv, ff=spmd.splits(ffn[w][0], 1),
-                       seq_shards=seq_shards)
+                       lru=lru, seq_shards=seq_shards)
 
     # ------------------------------------------------------------ blocks
     def _norm(self, p, x):
@@ -272,19 +275,21 @@ class DecoderLM(MeshModel):
                 kv = {n: t[:, -window:].contiguous() for n, t in kv.items()}
             new = {"kv": kv}
         elif kind == "rglru":
-            mix, rec = R.rglru_block(p["mix"], h, cfg, state=part("rec"))
+            mix, rec = R.rglru_block(p["mix"], h, cfg, state=part("rec"),
+                                     tp=tp)
             new = {"rec": rec}
         else:
             mix, att = W.rwkv_time_block(p["mix"], h, cfg,
                                          state=part("att"),
-                                         chunked=self.wkv_chunked or train)
+                                         chunked=self.wkv_chunked or train,
+                                         tp=tp)
             new = {"att": att}
         x = x + mix
         h = self._norm(p["ln2"], x)
         aux = None
         if kind == "rwkv":
             f, new["ffn"] = W.rwkv_channel_block(p["ffn"], h, cfg,
-                                                 state=part("ffn"))
+                                                 state=part("ffn"), tp=tp)
         elif use_moe:
             f, aux = C.moe_block(p["ffn"], h, cfg, tp=tp)
         else:
@@ -341,7 +346,7 @@ class DecoderLM(MeshModel):
                       "layers": tree_map(torch.unbind, params["layers"])}
         for kind, use_moe, p, pl in self._blocks(params, place):
             tp = (None if mesh is None else
-                  self._tp(mesh, pl, use_moe, whole_heads=decode_plan))
+                  self._tp(mesh, kind, pl, use_moe, whole_heads=decode_plan))
             if train:
                 def layer(p, x, kind=kind, use_moe=use_moe, tp=tp, pl=pl):
                     y, _, aux = self._block(kind, use_moe, p, x,
@@ -449,40 +454,35 @@ class DecoderLM(MeshModel):
     def shard_cache(self, cache, mesh) -> dict:
         """This rank's shard of a whole decode cache on ``mesh``, placed
         by ``cache_specs`` (the reference's ``tree_shardings(
-        cache_specs)``); its ``seq_shards`` tells ``decode_step`` how
-        many ranks of ``model`` split the attention caches' sequence."""
-        k0 = next(c["kv"]["k"] for c in cache["layers"] if "kv" in c)
-        specs = self.cache_specs(k0.shape[0], k0.shape[1])
+        cache_specs)``): recurrent states by width / heads, attention
+        caches (rings included) along their sequence; its
+        ``seq_shards`` tells ``decode_step`` how many ranks of ``model``
+        split the attention caches' sequence."""
+        kvs = [c["kv"]["k"] for c in cache["layers"] if "kv" in c]
+        batch = tree_leaves(cache["layers"][0])[0].shape[0]
+        seq = max((k.shape[1] for k in kvs), default=1)
+        specs = self.cache_specs(batch, seq)
         out = spmd.shard_tree(cache, tree_shardings(specs, mesh), mesh)
         return {**out, "seq_shards": self._seq_shards(
-            mesh, k0.shape[0], k0.shape[1], k0.shape[2])}
-
-    def _seq_shards(self, mesh, batch: int, seq: int, kvh: int) -> int:
-        """How many ranks of ``model`` split an attention cache of
-        ``batch`` rows (whole batch) and ``seq`` positions."""
-        spec = logical_spec(KV_AXES, (batch, seq, kvh, self.cfg.head_dim),
-                            mesh)
-        if spmd.splits(spec, 2):
-            raise ValueError(f"a decode cache of {seq} positions does not "
-                             f"split over model={mesh.axis_size('model')}"
-                             "; its heads would, which the port does not "
-                             "cover: give it a length model divides")
-        return mesh.axis_size("model") if spmd.splits(spec, 1) else 1
+            mesh, batch, [k.shape[1] for k in kvs])}
 
     def _cut_sequence(self, cache, mesh):
-        """A prefill's cache (this rank's batch rows, every position) ->
-        this rank's sequence shard of the attention caches."""
-        k0 = next((c["kv"]["k"] for c in cache["layers"] if "kv" in c),
-                  None)
-        if k0 is None:
+        """A prefill's cache (this rank's batch rows, every position;
+        recurrent states already this rank's slice) -> this rank's
+        sequence shard of each attention cache (a ring: of its
+        slots)."""
+        kvs = [c["kv"] for c in cache["layers"] if "kv" in c]
+        if not kvs:
             return {**cache, "seq_shards": 1}
-        n = self._seq_shards(mesh, k0.shape[0] * mesh.axis_size(
-            mesh.data_axes()), k0.shape[1], k0.shape[2])
+        batch = kvs[0]["k"].shape[0] * mesh.axis_size(mesh.data_axes())
+        n = self._seq_shards(mesh, batch, [kv["k"].shape[1] for kv in kvs])
         if n > 1:
-            step, i = k0.shape[1] // n, mesh.axis_index("model")
+            i = mesh.axis_index("model")
             for c in cache["layers"]:
-                c["kv"] = {k: t.narrow(1, i * step, step).contiguous()
-                           for k, t in c["kv"].items()}
+                if "kv" in c:
+                    step = c["kv"]["k"].shape[1] // n
+                    c["kv"] = {k: t.narrow(1, i * step, step).contiguous()
+                               for k, t in c["kv"].items()}
         return {**cache, "seq_shards": n}
 
     def decode_step(self, params, cache, tokens):
@@ -511,7 +511,7 @@ class DecoderLM(MeshModel):
         for i, (kind, use_moe, p, pl) in enumerate(
                 self._blocks(params, place)):
             tp = None if mesh is None else self._tp(
-                mesh, pl, use_moe, cache_step=True,
+                mesh, kind, pl, use_moe, cache_step=True,
                 seq_shards=cache.get("seq_shards", 1))
             x, layers[i], _ = self._block(kind, use_moe, p, x,
                                           positions=positions, mrope=mrope,

@@ -7,21 +7,56 @@ from __future__ import annotations
 
 from ..launch.mesh import current_mesh
 from ..sharding import spmd
+from ..sharding.rules import logical_spec
 from . import components as C
 
-__all__ = ["MeshModel"]
+__all__ = ["MeshModel", "KV_AXES"]
+
+#: the logical axes of an attention decode cache (the reference's)
+KV_AXES = ("batch", "kv_seq", "act_heads", None)
 
 
 class MeshModel:
     """Needs ``cfg``, ``device``, ``dtype`` and ``param_specs()``."""
 
     def placement(self, mesh) -> dict:
-        """(spec, logical axes) of every parameter leaf on ``mesh``;
-        refuses a model axis the stack cannot split over."""
+        """(spec, logical axes) of every parameter leaf on ``mesh``."""
         if getattr(self, "_placed", (None,))[0] is not mesh:
-            spmd.check_model_axis(self.cfg, mesh, self.cfg.layer_kinds)
             self._placed = (mesh, spmd.placements(self.param_specs(), mesh))
         return self._placed[1]
+
+    def _heads_split(self, mesh, attn, whole_heads: bool = False,
+                     cache_step: bool = False):
+        """(heads, kv) of an attention placed as ``attn``: heads split
+        where ``model`` divides H (and, in a decode step, whose cache
+        holds every head, KVH too), unless ``whole_heads`` (a prefill
+        that builds a cache); KV heads where ``model`` divides KVH."""
+        m, cfg = mesh.axis_size(spmd.MODEL), self.cfg
+        heads = (not whole_heads and cfg.n_heads % m == 0
+                 and spmd.splits(attn["wq"][0], 1))
+        kv = (heads and cfg.n_kv_heads % m == 0
+              and spmd.splits(attn["wk"][0], 1))
+        return heads and (kv or not cache_step), kv
+
+    def _seq_shards(self, mesh, batch: int, seqs) -> int:
+        """How many ranks of ``model`` split the attention caches of
+        ``batch`` rows (whole batch) and sequence lengths ``seqs`` (all
+        split alike, or none)."""
+        cfg, got = self.cfg, set()
+        for seq in set(seqs):
+            spec = logical_spec(KV_AXES, (batch, seq, cfg.n_kv_heads,
+                                          cfg.head_dim), mesh)
+            if spmd.splits(spec, 2):
+                raise ValueError(
+                    f"a decode cache of {seq} positions does not split "
+                    f"over model={mesh.axis_size('model')}; its heads "
+                    "would, which the port does not cover: give it a "
+                    "length model divides")
+            got.add(mesh.axis_size("model") if spmd.splits(spec, 1) else 1)
+        if len(got) > 1:
+            raise ValueError(f"decode caches of lengths {sorted(set(seqs))} "
+                             "split over model unevenly")
+        return got.pop() if got else 1
 
     def _embed_tp(self, mesh):
         place = self.placement(mesh)["embed"]

@@ -17,12 +17,24 @@ the first layer's input, and a decode step extends a prefill bit for
 bit (``chip_smoke.py``'s families phase on an H100).  The recurrence is
 plain PyTorch, as in the reference (jnp, no Pallas kernel); the
 projections go through ``components.linear``.
+
+On a training mesh with ``tp.lru`` (``sharding/spmd.py``) the block
+computes on this rank's slice of the width W: ``w_gate`` / ``w_in``
+column-parallel (``components.fanout_linear``), the conv and the
+recurrence per channel on the slice (no communication; the decode
+state is the slice too), ``w_out`` row-parallel, and the replicated
+vectors ``conv_b``, ``br``, ``bi``, ``lam`` cut to the slice through
+``fanout`` (their gradient the sum over ``model``).  The gates'
+products take the split W as their input dim (``("ff", None)``): see
+``_gates``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding.collectives import scatter
+from ..sharding.spmd import MODEL
 from . import components as C
 from .base import ParamSpec, normal, uniform, zeros
 
@@ -52,22 +64,38 @@ def rglru_block_specs(cfg) -> dict:
     }
 
 
-def _gates(p, x):
-    """x: (..., W) f32 -> (log_a, gated_x), both f32."""
-    r = torch.sigmoid(C.linear(x, p["wr"], p["br"]))
-    i = torch.sigmoid(C.linear(x, p["wi"], p["bi"]))
+def _gates(p, x, tp=None):
+    """x: (..., W) f32 -> (log_a, gated_x), both f32.
+
+    With ``tp.lru`` x is this rank's W / m channels and ``wr`` / ``wi``
+    its W / m rows: each product is a partial sum over the whole output
+    width, of which the rank needs only its W / m columns.  The two f32
+    partials are reduce-scattered in one collective (``Scatter``:
+    forward the sum, this rank's columns kept; backward an all-gather
+    of the columns' gradients).  Gathering x over W instead would also
+    gather both W x W weights by rows and cut their columns, which in a
+    decode step moves 2 W^2 floats a layer against 2 B W here."""
+    if tp is not None and tp.lru:
+        r, i = scatter(torch.stack([C.linear(x, p["wr"]),
+                                    C.linear(x, p["wi"])]),
+                       tp.mesh, MODEL, -1).unbind(0)
+        r = torch.sigmoid(r + p["br"].to(x.dtype))
+        i = torch.sigmoid(i + p["bi"].to(x.dtype))
+    else:
+        r = torch.sigmoid(C.linear(x, p["wr"], p["br"]))
+        i = torch.sigmoid(C.linear(x, p["wi"], p["bi"]))
     log_a = -C_FACTOR * F.softplus(p["lam"].float()) * r
     a2 = torch.exp(2.0 * log_a)
     gx = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x)
     return log_a, gx
 
 
-def rglru_scan(p, x):
+def rglru_scan(p, x, tp=None):
     """x: (B, S, W) -> (h (B, S, W) in x's dtype, final h (B, W) f32):
     ``h_t = a_t h_{t-1} + gx_t`` from h = 0 as an associative scan, each
     doubling step combining every position's (a, b) with the one ``d``
     earlier, (a1, b1) then (a2, b2) -> (a1 a2, b1 a2 + b2)."""
-    log_a, gx = _gates(p, x.float())
+    log_a, gx = _gates(p, x.float(), tp)
     a, h = torch.exp(log_a), gx
     d = 1
     while d < x.shape[1]:
@@ -77,9 +105,9 @@ def rglru_scan(p, x):
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(p, x, h_prev):
+def rglru_step(p, x, h_prev, tp=None):
     """x: (B, 1, W); h_prev: (B, W) f32 -> (out (B, 1, W), h (B, W))."""
-    log_a, gx = _gates(p, x[:, 0].float())
+    log_a, gx = _gates(p, x[:, 0].float(), tp)
     h = torch.exp(log_a) * h_prev + gx
     return h[:, None].to(x.dtype), h
 
@@ -108,21 +136,30 @@ def causal_conv1d(x, w, b, state=None):
     return y.to(x.dtype), None
 
 
-def rglru_block(p, x, cfg, *, state=None):
+def rglru_block(p, x, cfg, *, state=None, tp=None):
     """The Griffin recurrent block.  x: (B, S, D); ``state`` (decode):
     {"conv": (B, 3, W), "h": (B, W) f32}.  Returns (out (B, S, D), the
-    state after the last token)."""
-    gate = F.gelu(C.linear(x, p["w_gate"]), approximate="tanh")
-    u = C.linear(x, p["w_in"])
+    state after the last token).  ``tp``: see the module docstring (W is
+    then this rank's slice, in the state too)."""
+    split = tp is not None and tp.lru
+    if split:
+        w = p["w_in"].shape[1]
+        p = {**p, **{k: C.rank_slice(p[k], tp, w)
+                     for k in ("conv_b", "br", "bi", "lam")}}
+        gate, u = C.fanout_linear(x, p["w_gate"], p["w_in"], tp=tp)
+    else:
+        gate, u = C.linear(x, p["w_gate"]), C.linear(x, p["w_in"])
+    gate = F.gelu(gate, approximate="tanh")
     if state is None:
         conv = u[:, -(CONV_WIDTH - 1):]
         u, _ = causal_conv1d(u, p["conv_w"], p["conv_b"])
-        h, h_last = rglru_scan(p, u)
+        h, h_last = rglru_scan(p, u, tp)
     else:
         u, conv = causal_conv1d(u, p["conv_w"], p["conv_b"],
                                 state=state["conv"])
-        h, h_last = rglru_step(p, u, state["h"])
-    out = C.linear(gate * h, p["w_out"])
+        h, h_last = rglru_step(p, u, state["h"], tp)
+    out = (C.row_parallel(gate * h, p["w_out"], tp) if split
+           else C.linear(gate * h, p["w_out"]))
     return out, {"conv": conv, "h": h_last}
 
 

@@ -23,6 +23,21 @@ difference, and a decode step after a chunked prefill lands 0.42 from
 the whole forward, beyond the reference's 4e-2.  The recurrence is
 plain PyTorch in f32, as in the reference (jnp, no Pallas kernel); the
 projections go through ``components.linear``.
+
+On a training mesh (``sharding/spmd.py``) the time mix splits by heads
+(``tp.heads``): ``wr/wk/wv/wg`` column-parallel, ``wo`` row-parallel,
+``u`` and the group norm's scale and bias this rank's heads, the WKV on
+them.  The token mix (``tm_w1`` / ``tm_w2``) and the decay LoRA
+(``wd1`` / ``wd2``) are replicated over ``model``: every rank computes
+them whole, and what leaves that duplicated work for the rank's heads
+(the four mixed inputs through ``components.fanout_linear``, the
+decay's slice through ``fanout``) carries back the sum over ``model``
+of the ranks' gradients.  The
+channel mix splits its hidden dim (``tp.ff``: ``wk`` column-, ``wv``
+row-parallel); its gate ``sigmoid(xr @ wr)`` is duplicated and
+multiplies the summed output, so ``wr`` gets each rank's whole
+gradient as it is.  The WKV state splits by heads; the token-shift
+states stay whole.
 """
 from __future__ import annotations
 
@@ -166,47 +181,65 @@ def wkv_step(r, k, v, lw, u, state):
     return o[:, None], new
 
 
-def wkv_inputs(p, x, cfg, state=None):
+def wkv_inputs(p, x, cfg, state=None, tp=None):
     """(r, k, v, lw, u, g) of the time-mixing block for x (B, S, D):
     r, k, v, lw (B, S, H, Dh), u (H, Dh) f32, and the output gate g
-    (B, S, H * Dh).  ``state``: as ``rwkv_time_block``'s."""
+    (B, S, H * Dh); with ``tp.heads`` H is this rank's H / m heads (see
+    the module docstring).  ``state``: as ``rwkv_time_block``'s."""
     B, S, D = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     xx = _shift(x, None if state is None else state["shift"]) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
-    lw = _decay(p, xw).reshape(B, S, H, Dh)
-    r = C.linear(xr, p["wr"]).reshape(B, S, H, Dh)
-    k = C.linear(xk, p["wk"]).reshape(B, S, H, Dh)
-    v = C.linear(xv, p["wv"]).reshape(B, S, H, Dh)
-    g = F.silu(C.linear(xg, p["wg"]))
+    lw = _decay(p, xw)
+    lin = C.linear
+    if tp is not None and tp.heads:
+        H //= tp.size
+        lw = C.rank_slice(lw, tp, H * Dh, dim=-1)
+
+        def lin(x, w):
+            return C.fanout_linear(x, w, tp=tp)[0]
+    lw = lw.reshape(B, S, H, Dh)
+    r = lin(xr, p["wr"]).reshape(B, S, H, Dh)
+    k = lin(xk, p["wk"]).reshape(B, S, H, Dh)
+    v = lin(xv, p["wv"]).reshape(B, S, H, Dh)
+    g = F.silu(lin(xg, p["wg"]))
     return r, k, v, lw, p["u"].float(), g
 
 
-def rwkv_time_block(p, x, cfg, *, state=None, chunked: bool = False):
+def rwkv_time_block(p, x, cfg, *, state=None, chunked: bool = False,
+                    tp=None):
     """Time-mixing block.  ``state`` (decode): {"shift": (B, D), "wkv":
     (B, H, Dh, Dh) f32}.  A prompt runs ``wkv_chunked`` if ``chunked``,
     else ``wkv_scan``.  Returns (out (B, S, D), state after the last
-    token)."""
+    token).  ``tp``: see the module docstring (H is then this rank's
+    heads, in the WKV state too)."""
     B, S, D = x.shape
-    H, Dh = cfg.n_heads, cfg.head_dim
-    r, k, v, lw, u, g = wkv_inputs(p, x, cfg, state)
+    r, k, v, lw, u, g = wkv_inputs(p, x, cfg, state, tp)
+    H, Dh = r.shape[2], r.shape[3]
     if state is None:
         o, wkv = (wkv_chunked if chunked else wkv_scan)(r, k, v, lw, u)
     else:
         o, wkv = wkv_step(r, k, v, lw, u, state["wkv"])
     o = C.group_norm_heads(o.reshape(B, S, H, Dh), p["ln_x_scale"],
                            p["ln_x_bias"], 64e-5).to(x.dtype)
-    out = C.linear(o.reshape(B, S, H * Dh) * g, p["wo"])
+    o = o.reshape(B, S, H * Dh) * g
+    out = (C.row_parallel(o, p["wo"], tp) if tp is not None and tp.heads
+           else C.linear(o, p["wo"]))
     return out, {"shift": x[:, -1], "wkv": wkv}
 
 
-def rwkv_channel_block(p, x, cfg, *, state=None):
-    """Channel-mixing FFN with token shift and squared ReLU."""
+def rwkv_channel_block(p, x, cfg, *, state=None, tp=None):
+    """Channel-mixing FFN with token shift and squared ReLU; with
+    ``tp.ff`` its hidden dim split (see the module docstring)."""
     xx = _shift(x, None if state is None else state["shift"]) - x
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
-    kk = torch.square(F.relu(C.linear(xk, p["wk"])))
-    out = torch.sigmoid(C.linear(xr, p["wr"])) * C.linear(kk, p["wv"])
+    if tp is not None and tp.ff:
+        kk = torch.square(F.relu(C.fanout_linear(xk, p["wk"], tp=tp)[0]))
+        v = C.row_parallel(kk, p["wv"], tp)
+    else:
+        v = C.linear(torch.square(F.relu(C.linear(xk, p["wk"]))), p["wv"])
+    out = torch.sigmoid(C.linear(xr, p["wr"])) * v
     return out, {"shift": x[:, -1]}
 
 

@@ -19,9 +19,21 @@ where grad is enabled the attention (the cross-attention's Sq queries
 against the frames included) runs the flash kernel's backward.
 
 Caches are updated **in place** (the reference returns new arrays).
+
+Under ``with mesh:`` (``launch/mesh.py``) each block computes as
+``sharding/spmd.py`` describes: FSDP gathers over ``data``, and over
+``model`` the heads of the encoder's, the decoder's and the cross
+attention where ``model`` divides H (the cross K/V column-parallel from
+the encoder output, ``components.encode_cross_kv``) and the GELU MLP's
+hidden dim where it divides d_ff.  A prefill on a mesh keeps the
+decoder's heads whole (its caches hold every head) and cuts the self
+and cross caches along their sequence (``cache_specs``: ``kv_seq`` over
+``model``), as ``shard_cache`` cuts a whole cache; a decode step
+attends each shard and combines the partials.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -30,9 +42,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..launch.mesh import current_mesh
 from ..sharding import spmd
+from ..sharding.rules import tree_shardings
 from . import components as C
 from .base import ParamSpec, init_params, with_param_dtype
-from .meshed import MeshModel
+from .meshed import KV_AXES, MeshModel
 
 __all__ = ["WhisperModel", "param_specs"]
 
@@ -94,22 +107,38 @@ class WhisperModel(MeshModel):
         return fn(*args)
 
     # ----------------------------------------------------------- encoder
-    def _local(self, name, p):
-        """A layer's stored shards as its computation reads them: on a
-        mesh (FSDP over ``data``; a model axis is refused) each
-        data-sharded leaf gathered (``sharding.spmd.localize``)."""
+    def _local(self, name, p, *, whole_heads: bool = False,
+               step: bool = False, seq_shards: int = 1):
+        """(a layer's stored shards as its computation reads them, its
+        split over ``model``): off a mesh (p, None); on one each
+        data-sharded leaf gathered and the heads and the MLP's hidden
+        dim split as placed (``sharding.spmd``).  ``whole_heads``: a
+        prefill that builds caches; ``step``: a decode step, whose
+        caches hold every head, its self cache split along its sequence
+        over ``seq_shards`` ranks.  ``p`` may hold only some of the
+        layer's leaves."""
         mesh = current_mesh()
         if mesh is None:
-            return p
-        return spmd.localize(p, self.placement(mesh)[name], spmd.TP(mesh))
+            return p, None
+        pl = self.placement(mesh)[name]
+        tp = spmd.TP(mesh)
+        if mesh.axis_size(spmd.MODEL) > 1:
+            heads, kv = self._heads_split(
+                mesh, pl["attn" if "attn" in pl else "self_attn"],
+                whole_heads, step)
+            tp = spmd.TP(mesh, heads, kv,
+                         ff=spmd.splits(pl["mlp"]["w1"][0], 1),
+                         seq_shards=seq_shards)
+        return spmd.localize(p, pl, tp), tp
 
     def _enc_block(self, name, p, x, pos):
-        p = self._local(name, p)
+        p, tp = self._local(name, p)
         a, _ = C.attention_block(p["attn"], self._norm(p["ln1"], x),
                                  self.cfg, positions=pos, causal=False,
-                                 paged=False)
+                                 paged=False, tp=tp)
         x = x + a
-        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), self.cfg)
+        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), self.cfg,
+                               tp=tp)
 
     def encode(self, params, frames, train: bool = False):
         """frames (B, F, D) stub embeddings -> encoder states (B, F, D)."""
@@ -125,27 +154,49 @@ class WhisperModel(MeshModel):
                 n, p, x, pos), params[name], x)
         return self._norm(params["enc_final_norm"], x)
 
-    def cross_kv(self, params, enc_out) -> dict:
-        names = [f"dec_{i:02d}" for i in range(self.cfg.n_layers)]
-        return {n: C.encode_cross_kv(self._local(n, params[n])["cross_attn"],
-                                     enc_out, self.cfg) for n in names}
+    def cross_kv(self, params, enc_out, whole_heads: bool = False) -> dict:
+        """Each decoder layer's cross K/V of the encoder output; on a
+        mesh this rank's heads, or every head with ``whole_heads``."""
+        out = {}
+        for i in range(self.cfg.n_layers):
+            n = f"dec_{i:02d}"
+            kv = {k: params[n]["cross_attn"][k] for k in ("wk", "wv")}
+            p, tp = self._local(n, {"cross_attn": kv},
+                                whole_heads=whole_heads)
+            out[n] = C.encode_cross_kv(p["cross_attn"], enc_out, self.cfg,
+                                       tp)
+        return out
 
     # ----------------------------------------------------------- decoder
     def _dec_block(self, name, p, x, positions, cross, cache=None,
-                   cache_pos=None):
+                   cache_pos=None, whole_heads: bool = False,
+                   seq_shards=(1, 1)):
+        """One decoder layer: a prompt (``cache`` None) or one decode
+        step; ``seq_shards``: how many ranks of ``model`` split the
+        (self, cross) caches' sequence."""
         cfg = self.cfg
-        p = self._local(name, p)
+        step = cache is not None
+        # the cross K/V projections ran once a prompt (cross_kv)
+        p = {**p, "cross_attn": {k: t for k, t in p["cross_attn"].items()
+                                 if k not in ("wk", "wv")}}
+        p, tp = self._local(name, p, whole_heads=whole_heads, step=step,
+                            seq_shards=seq_shards[0])
         a, kv = C.attention_block(
             p["self_attn"], self._norm(p["ln1"], x), cfg,
             positions=positions, cache=cache, cache_pos=cache_pos,
-            paged=False)
+            paged=False, tp=tp)
         x = x + a
+        ctp = (None if tp is None
+               else dataclasses.replace(tp, seq_shards=seq_shards[1]))
         x = x + C.cross_attention_block(
-            p["cross_attn"], self._norm(p["ln_x"], x), cross, cfg)
-        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), cfg), kv
+            p["cross_attn"], self._norm(p["ln_x"], x), cross, cfg, tp=ctp,
+            step=step)
+        return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), cfg,
+                               tp=tp), kv
 
     def _decoder(self, params, x, positions, cross, *, caches=None,
-                 cache_pos=None, train: bool = False):
+                 cache_pos=None, train: bool = False,
+                 whole_heads: bool = False, seq_shards=(1, 1)):
         kvs = {}
         for i in range(self.cfg.n_layers):
             name = f"dec_{i:02d}"
@@ -157,7 +208,8 @@ class WhisperModel(MeshModel):
                 continue
             x, kvs[name] = self._dec_block(
                 name, params[name], x, positions, cross[name],
-                None if caches is None else caches[name], cache_pos)
+                None if caches is None else caches[name], cache_pos,
+                whole_heads, seq_shards)
         return x, kvs
 
     def _embed_at(self, params, tokens, pe):
@@ -178,15 +230,20 @@ class WhisperModel(MeshModel):
                                                 device=self.device)}
         return out
 
-    def _forward(self, params, batch, train: bool = False):
+    def _forward(self, params, batch, train: bool = False,
+                 decode_plan: bool = False):
+        """(final-norm hidden states, the self K/V, the cross K/V); on a
+        mesh ``decode_plan`` keeps the decoder's heads whole (the
+        layout its caches are cut from)."""
         enc_out = self.encode(params, batch["frames"], train)
-        cross = self.cross_kv(params, enc_out)
+        cross = self.cross_kv(params, enc_out, whole_heads=decode_plan)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = self._embed_at(params, tokens,
                            C.sinusoid_pos(S, self.cfg.d_model, self.device))
-        x, kvs = self._decoder(params, x, pos, cross, train=train)
+        x, kvs = self._decoder(params, x, pos, cross, train=train,
+                               whole_heads=decode_plan)
         return self._norm(params["final_norm"], x), kvs, cross
 
     # ----------------------------------------------------------- serving
@@ -198,8 +255,7 @@ class WhisperModel(MeshModel):
 
         def kv(s):
             return ParamSpec((batch, s, cfg.n_kv_heads, cfg.head_dim),
-                             ("batch", "kv_seq", "act_heads", None),
-                             dtype=torch.bfloat16)
+                             KV_AXES, dtype=torch.bfloat16)
         names = [f"dec_{i:02d}" for i in range(cfg.n_layers)]
         return {"self": {n: {"k": kv(seq_len), "v": kv(seq_len)}
                          for n in names},
@@ -220,8 +276,12 @@ class WhisperModel(MeshModel):
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Encode + decoder prefill.  Returns (last-token logits (B, V),
-        cache); ``max_len`` > S pads the self-attention caches."""
-        x, kvs, cross = self._forward(params, batch)
+        cache); ``max_len`` > S pads the self-attention caches.  On a
+        mesh the cache is this rank's shard of the reference's layout
+        (``cache_specs``; see ``shard_cache``)."""
+        mesh = current_mesh()
+        x, kvs, cross = self._forward(params, batch,
+                                      decode_plan=mesh is not None)
         S = x.shape[1]
         if max_len is not None and max_len > S:
             for kv in kvs.values():
@@ -230,12 +290,53 @@ class WhisperModel(MeshModel):
                     kv[n] = torch.cat([c, c.new_zeros(
                         (c.shape[0], max_len - S) + c.shape[2:])], 1)
         last = self.logits(params, x[:, -1:])[:, 0]
-        return last, {"self": kvs, "cross": cross, "pos": S}
+        cache = {"self": kvs, "cross": cross, "pos": S}
+        if mesh is not None:
+            cache = self._cut_sequence(cache, mesh)
+        return last, cache
+
+    def _cache_shards(self, mesh, batch: int, seq: int, frames: int):
+        return {"self": self._seq_shards(mesh, batch, [seq]),
+                "cross": self._seq_shards(mesh, batch, [frames])}
+
+    def shard_cache(self, cache, mesh) -> dict:
+        """This rank's shard of a whole cache on ``mesh``, placed by
+        ``cache_specs`` (the reference's ``tree_shardings(cache_specs)``:
+        the self and cross K/V along their sequence); its
+        ``seq_shards`` ({"self", "cross"}: how many ranks of ``model``
+        split each) is what ``decode_step`` reads."""
+        k0 = next(iter(cache["self"].values()))["k"]
+        specs = self.cache_specs(k0.shape[0], k0.shape[1])
+        out = spmd.shard_tree(cache, tree_shardings(specs, mesh), mesh)
+        return {**out, "seq_shards": self._cache_shards(
+            mesh, k0.shape[0], k0.shape[1], self.cfg.n_frames)}
+
+    def _cut_sequence(self, cache, mesh):
+        """A prefill's cache (this rank's batch rows, every position and
+        head) -> this rank's sequence shard of each self and cross
+        cache."""
+        k0 = next(iter(cache["self"].values()))["k"]
+        c0 = next(iter(cache["cross"].values()))[0]
+        n = self._cache_shards(mesh, k0.shape[0] * mesh.axis_size(
+            mesh.data_axes()), k0.shape[1], c0.shape[1])
+        i = mesh.axis_index("model")
+
+        def cut(t, m):
+            step = t.shape[1] // m
+            return t.narrow(1, i * step, step).contiguous()
+        return {"self": {name: {k: cut(t, n["self"]) for k, t in kv.items()}
+                         for name, kv in cache["self"].items()},
+                "cross": {name: tuple(cut(t, n["cross"]) for t in kv)
+                          for name, kv in cache["cross"].items()},
+                "pos": cache["pos"], "seq_shards": n}
 
     def decode_step(self, params, cache, tokens):
         """One decoder token against the self- and cross-attention
         caches; writes its K/V in place.  Returns (logits (B, V), cache)
-        with ``pos`` advanced."""
+        with ``pos`` advanced.  On a mesh the cache is this rank's shard
+        (``prefill`` or ``shard_cache``) and the tokens its batch rows;
+        every head attends on every rank of ``model``, over the ranks'
+        shards of each cache's sequence."""
         pos = int(cache["pos"])
         tokens = torch.as_tensor(tokens, device=self.device)
         B = tokens.shape[0]
@@ -243,8 +344,10 @@ class WhisperModel(MeshModel):
             torch.tensor([pos], device=self.device), self.cfg.d_model))
         positions = torch.full((B, 1), pos, dtype=torch.long,
                                device=self.device)
+        sh = cache.get("seq_shards", {"self": 1, "cross": 1})
         x, _ = self._decoder(params, x, positions, cache["cross"],
-                             caches=cache["self"], cache_pos=pos)
+                             caches=cache["self"], cache_pos=pos,
+                             seq_shards=(sh["self"], sh["cross"]))
         x = self._norm(params["final_norm"], x)
         cache["pos"] = pos + 1
         return self.logits(params, x)[:, 0], cache

@@ -17,6 +17,10 @@ the sharded layout needs it:
   f32), backward the identity: the Megatron "g".
 * ``Fanout`` - forward the identity, backward a sum: an input that
   enters work split over the axes (the Megatron "f").
+* ``Scatter`` - forward a reduce-scatter (partial products summed, this
+  rank's piece of the output kept), backward an all-gather: the dual of
+  ``Gather``, for a product whose input dim is split over the axes but
+  whose consumer reads only this rank's slice of the output.
 
 Every collective over axes of one rank is the identity and moves
 nothing, so a ``(1, 1)`` mesh runs exactly the single-device arithmetic.
@@ -40,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_reduce", "reduce_scatter", "Gather", "Reduce",
-           "Fanout", "gather", "reduce", "fanout", "stats", "reset_stats"]
+           "Fanout", "Scatter", "gather", "reduce", "fanout", "scatter",
+           "stats", "reset_stats"]
 
 #: bytes each kind of collective took from this rank (its input
 #: buffer) since ``reset_stats``; with ``TIMING`` also the seconds
@@ -204,6 +209,21 @@ class Fanout(torch.autograd.Function):
         return all_reduce(g, ctx.mesh, ctx.axes), None, None
 
 
+class Scatter(torch.autograd.Function):
+    """Sum over ``axes`` keeping this rank's piece along ``dim`` (f32
+    for bf16); backward an all-gather along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
 def gather(x, mesh, axes, dim: int, split: bool = True):
     axes = tuple(axes)
     if mesh is None or mesh.axis_size(axes) == 1:
@@ -223,3 +243,10 @@ def fanout(x, mesh, axes):
     if mesh is None or mesh.axis_size(axes) == 1:
         return x
     return Fanout.apply(x, mesh, axes)
+
+
+def scatter(x, mesh, axes, dim: int):
+    axes = tuple(axes)
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return Scatter.apply(x, mesh, axes, dim % x.dim())

@@ -10,15 +10,34 @@ axes (``embed`` -> ``data``) is FSDP storage; a dim sharded over
 **Compute.**  ``localize`` gathers every data-sharded dim where a
 layer's slice is taken (``Gather``: backward a reduce-scatter, so the
 gradient arrives summed over the data ranks and cut to the shard).
-Over ``model`` a block computes on its shard where its work splits:
+Every block kind splits over ``model`` where its work does:
 
 * attention heads (``q_heads``; ``kv_heads`` too when ``model`` divides
-  KVH) column-parallel, ``wo`` row-parallel;
+  KVH) column-parallel, ``wo`` row-parallel; whisper's encoder, decoder
+  and cross-attention alike (the cross K/V column-parallel from the
+  encoder output);
 * the FFN's hidden dim (``ff``) column-parallel, ``wd`` / ``w2``
-  row-parallel;
+  row-parallel; RWKV6's channel mix the same (``wk`` / ``wv``), its
+  gate ``wr`` duplicated;
+* the RG-LRU width (``ff``: ``w_gate``, ``w_in``, the conv, the rows of
+  the gates ``wr`` / ``wi`` and of ``w_out``; ``TP.lru``): the conv and
+  the scan per channel on the rank's slice, the gates' f32 partial
+  products reduce-scattered (``collectives.Scatter``);
+* RWKV6's heads (``q_heads`` on ``wr/wk/wv/wg/wo``, ``act_heads`` on
+  ``u`` and the group norm): the WKV on the rank's heads, the token mix
+  and the decay LoRA duplicated and sliced;
 * experts expert-parallel (``expert``), the shared expert on ``ff``;
 * the vocabulary (``vocab``) in the embedding, the unembedding and the
   cross-entropy.
+
+An activation replicated over ``model`` that enters split products
+goes through ``components.fanout_linear``: its gradient's f32 partials
+are summed over ``model`` before their one rounding, as the single
+device rounds its one product.  A replicated vector that feeds split
+work (a bias, RG-LRU's ``lam``) enters through ``Fanout`` before the
+rank's slice is cut, so its gradient is the sum over ``model``; one
+that feeds duplicated work (a bias added after a row-parallel sum,
+RWKV6's ``mu_*``) gets the whole gradient on every rank as it is.
 
 Where the heads do not split (``model`` does not divide H, or KVH in a
 decode step, or a prefill builds a cache: a decode cache holds every
@@ -28,11 +47,8 @@ every rank of ``model``: ``localize`` gathers its projections
 step whose heads split gathers its q, k, v heads instead
 (``components.attention_block``).  Where ``model`` divides H but not KVH the KV projections
 are gathered and their heads repeated G-fold before this rank's heads
-are taken (the reference's ``_gqa_expand_factor``).
-
-Only the DecoderLM stacks of attention blocks split over ``model``;
-whisper, recurrentgemma and rwkv6 refuse a ``model`` axis wider than 1
-(``check_model_axis``) and train with FSDP over ``data``.
+are taken (the reference's ``_gqa_expand_factor``).  Recurrent states
+(RG-LRU, RWKV6) are cut by width / heads as they are computed.
 """
 from __future__ import annotations
 
@@ -44,8 +60,9 @@ import torch
 from .collectives import gather
 from .rules import logical_spec, spec_axes
 
-__all__ = ["TP", "localize", "splits", "check_model_axis", "MODEL",
-           "placements", "unstack", "shard_tree", "unshard_tree"]
+__all__ = ["TP", "localize", "splits", "MODEL",
+           "placements", "unstack", "shard_tree", "unshard_tree",
+           "shard_shapes"]
 
 MODEL = ("model",)
 
@@ -59,6 +76,7 @@ class TP:
     ff: bool = False         # the dense FFN's hidden dim
     experts: bool = False    # expert parallelism
     shared: bool = False     # the shared expert's hidden dim
+    lru: bool = False        # the RG-LRU width
     vocab: bool = False      # vocab-parallel embedding / unembedding
     seq_shards: int = 1      # decode cache: kv_seq split over model
 
@@ -77,22 +95,6 @@ def splits(spec, dim: int) -> bool:
     return dim < len(spec) and "model" in spec_axes(spec[dim])
 
 
-def check_model_axis(cfg, mesh, kinds) -> None:
-    """Refuse a ``model`` axis wider than 1 for the blocks whose tensor
-    parallelism is not ported."""
-    if mesh is None or mesh.axis_size(MODEL) == 1:
-        return
-    other = sorted(set(kinds) - {"attn"})
-    if cfg.is_encoder_decoder or other:
-        what = "an encoder-decoder" if cfg.is_encoder_decoder else \
-            f"{other} blocks"
-        raise ValueError(
-            f"{cfg.name}: {what} on a model axis of "
-            f"{mesh.axis_size(MODEL)}: tensor parallelism covers the "
-            "DecoderLM attention stacks only (ROADMAP Queue 1 item 14c); "
-            "use a (n, 1) mesh (FSDP over data)")
-
-
 def localize(tree, place, tp):
     """A block's stored shards -> the tensors its computation reads:
     every data-sharded dim gathered (backward: reduce-scatter), and
@@ -109,7 +111,7 @@ def localize(tree, place, tp):
             continue
         if "model" not in ax:
             t = gather(t, mesh, ax, dim, split=True)
-        elif axes[dim] == "q_heads" and not tp.heads:
+        elif axes[dim] in ("q_heads", "act_heads") and not tp.heads:
             t = gather(t, mesh, ax, dim, split=False)
         elif axes[dim] == "kv_heads" and not tp.kv:
             # the expanded KV of split heads is split work; a whole
@@ -147,6 +149,31 @@ def shard_tree(tree, shardings, mesh):
 def unshard_tree(tree, shardings, mesh):
     """The full tensors of a tree of shards (every rank must call it)."""
     return _map_leaves(tree, shardings, mesh.unshard)
+
+
+def shard_shapes(tree, specs, shardings, mesh) -> list:
+    """(path, shape, the shape ``shard`` cuts from its spec under
+    ``shardings``) of every tensor of ``tree``, a tree of this rank's
+    pieces of ``specs`` (``ParamSpec``s) as a model made them (a
+    prefill's cache on the mesh); leaves that are not tensors, and keys
+    ``specs`` lacks (a cache's ``pos``, ``seq_shards``), left out."""
+    out = []
+
+    def walk(t, ps, sh, path):
+        if isinstance(t, torch.Tensor):
+            want = tuple(n // mesh.axis_size(spec_axes(sh[i]))
+                         if i < len(sh) else n
+                         for i, n in enumerate(ps.shape))
+            out.append((path, tuple(t.shape), want))
+        elif isinstance(t, dict):
+            for k in t:
+                if k in ps:
+                    walk(t[k], ps[k], sh[k], f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, (c, p, h) in enumerate(zip(t, ps, sh)):
+                walk(c, p, h, f"{path}/{i}")
+    walk(tree, specs, shardings, "")
+    return out
 
 
 def _map_leaves(tree, shardings, fn):

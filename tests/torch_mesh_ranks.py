@@ -128,27 +128,32 @@ def _spec_tree(place):
 def decode_case(mesh, case) -> dict:
     """A whole cache from the unsharded prefill cut for the mesh
     (``shard_cache``), and a prefill on the mesh, each followed by
-    decode steps; the rank's rows of each step's logits."""
+    decode steps; the rank's rows of each step's logits, and the shapes
+    of the made cache's leaves beside the shards ``cache_specs`` places
+    (a leaf that is not a tensor, as ``pos``, left out)."""
     cfg = case["cfg"]
     model = build_model(cfg, device="cpu")
     full = torch.load(case["params"])
     params, _ = _sharded(model, mesh, full)
-    tokens = case["tokens"]
-    n = tokens.shape[0] // mesh.axis_size("data")
-    mine = tokens[mesh.axis_index("data") * n:][:n]
+    batch = case["batch"]
+    n = batch["tokens"].shape[0] // mesh.axis_size("data")
+    d = mesh.axis_index("data")
+    mine = {k: t[d * n:][:n] for k, t in batch.items()}
     with torch.no_grad():
-        _, whole = model.prefill(full, tokens, max_len=case["max_len"])
+        _, whole = model.prefill(full, batch, max_len=case["max_len"])
+    specs = model.cache_specs(batch["tokens"].shape[0], case["max_len"])
     out = {}
     with mesh, torch.no_grad():
         cut = model.shard_cache(whole, mesh)
         _, made = model.prefill(params, mine, max_len=case["max_len"])
         out["seq_shards"] = (cut["seq_shards"], made["seq_shards"])
+        out["shapes"] = [got[1:] for got in spmd.shard_shapes(
+            made, specs, tree_shardings(specs, mesh), mesh)]
         for name, cache in (("cut", cut), ("made", made)):
             steps = []
             for t in case["feed"]:
                 lg, cache = model.decode_step(params, cache,
-                                              t[mesh.axis_index("data") * n:]
-                                              [:n, None])
+                                              t[d * n:][:n, None])
                 steps.append(lg)
             out[name] = torch.stack(steps)
     return out
@@ -173,8 +178,11 @@ def mesh22(mesh, tmp, payload) -> dict:
     out["ep"] = moe_case(mesh, payload["ep"])
     out["ep_model"] = model_logits(mesh, payload["ep_model"])
     out["decode"] = decode_case(mesh, payload["decode"])
-    return out if mesh.rank == 0 else {k: v for k, v in out.items()
-                                       if k in ("ep", "ep_model", "decode")}
+    out["family_decode"] = {name: decode_case(mesh, case) for name, case
+                            in payload["family_decode"].items()}
+    return out if mesh.rank == 0 else {
+        k: v for k, v in out.items()
+        if k in ("ep", "ep_model", "decode", "family_decode")}
 
 
 def restore(mesh, tmp, payload) -> dict:
