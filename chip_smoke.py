@@ -118,8 +118,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                at tp 2, full size, seeded random weights, every shard
                named ``cuda:0`` (``TPServePrograms(model, devices=
                [...])``: heads, KV heads and d_ff split, the pools on
-               KV heads), on the serve phase's trace on the step clock
-               beside the same engine at tp 1; gated on every stream
+               KV heads), on TP_REQUESTS requests of the serve phase's
+               prompt and generation lengths through TP_BATCH slots (so
+               slots and pages turn over) on the step clock beside
+               the same engine at tp 1; gated on more admissions than
+               slots, every stream
                equal to tp 1's, the dispatch counters equal, each
                shard's pools equal to tp 1's head slices (``torch.
                equal``, the null page aside) at 1 / tp of the bytes,
@@ -132,8 +135,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its lockstep path, one after the other at full published
                widths (seeded random weights, projections stored bf16 as
                they are drawn): deepseek-moe-16b, qwen2-vl-7b,
-               whisper-tiny, recurrentgemma-2b and rwkv6-3b, each through
-               the ``--naive`` loop (``launch.serve.run_naive``) on 8
+               whisper-tiny, recurrentgemma-2b and rwkv6-3b (every
+               layer, but rwkv6's 4 of 32, ``FAMILY_LAYERS``), each
+               through the ``--naive`` loop (``launch.serve.run_naive``) on 8
                prompts of the reference's synthetic batch, gated on
                every row finishing, the TAU re-score, decode extending
                prefill, the row-bits gate and the kernels' launch
@@ -173,16 +177,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                one batch, two first steps from one state equal
                (``torch.equal``), the launches a step (flash forward 2,
                backward 1 an attention layer; the GEMM 4 a projection,
-               f32 ones counted apart), and at one block pattern's
-               depth (recurrentgemma over one window) the card
-               against the CPU's plain path (loss within 2e-2, every
-               leaf within 5e-2 relative L2, no leaf that the CPU gives
-               a gradient without one on the card; the MoE's CPU run
+               f32 ones counted apart), and at a cut depth (one block
+               pattern; recurrentgemma's over S 1,024 with its window
+               cut to 512, so that the window masks; whisper one
+               encoder and one decoder layer) the card against the
+               CPU's plain path (loss within 2e-2, every leaf within
+               5e-2 relative L2, no leaf that the CPU gives a gradient
+               without one on the card; the MoE's CPU run
                takes the card's expert ids and reports how many tokens
                its own router sent elsewhere), with step ms, tokens/s
                and the peak memory.  llama4-scout trains on the CPU
                only (its one layer with Adam needs ~77 GB).
-13. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
+13. **dryrun** the dry run (``launch/dryrun.py``) anchored on the card:
+               qwen3-0.6b FULL traced on ``meta`` for one train step (B 8
+               x S 256) and one decode step (B 8, cache 256 + 32), then
+               the same steps run on the card after a warm one: each
+               kernel's predicted launches equal its counter, the
+               predicted argument bytes equal the real tensors', and
+               the traced peak is within DRYRUN_PEAK_TOL of
+               ``max_memory_allocated``; the production cells
+               qwen3-0.6b and qwen1.5-110b ``train_4k`` on rank 0 of
+               (16, 16), traced on the CPU in subprocesses started
+               before the families phase, are read (per-device GB,
+               fits, bottleneck, model fraction; model FLOPs a device
+               exactly 6 N_active tokens / 256, gated).
+14. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
                ranks as processes (``torch.multiprocessing``), every one
                on this card over gloo (NCCL refuses two ranks on one
                device), the kernels built before the spawn.  qwen3-0.6b
@@ -195,7 +214,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (routed as the single device routed) within 2e-2
                relative L2, at its own capacity factor more than 98 %
                within 3e-2, and the gradients as above; qwen3's prefill
-               of 8 x 256 and 32 decode steps on (1, 4) with the cache
+               of 8 x 256 and 8 decode steps on (1, 4) with the cache
                split along its sequence, each step's logits within 2e-2
                relative L2; a checkpoint saved on (2, 2) from the shards
                and restored on the (1, 2) ``plan_elastic_mesh`` gives 2
@@ -205,7 +224,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
 serve, fleet, archs, tp, families, train, train_families, mesh and paper
-paths;
+paths, not the dryrun phase's anchors;
 the dataflow GEMM's also counted apart for f32 operands,
 ``launches_f32``), the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
@@ -278,10 +297,15 @@ WHISPER_HEADS, WHISPER_DH, WHISPER_FRAMES = 6, 64, 1500
 ARCHS_ON_CARD = ("qwen2-0.5b", "stablelm-1.6b", "llama4-scout-17b-a16e")
 SCOUT_LAYERS, SCOUT_CAPACITY = 4, 16.0
 # tp phase: (arch, tp degrees) served at full size with every shard on
-# the one card (named ``cuda:0``, so the shards time-share it); the
-# dispatch check's pool (pages of 16) and chunk length
+# the one card (named ``cuda:0``, so the shards time-share it), on
+# TP_REQUESTS requests of the serve phase's lengths through TP_BATCH
+# slots, so that half of them are admitted into the slots and pages the
+# first half freed (the phase took 84-152 s at 16 requests through 8
+# slots on an H100's host); the dispatch check's pool (pages of 16) and
+# chunk length
 TP_RUNS = (("qwen3-0.6b", (2, 4)), ("qwen2-0.5b", (2,)),
            ("stablelm-1.6b", (2,)))
+TP_REQUESTS, TP_BATCH = 8, 4
 TP_PAGES, TP_CHUNK = 16, 32
 # gathers a call of the hand-off timing makes (qwen3-0.6b's decode: two
 # a layer over 28 layers)
@@ -299,6 +323,10 @@ FAMILIES_ON_CARD = (("deepseek-moe-16b", 256), ("qwen2-vl-7b", 320),
                     ("rwkv6-3b", 256))
 FAMILY_ROWS = 8
 DEEPSEEK_CAPACITY = 11.0
+# the families' depths on the card where cut (widths as published; every
+# gate at the cut depth): rwkv6's prompt runs the decode step token by
+# token, 79 s of the phase's 142 s at every layer on an H100's host
+FAMILY_LAYERS = {"rwkv6-3b": 4}
 # decode extends prefill: the reference's own tolerance
 # (tests/test_smoke_archs.py), on EXTEND_ROWS rows
 EXTEND_TOL, EXTEND_ROWS = 4e-2, 2
@@ -364,8 +392,10 @@ OVERFIT_STEPS, PROFILE_STEPS = 8, 2
 # the storage reading: steps of each run (the first one's time dropped)
 STORAGE_STEPS = 5
 # train_families phase: (arch, layers run or None for all, batch, seq,
-# the comparison with the CPU: its layers (one block pattern, or all for
-# whisper) and seq, through the launcher).  Full widths, f32
+# the comparison with the CPU: its layers (one block pattern; whisper
+# one encoder and one decoder layer, whose 1,500-frame encoder layers
+# took 58 s of the CPU's plain path at 4 + 4) and seq, through the
+# launcher).  Full widths, f32
 # parameters, AdamW,
 # bf16 compute; the depth cuts keep the peak under ~70 GB: the port's
 # step holds about 28 bytes a parameter (parameters, AdamW's two
@@ -374,19 +404,25 @@ STORAGE_STEPS = 5
 # (published capacity factor 1.25, so tokens drop as in the reference's
 # training); recurrentgemma: two (RG-LRU, RG-LRU, local attention)
 # patterns at S 4,096 > its 2,048-key window (S % window == 0, the
-# reference's contract), compared with the CPU over one window (S
-# 2,048: the CPU's plain path takes ~150 GFLOP/s, and the 256,000-entry
-# unembedding of 4,096 tokens alone took ~100 s of the 185 s at S 4,096;
-# the windowed backward at S 4,096 is held against its plain version in
-# the kernels phase).  llama4-scout trains on the CPU only: one layer's
+# reference's contract), compared with the CPU over one whole pattern
+# at S 1,024 with the window cut to 512 (FAMILY_GRAD_CUTS), so that the
+# window masks keys at model level, which it never did at S 2,048 =
+# window (the local attention's plain forward, an elementwise product a
+# key tile for row-stable bits, and the 256,000-entry unembedding took
+# the CPU 84-89 s at one pattern over S 2,048; the published window's
+# backward at S 4,096 is held against its plain version in the kernels
+# phase).
+# llama4-scout trains on the CPU only: one layer's
 # 2.0 B expert parameters with its 2.07 B untied embedding and head
 # need ~77 GB with Adam at 18 bytes a parameter.
-FAMILY_TRAIN = (("whisper-tiny", None, 8, 64, None, 64, True),
+FAMILY_TRAIN = (("whisper-tiny", None, 8, 64, 1, 64, True),
                 ("deepseek-moe-16b", 3, 4, 256, 2, 256, False),
                 ("qwen2-vl-7b", 3, 2, 320, 1, 320, False),
-                ("recurrentgemma-2b", 6, 1, 4096, 3, 2048, False),
+                ("recurrentgemma-2b", 6, 1, 4096, 3, 1024, False),
                 ("rwkv6-3b", 16, 4, 256, 1, 256, False))
 FAMILY_TRAIN_STEPS = 8
+# the CPU comparison's config cuts beside its depth
+FAMILY_GRAD_CUTS = {"recurrentgemma-2b": {"local_window": 512}}
 # mesh phase: ranks as processes, all on the one card over gloo.
 # qwen3-0.6b FULL on (data 2, model 2): gradients and MESH_STEPS steps of
 # B x S; deepseek-moe at full widths on (1, 4) (16 of 64 experts a rank),
@@ -411,7 +447,7 @@ MESH_ARCH, MESH_MOE = "qwen3-0.6b", "deepseek-moe-16b"
 MESH_TRAIN_SHAPE, MESH_MOE_SHAPE = (2, 2), (1, 4)
 MESH_B, MESH_S, MESH_STEPS, MESH_SEED = 8, 256, 2, 5
 MESH_MOE_B, MESH_MOE_LAYERS = 4, 2
-MESH_DECODE_STEPS = 32
+MESH_DECODE_STEPS = 8
 MESH_CKPT_LAYERS = 1
 MESH_REL_TOL = 2e-2
 MESH_CLOSE_TOL, MESH_CLOSE_FRAC = 3e-2, 0.98
@@ -433,6 +469,15 @@ MESH_FAMILIES = (("whisper-tiny", None, 8, 64),
 MESH_FAMILY_DECODE_STEPS = 8
 MESH_TIMEOUT_S = 600
 MESH_DEVICE = "cuda:0"
+# dryrun phase: the anchors' model and shapes (the train phase's B x S;
+# a decode step over a cache of DRYRUN_PROMPT + GEN positions), the
+# traced peak's tolerance against max_memory_allocated, and the
+# production cells traced beside them (rank 0 of (16, 16))
+DRYRUN_ARCH = "qwen3-0.6b"
+DRYRUN_PROMPT = 256
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen1.5-110b", "train_4k"))
+DRYRUN_TIMEOUT_S = 300
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -2652,10 +2697,10 @@ def _serve_tp(name, tps) -> dict:
     model = DecoderLM(cfg)
     one = ServePrograms(model)
     params = one.prepare_params(model.init(seed=0))
-    opts = ServeOptions(batch=8)
+    opts = ServeOptions(batch=TP_BATCH)
 
     def trace():
-        return synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
+        return synth_requests(cfg, TP_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
     opts = opts.sized_for(trace())
     warm = synth_requests(cfg, 2, PROMPT_LEN, 4, rate=50.0, seed=1)
     opts.sized_for(warm).build(model, params, programs=one).run(warm)
@@ -2664,9 +2709,13 @@ def _serve_tp(name, tps) -> dict:
     readings = {1: {"tok_per_s": st1["tok_per_s"], "wall_s": st1["wall_s"],
                     "peak_mem_gb": peak1, "launches": l1,
                     "kv_pool_gb": 2 * base.cache.k_pages.nbytes / 1e9}}
-    ok = len(streams) == N_REQUESTS and all(
+    ok = len(streams) == TP_REQUESTS and all(
         len(s) == GEN for s in streams.values())
     failures = [] if ok else [f"tp 1: {len(streams)} streams"]
+    # more admissions than slots: a slot and its pages served again
+    if base._admit_counter <= opts.batch:
+        failures.append(f"tp 1: {base._admit_counter} admissions into "
+                        f"{opts.batch} slots")
     counters = [k for k in st1 if k.startswith("n_")]
     launches = dict.fromkeys(PATH_COUNTERS, 0)
     for tp in tps:
@@ -2693,6 +2742,8 @@ def _serve_tp(name, tps) -> dict:
         handoff = _tp_handoff(progs, tally, st["wall_s"])
         gates = {
             "streams_equal_tp1": got == streams,
+            "slots_reused": eng._admit_counter == base._admit_counter
+            > opts.batch,
             "dispatch_counters_equal_tp1": all(st[k] == st1[k]
                                                for k in counters),
             "pools_equal_tp1_slices": all(pools.values()),
@@ -2718,8 +2769,9 @@ def _serve_tp(name, tps) -> dict:
         gc.collect()
     rec = {"phase": "tp", "arch": cfg.name, "layers": cfg.n_layers,
            "H": cfg.n_heads, "KVH": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-           "requests": N_REQUESTS, "prompt_len": PROMPT_LEN, "gen": GEN,
-           "batch": opts.batch, "spec_k": opts.spec_k, "fused": opts.fused,
+           "requests": TP_REQUESTS, "prompt_len": PROMPT_LEN, "gen": GEN,
+           "batch": opts.batch, "admissions": base._admit_counter,
+           "spec_k": opts.spec_k, "fused": opts.fused,
            "n_pages": opts.n_pages, "by_tp": readings,
            "note": "shards co-located on one card time-share it: no "
                    "tensor-parallel speed-up is measured",
@@ -2750,17 +2802,21 @@ def phase_tp():
 # ------------------------------------------------------------ families
 def _family_config(name):
     """(FULL config as run on the card, its cuts as {key: [published,
-    run]}): deepseek-moe at DEEPSEEK_CAPACITY; every width and depth as
-    published."""
+    run]}): deepseek-moe at DEEPSEEK_CAPACITY, a depth of FAMILY_LAYERS
+    where it names one; every width as published."""
     import dataclasses
     from repro_torch import configs
     cfg = configs.get(name)
-    if cfg.moe is None:
-        return cfg, {}
-    run = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=DEEPSEEK_CAPACITY))
-    return run, {"capacity_factor": [cfg.moe.capacity_factor,
-                                     DEEPSEEK_CAPACITY]}
+    run, reduced = cfg, {}
+    if name in FAMILY_LAYERS:
+        run = dataclasses.replace(run, n_layers=FAMILY_LAYERS[name])
+        reduced["n_layers"] = [cfg.n_layers, FAMILY_LAYERS[name]]
+    if cfg.moe is not None:
+        run = dataclasses.replace(run, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=DEEPSEEK_CAPACITY))
+        reduced["capacity_factor"] = [cfg.moe.capacity_factor,
+                                      DEEPSEEK_CAPACITY]
+    return run, reduced
 
 
 def _family_launch_gates(model, gen: int) -> dict:
@@ -3467,9 +3523,12 @@ def _family_grads(name, layers, B, S) -> dict:
     from repro_torch.models import build_model
     from repro_torch.train.step import make_loss_fn
     from repro_torch.tree import tree_items, tree_map
-    cfg = configs.get(name)
+    full = configs.get(name)
+    cuts = dict(FAMILY_GRAD_CUTS.get(name, {}))
     if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cuts.update(n_layers=layers, **(
+            {"n_encoder_layers": layers} if full.is_encoder_decoder else {}))
+    cfg = dataclasses.replace(full, **cuts)
     pipe = SyntheticPipeline(cfg, B, S)
     out, params = {}, None
     for dev in ("cuda", "cpu"):
@@ -3516,6 +3575,7 @@ def _family_grads(name, layers, B, S) -> dict:
              <= GRAD_LOSS_TOL,
              "grads_close_to_cpu": rel[worst] <= GRAD_REL_L2}
     return {"layers": cfg.n_layers, "B": B, "S": S,
+            "reduced": {k: [getattr(full, k), v] for k, v in cuts.items()},
             "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
             "moe_aux_card": out["cuda"][1], "moe_aux_cpu": out["cpu"][1],
             "loss_abs_diff": abs(out["cuda"][0] - out["cpu"][0]),
@@ -3645,14 +3705,212 @@ def phase_train_families():
 
 
 
+# --------------------------------------------------------------- dryrun
+def _dry_launches() -> dict:
+    """Every path kernel's launch counter (the training path's and the
+    paged kernel's)."""
+    return {**_train_launches(),
+            "paged_attention": _ops("paged_attention").launches}
+
+
+def _dry_launches_reset() -> None:
+    _train_launches_reset()
+    _ops("paged_attention").launches = 0
+
+
+def _dry_predict(cfg, shape) -> dict:
+    """The dry run's prediction of one step of ``cfg`` at ``shape`` (a
+    ``ShapeSpec``) on one device: every kernel's launches, the argument
+    bytes, the traced peak."""
+    from repro_torch.launch import dryrun
+    fn, args, _ = dryrun.build_step(cfg.name, shape, None, cfg=cfg)
+    out, counter, secs = dryrun.trace(fn, args)
+    mem = dryrun.memory_of(args, out, counter.peak)
+    launches = dict.fromkeys(_dry_launches(), 0)
+    launches.update({k: v["launches"]
+                     for k, v in counter.cost.kernels.items()})
+    return {"launches": launches, "argument_bytes": mem["argument_bytes"],
+            "peak_bytes": mem["per_device_bytes"], "trace_s": secs,
+            "flops": counter.cost.flops, "bytes": counter.cost.bytes}
+
+
+def _dry_measure(run, args) -> dict:
+    """``run()`` on the card once more after a warm call: each kernel's
+    launches, the bytes of the argument tensors ``args`` (a list), and
+    ``max_memory_allocated`` over the call."""
+    import torch
+    warm = run()
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    arg = sum(t.numel() * t.element_size() for t in args)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _dry_launches_reset()
+    out = run()
+    torch.cuda.synchronize()
+    rec = {"launches": _dry_launches(), "argument_bytes": arg,
+           "allocated_before_bytes": base,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del out
+    return rec
+
+
+def _dry_anchor(kind: str) -> dict:
+    """One anchor: the dry run's prediction of a qwen3-0.6b FULL train
+    step (B TRAIN_BATCH x S TRAIN_SEQ) or decode step (B TRAIN_BATCH,
+    cache DRYRUN_PROMPT + GEN) against the same step on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+    from torch.utils._pytree import tree_flatten
+    cfg = configs.get(DRYRUN_ARCH)
+    B, cap = TRAIN_BATCH, DRYRUN_PROMPT + GEN
+    shape = (ShapeSpec("anchor_train", TRAIN_SEQ, B, "train")
+             if kind == "train" else ShapeSpec("anchor_decode", cap, B,
+                                               "decode"))
+    want = _dry_predict(cfg, shape)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    if kind == "train":
+        opt = OptConfig(keep_master=cfg.param_dtype != "float32")
+        state = init_opt_state(params, opt)
+        batch = SyntheticPipeline(cfg, B, TRAIN_SEQ).device_batch(0, "cuda")
+        step = make_train_step(model, cfg, opt=opt)
+        got = _dry_measure(lambda: step(params, state, batch),
+                           tree_flatten((params, state, batch))[0])
+        del state, batch, step
+    else:
+        batch = SyntheticPipeline(cfg, B, DRYRUN_PROMPT).device_batch(
+            0, "cuda")
+        with torch.no_grad():
+            logits, cache = model.prefill(params, batch["tokens"],
+                                          max_len=cap)
+            tok = logits.argmax(-1)[:, None].int()
+            got = _dry_measure(
+                lambda: model.decode_step(params, cache, tok)[0],
+                tree_flatten((params, cache["layers"], tok))[0])
+        del batch, logits, cache, tok
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(want["peak_bytes"] - got["peak_bytes"]) / got["peak_bytes"]
+    gates = {"launches_equal": want["launches"] == got["launches"],
+             "argument_bytes_equal": want["argument_bytes"]
+             == got["argument_bytes"],
+             "peak_within_tol": rel <= DRYRUN_PEAK_TOL}
+    return {"kind": kind, "B": B,
+            "seq": TRAIN_SEQ if kind == "train" else cap,
+            "predicted": want, "measured": got,
+            "predicted_peak_gb": want["peak_bytes"] / 1e9,
+            "measured_peak_gb": got["peak_bytes"] / 1e9,
+            "peak_rel_err": rel, "peak_tol": DRYRUN_PEAK_TOL,
+            "gates": gates}
+
+
+def _dry_cells_start():
+    """Start the production cells' traces (DRYRUN_CELLS), one subprocess
+    each on the CPU (a dry run touches no card), so that they run while
+    the card runs the phases before ``dryrun``.  Returns (the processes,
+    their directory, a ``stop`` that ends them and removes it, also
+    registered to run at exit)."""
+    import atexit
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        with open(root / f"{arch}__{shape}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", str(root)],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    atexit.register(stop)
+    return procs, root, stop
+
+
+def _dry_cells_finish(procs, root) -> list:
+    """Wait for the production cells' traces; each cell's readings and
+    its gate: model FLOPs a device exactly 6 N_active tokens / 256."""
+    from repro_torch import configs
+    out = []
+    for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"dryrun [{arch} {shape}]: no result in "
+                 f"{DRYRUN_TIMEOUT_S} s of the phase")
+        if proc.returncode != 0:
+            log = (root / f"{arch}__{shape}.log").read_text()
+            fail(f"dryrun [{arch} {shape}]: exit {proc.returncode}: "
+                 f"{log[-2000:]}")
+        res = json.loads((root / f"{arch}__{shape}__single.json")
+                         .read_text())
+        s = configs.shape_by_name(shape)
+        want = 6 * configs.get(arch).n_active_params() * s.global_batch \
+            * s.seq_len / 256
+        mem, roof = res["memory"], res["roofline"]
+        out.append({
+            "arch": arch, "shape": shape, "mesh": [16, 16],
+            "world": res["world"], "n_micro": res["n_micro"],
+            "per_device_gb": mem["per_device_bytes"] / 1e9,
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "fits": mem["fits"], "bottleneck": roof["bottleneck"],
+            "step_time_s": roof["step_time_s"],
+            "model_fraction": roof["model_fraction"],
+            "useful_ratio": res["model_flops"]["useful_ratio"],
+            "trace_s": res["lower_s"],
+            "launches": {k: v["launches"]
+                         for k, v in res["kernels"].items()},
+            "gates": {"model_flops_exact":
+                      res["model_flops"]["per_device"] == want}})
+    return out
+
+
+def phase_dryrun(cells):
+    """The dry run's predictions held against the card (``_dry_anchor``:
+    a train step and a decode step of qwen3-0.6b FULL), and the
+    production cells traced beside them (``cells``, from
+    ``_dry_cells_start``)."""
+    t0 = time.perf_counter()
+    procs, root, stop = cells
+    try:
+        anchors = [_dry_anchor("train"), _dry_anchor("decode")]
+        readings = _dry_cells_finish(procs, root)
+    finally:
+        stop()
+    rec = {"phase": "dryrun", "anchors": anchors, "cells": readings,
+           "seconds": time.perf_counter() - t0, "card": nvidia_smi_line()}
+    emit(rec)
+    bad = [f"{a['kind']}:{k}" for a in anchors for k, ok in
+           a["gates"].items() if not ok] + [
+        f"{c['arch']}:{k}" for c in readings
+        for k, ok in c["gates"].items() if not ok]
+    if bad:
+        fail(f"dryrun: gates failed: {bad}")
+
+
 # ----------------------------------------------------------------- mesh
 def _mesh_refs(root) -> dict:
     """The single-device runs the mesh is held to, on the card in this
     process, written to ``root`` for the ranks: qwen3's loss and every
     leaf's gradient (and the grad step's launches); deepseek's final
     hidden states at C = T and at its own capacity factor, and its loss
-    and gradients at its own; qwen3's prefill and 32 decode steps (the
-    tokens fed and each step's logits).  Returns the readings."""
+    and gradients at its own; qwen3's prefill and MESH_DECODE_STEPS
+    decode steps (the tokens fed and each step's logits).  Returns the
+    readings."""
     import torch
     from repro_torch import configs
     from repro_torch.data import SyntheticPipeline
@@ -4422,7 +4680,7 @@ def summary_line(kernel_results, launches, by_phase):
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
                  "profile", "fleet", "archs", "tp", "families", "train",
-                 "train_families", "mesh")) -> int:
+                 "train_families", "dryrun", "mesh")) -> int:
     # one card: the first visible one (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (
@@ -4474,12 +4732,16 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         count(phase_archs(), "archs")
     if "tp" in phases:
         count(phase_tp(), "tp")
+    # the dryrun phase's production cells trace on the CPU meanwhile
+    dry_cells = _dry_cells_start() if "dryrun" in phases else None
     if "families" in phases:
         count(phase_families(), "families")
     if "train" in phases:
         count(phase_train(), "train")
     if "train_families" in phases:
         count(phase_train_families(), "train_families")
+    if "dryrun" in phases:
+        phase_dryrun(dry_cells)
     if "mesh" in phases:
         count(phase_mesh(), "mesh")
     if results:

@@ -1,11 +1,12 @@
-"""Model config schema (the port's own copy of ``repro.configs.base``)."""
+"""Model config schema and the assigned input shapes (the port's own
+copy of ``repro.configs.base``)."""
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Optional, Tuple
 
-__all__ = ["MoEConfig", "ModelConfig"]
+__all__ = ["MoEConfig", "ModelConfig", "ShapeSpec", "SHAPES", "shape_by_name"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +94,26 @@ class ModelConfig:
         per_expert = 3 * self.d_model * m.d_expert_ff
         n_moe_layers = self.n_layers - m.first_dense
         return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+SHAPES = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

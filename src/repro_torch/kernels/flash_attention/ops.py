@@ -15,7 +15,14 @@ prefill): the CUDA kernel's wrapper and its plain PyTorch version.
   a longer padded buffer with the same leading keys is bit-identical.
 
 The wrapper launches the kernel (``csrc/flash_attention.cu``) for CUDA
-tensors and takes the plain version only for CPU tensors.
+tensors and takes the plain version only for CPU tensors.  On ``meta``
+tensors (the dry run, ``launch/dryrun.py``) the forward and the
+backward launch nothing: they return empty outputs of the kernels'
+shapes and dtypes, allocate the CUDA path's workspaces (the backward's
+from ``plan_dkdv``) and report each launch and its ``cost`` to the dry
+run's counter (``cost.py``).  The head dims the kernels
+refuse are refused on the card only: the dry run traces the smoke
+configs (Dh 16) too.
 
 Training: ``FlashAttentionFn`` gives the attention a gradient.  Its
 forward is the kernel with the per-row log-sum-exp as a second output;
@@ -35,15 +42,17 @@ import ctypes
 import math
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
+from ... import cost as op_cost
 from ..build import load
 
 __all__ = ["flash_attention", "flash_attention_plain", "KV_TILE",
            "flash_attention_lse", "flash_attention_bwd",
            "flash_attention_bwd_plain", "FlashAttentionFn",
            "flash_attention_train", "plan_dkdv", "DkdvPlan",
-           "walk_bounds"]
+           "walk_bounds", "cost", "visible_pairs"]
 
 #: keys per online-softmax step — the kernel's tile
 KV_TILE = 64
@@ -176,6 +185,38 @@ def _plain_rows(q, k, v, offs, causal, window):
             lse)
 
 
+def visible_pairs(Sq: int, Skv: int, causal: bool = True, window=None,
+                  q_offset: int = 0) -> int:
+    """The query-key pairs of one (batch row, head) that the mask lets
+    through: query i at position p = q_offset + i sees key j iff j <
+    Skv, if causal j <= p, and with a window j > p - window."""
+    p = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(p, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, p - window + 1) if window is not None else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(B: int, Sq: int, Skv: int, H: int, KVH: int, Dh: int,
+         causal: bool = True, window=None, q_offset: int = 0,
+         lse: bool = False, backward: bool = False) -> tuple:
+    """(flops, bytes) of the attention of B rows of Sq queries over Skv
+    keys (H query heads, KVH kv heads of Dh), whatever computes it:
+    4 Dh operations a visible query-key pair (``visible_pairs``, exact
+    for causal, window and ragged rows) forward; the backward 2.5 times
+    that (five products of its size).  Bytes: forward q, the keys and
+    values up to the last visible one, the output, the offsets (and
+    with ``lse`` the f32 log-sum-exps); backward q, k, v, dout, lse, dq,
+    dk and dv (the bound of PERF.md's kernel table)."""
+    flops = 4 * Dh * H * B * visible_pairs(Sq, Skv, causal, window,
+                                           q_offset)
+    q_el, kv_el = B * Sq * H * Dh, B * Skv * KVH * Dh
+    if backward:
+        return 2.5 * flops, (3 * q_el + 4 * kv_el) * 2 + B * H * Sq * 4
+    keys = min(Skv, q_offset + Sq) if causal else Skv
+    return flops, (2 * q_el + 2 * B * keys * KVH * Dh) * 2 + B * 4 + (
+        B * H * Sq * 4 if lse else 0)
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q must be (B,Sq,H,Dh) and k/v (B,Skv,KVH,Dh)")
@@ -211,7 +252,7 @@ def _forward(q, k, v, q_offset, causal, window, want_lse):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_offset, causal, window,
                                      return_lse=want_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -230,12 +271,18 @@ def _forward(q, k, v, q_offset, causal, window, want_lse):
         # int32 tables are read one value at a time
         if dt == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if Dh not in (64, 128, 256):
+    if q.is_cuda and Dh not in (64, 128, 256):
         raise ValueError(f"head_dim {Dh} unsupported (64, 128 or 256)")
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    if B and Sq:
+    if B and Sq and q.device.type == "meta":
+        # the offsets' values are not known on meta: a tensor offset
+        # counts as rows ending at the last key (a chunk at the end)
+        off = Skv - Sq if isinstance(q_offset, torch.Tensor) else q_offset
+        op_cost.kernel("flash_attention", *cost(
+            B, Sq, Skv, H, KVH, Dh, causal, window, off, want_lse))
+    elif B and Sq:
         global launches
         launches += 1
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -422,7 +469,7 @@ def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
     _check_bwd(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, dout, causal, window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
@@ -448,6 +495,14 @@ def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
     if B == 0 or Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        plan = plan_dkdv(Sq, Skv, H // KVH, causal, window)
+        if plan.n_slots:
+            torch.empty(plan.n_slots * B * KVH * 2 * KV_TILE * Dh,
+                        dtype=torch.float32, device=q.device)
+        op_cost.kernel("flash_attention_bwd", *cost(
+            B, Sq, Skv, H, KVH, Dh, causal, window, backward=True))
+        return dq, dk, dv
     plan, items, splits = _dkdv_tables(Sq, Skv, H // KVH, causal, window,
                                        q.device)
     ws = None

@@ -19,7 +19,12 @@ zero, in ascending k, so the kernel gives the same bits under all four.
 bytes each order moves (the Table-6 ordering).
 
 The wrapper launches the kernel (``csrc/gemm_dataflow.cu``) for CUDA
-tensors and takes the plain version only for CPU tensors.  For bf16
+tensors and takes the plain version only for CPU tensors.  On ``meta``
+tensors (the dry run, ``launch/dryrun.py``) it launches nothing: it
+returns an empty output of the kernel's shape and dtype, allocates the
+workspace the CUDA path would (the f32 plan at ``HW.n_sm`` SMs, an
+H100's), and reports one launch and its ``cost`` to the dry run's
+counter (``cost.py``).  For bf16
 operands it also picks the producer that fills the kernel's shared-
 memory ring (``producer_for``): TMA where the operands' bases and row
 strides are 16-byte aligned, cp.async otherwise; both give the same
@@ -42,11 +47,14 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ... import cost as op_cost
+from ...cost import HW
 from ..build import load
 
 __all__ = ["Dataflow", "matmul", "matmul_plain", "matmul_ref",
            "modeled_traffic", "producer_for", "TILE", "TMA", "CP_ASYNC",
-           "LinearFn", "project", "project_f32", "plan_f32", "F32Plan"]
+           "LinearFn", "project", "project_f32", "plan_f32", "F32Plan",
+           "cost"]
 
 #: the kernel's tile (bm = bn = bk)
 TILE = 128
@@ -166,6 +174,14 @@ def _sm_count(device) -> int:
     return _n_sm[idx]
 
 
+def cost(m: int, n: int, k: int, dtype: torch.dtype) -> tuple:
+    """(flops, bytes) of an (M, N, K) product of ``dtype`` operands,
+    whatever computes it: 2 M N K operations; A and B read once, the
+    f32 C written once (the bound of PERF.md's kernel table)."""
+    es = dtype.itemsize
+    return 2 * m * n * k, (m * k + k * n) * es + m * n * 4
+
+
 def producer_for(a, b) -> int:
     """The producer of the bf16 pipeline for row-major contiguous
     operands A ``(M, K)`` and B ``(K, N)``: ``TMA`` needs both bases
@@ -196,7 +212,7 @@ def matmul(a, b, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY, *,
     dataflow = Dataflow(dataflow)
     if a.device.type == "cpu":
         return matmul_plain(a, b, bk=bk)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {a.device}")
     if (bm, bn, bk) != (TILE, TILE, TILE):
         raise ValueError(f"the kernel takes {TILE} x {TILE} x {TILE} "
@@ -205,7 +221,31 @@ def matmul(a, b, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY, *,
         raise TypeError(f"operands must be float32 or bfloat16, got "
                         f"{a.dtype}")
     a, b = a.contiguous(), b.contiguous()
+    if a.device.type == "meta":
+        return _dry_launch(a, b, dataflow)
     return _launch(a, b, dataflow, producer_for(a, b))
+
+
+def _dry_launch(a, b, dataflow: Dataflow):
+    """``_launch`` on meta operands: the output and workspace the CUDA
+    path allocates, and the launch it would make, reported to the dry
+    run's counter; no kernel runs."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    f32 = a.dtype == torch.float32
+    if f32 and dataflow is Dataflow.OUTPUT_STATIONARY:
+        plan = plan_f32(m, n, k, HW.n_sm)
+        if plan.workspace_floats:
+            torch.empty(plan.workspace_floats, dtype=torch.float32,
+                        device=a.device)
+    op_cost.kernel("gemm_dataflow", *cost(m, n, k, a.dtype),
+                   also=("gemm_dataflow_f32",) if f32 else ())
+    return out
 
 
 def _launch(a, b, dataflow: Dataflow, producer: int):

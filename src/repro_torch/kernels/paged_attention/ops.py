@@ -15,7 +15,12 @@ KV page pool: the CUDA kernel's wrapper and its plain PyTorch version.
   included); the kernel does not validate them.
 
 The wrapper launches the kernel (``csrc/paged_attention.cu``) for CUDA
-tensors and takes the plain version only for CPU tensors.
+tensors and takes the plain version only for CPU tensors.  On ``meta``
+tensors (the dry run, ``launch/dryrun.py``) it launches nothing: it
+returns an empty output, allocates the split partials' workspace the
+CUDA path allocates and reports one launch and its ``cost`` to the dry
+run's counter (``cost.py``); the kernel's head dims are
+refused on the card only.
 """
 from __future__ import annotations
 
@@ -24,10 +29,11 @@ import math
 
 import torch
 
+from ... import cost as op_cost
 from ..build import load
 
 __all__ = ["paged_attention", "paged_attention_plain", "KV_TILE",
-           "SPLIT"]
+           "SPLIT", "cost"]
 
 #: keys per online-softmax step, anchored at position 0 — the same
 #: partition as the kernel, independent of the page size
@@ -154,6 +160,19 @@ def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
+def cost(B: int, T: int, H: int, KVH: int, Dh: int, keys,
+         n_table: int) -> tuple:
+    """(flops, bytes) of paged attention for B rows of T queries, row b
+    over ``keys[b]`` keys (its length + T, clipped to what its table of
+    ``n_table`` pages covers), whatever computes it: 4 T H Dh operations
+    a key; the keys' K and V read once, q read and the output written,
+    the tables and lengths read (the bound of PERF.md's kernel
+    table)."""
+    kv = sum(keys) * KVH * Dh * 2 * 2
+    io = 2 * B * T * H * Dh * 2 + B * n_table * 4 + B * 4
+    return sum(4 * T * H * Dh * k for k in keys), kv + io
+
+
 def _check(q, k_pages, v_pages, page_tables, lengths):
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError("q must be (B,T,H,Dh) and pages (P,ps,KVH,Dh)")
@@ -178,7 +197,7 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths):
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_tables,
                                      lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     B, T, H, Dh = q.shape
     P, ps, KVH, _ = k_pages.shape
@@ -197,7 +216,7 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths):
         # int32 tables are read one value at a time
         if dt == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if Dh not in (64, 128, 256):
+    if q.is_cuda and Dh not in (64, 128, 256):
         raise ValueError(f"head_dim {Dh} unsupported (64, 128 or 256)")
     out = torch.empty_like(q)
     if B == 0 or T == 0:
@@ -207,6 +226,12 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths):
     # split partials: per block ROWS x Dh outputs, ROWS maxima and sums
     ws = torch.empty(groups * -(-n * ps // SPLIT) * ROWS * (Dh + 2),
                      dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        # the lengths' values are not known on meta: every row counts
+        # the keys its table covers (a decode at the cache's last slot)
+        op_cost.kernel("paged_attention",
+                       *cost(B, T, H, KVH, Dh, [n * ps] * B, n))
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counter_buffer(q.device, stream, groups)
     fn = _kernel()

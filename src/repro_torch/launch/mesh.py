@@ -30,6 +30,13 @@ collective on CUDA tensors is staged through pinned host memory (see
 
 A one-rank mesh needs no process group: every collective over it is
 the identity, so a ``(1, 1)`` mesh computes what no mesh computes.
+
+**The dry mesh** (``make_dry_mesh``, ``backend="dry"``) is one rank's
+view of a mesh of any shape, the production ones included, with no
+world behind it: its device is ``meta``, it joins no process group,
+and its collectives (``sharding/collectives.py``) return meta tensors
+of the right shape and count the bytes the NCCL path would move.  The
+dry run (``launch/dryrun.py``) traces a step on it.
 """
 from __future__ import annotations
 
@@ -47,7 +54,8 @@ from ..sharding.collectives import all_gather
 from ..sharding.rules import spec_axes
 
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_local_mesh",
-           "current_mesh", "init_distributed", "choose_backend"]
+           "make_dry_mesh", "current_mesh", "init_distributed",
+           "choose_backend"]
 
 #: the reference's production meshes: (data, model), and 2 pods of them
 PRODUCTION_SHAPE = (16, 16)
@@ -118,7 +126,7 @@ class Mesh:
         self.coords = {a: rank // st % n for a, st, n in
                        zip(self.axis_names, strides, self.shape)}
         self._groups: Dict[tuple, object] = {}
-        if self.size > 1:
+        if self.size > 1 and backend != "dry":
             self._make_groups(strides)
 
     def _make_groups(self, strides) -> None:
@@ -260,6 +268,16 @@ def make_production_mesh(*, multi_pod: bool = False,
                          f"--nproc-per-node x --nnodes); this world has "
                          f"{world}")
     return make_mesh(shape, axes, devices)
+
+
+def make_dry_mesh(shape: Sequence[int], axes: Sequence[str],
+                  rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a ``shape`` x ``axes`` mesh with no world
+    behind it (the module docstring's dry mesh): device ``meta``, no
+    process group, collectives that move nothing."""
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not in a {tuple(shape)} mesh")
+    return Mesh(shape, axes, "meta", rank, backend="dry")
 
 
 def make_local_mesh(model: int = 1, *,

@@ -274,7 +274,8 @@ def apply_mrope(x, positions, *, theta: float, sections: tuple):
     freqs = rope_freqs(dh, theta, x.device)                  # (half,)
     owner = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))             # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                    # (half,)
     pos = positions.float()                                  # (B, 3, S)
     ang = pos[:, owner].permute(0, 2, 1) * freqs             # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]

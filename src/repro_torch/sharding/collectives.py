@@ -34,6 +34,16 @@ result is copied back to the card.  This is the transport, not a
 fallback: the arithmetic before and after stays on the card.  gloo
 moves bf16 as f32 (a widening that every value survives exactly).
 NCCL collectives run on the device buffers as they are.
+
+**A dry mesh** (``launch/mesh.py``: ``backend="dry"``, device
+``meta``) runs no collective: each function takes the NCCL path's
+buffers (a sum in f32, a gather in the tensor's own dtype, a
+reduce-scatter as one) and returns meta tensors of the result's shape
+and dtype, and reports to the dry run's counter
+(``cost.py``) the bytes each device puts on the wire, with
+the reference's ring factors (``repro.launch.hlo_cost``): an
+all-reduce 2 size (n - 1) / n, an all-gather its result (n - 1) / n, a
+reduce-scatter its result (n - 1).
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from .. import cost as op_cost
 
 __all__ = ["all_gather", "all_reduce", "reduce_scatter", "Gather", "Reduce",
            "Fanout", "Scatter", "gather", "reduce", "fanout", "scatter",
@@ -88,6 +100,17 @@ def _timed(kind: str, t: torch.Tensor, run):
     return out
 
 
+def _run(kind: str, t: torch.Tensor, run, mesh, moved: float) -> None:
+    """``run()`` (through ``_timed``); on a dry mesh nothing runs, and
+    ``moved``, the bytes this rank puts on the wire, goes to the dry
+    run's counter."""
+    if mesh.backend == "dry":
+        _tally(kind, t, 0.0)
+        op_cost.collective(kind.replace("_", "-"), moved)
+        return
+    _timed(kind, t, run)
+
+
 def _to_wire(t: torch.Tensor, mesh) -> torch.Tensor:
     """The buffer the backend moves: for gloo a host f32 / integer copy
     (pinned when staged from a card), for NCCL ``t`` itself."""
@@ -118,8 +141,8 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str],
 
     def run():
         dist.all_gather(parts, w, group=mesh.group(axes))
-        return parts
-    _timed("all_gather", t, run)
+    _run("all_gather", t, run, mesh,
+         w.numel() * w.element_size() * (n - 1))
     return torch.cat([_from_wire(p, t) for p in parts], dim)
 
 
@@ -127,7 +150,8 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``op`` over every rank of ``axes`` (a sum in f32 for a bf16
     tensor), on a copy; every rank gets the same bits."""
-    if mesh.axis_size(axes) == 1:
+    n = mesh.axis_size(axes)
+    if n == 1:
         return t
     dt = t.dtype
     x = t.float() if dt in (torch.bfloat16, torch.float16) else t.clone()
@@ -135,7 +159,8 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
 
     def run():
         dist.all_reduce(w, op=op, group=mesh.group(axes))
-    _timed("all_reduce", x, run)
+    _run("all_reduce", x, run, mesh,
+         2 * w.numel() * w.element_size() * (n - 1) / n)
     return _from_wire(w, x).to(dt)
 
 
@@ -160,7 +185,8 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
 
     def run():
         dist.reduce_scatter_tensor(out, x, group=mesh.group(axes))
-    _timed("reduce_scatter", x, run)
+    _run("reduce_scatter", x, run, mesh,
+         out.numel() * out.element_size() * (n - 1))
     return out.movedim(0, dim).to(dt).contiguous()
 
 

@@ -102,14 +102,29 @@ def _port_bundle(jcfg):
             params_from_jax(reference(jcfg)[2], cfg, device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def served():
+    """Each architecture's bf16 bundle, prompts and greedy oracle, made
+    once for both speculation settings of the engine test."""
+    return {}
+
+
+def _served(served, arch):
+    if arch not in served:
+        cfg, model, params = _port_bundle(_smoke(arch, no_drop=True))
+        prompts, gen = _prompts(cfg, 7, [9, 17, 24, 12, 31, 8]), 10
+        served[arch] = (model, params, prompts, gen,
+                        _oracle(model, params, prompts, gen))
+    return served[arch]
+
+
 @pytest.mark.parametrize("spec_k", [0, 4])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_engine_token_exact_vs_greedy_generate(arch, spec_k):
-    cfg, model, params = _port_bundle(_smoke(arch, no_drop=True))
-    prompts, gen = _prompts(cfg, 7, [9, 17, 24, 12, 31, 8]), 10
+def test_engine_token_exact_vs_greedy_generate(served, arch, spec_k):
+    model, params, prompts, gen, oracle = _served(served, arch)
     eng, done = _run(model, params, prompts, gen, max_batch=3, n_pages=24,
                      page_size=8, max_pages_per_seq=8, spec_k=spec_k)
-    _assert_parity(done, _oracle(model, params, prompts, gen))
+    _assert_parity(done, oracle)
     eng.cache.check_invariants()
 
 

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.paged_attention import (SPLIT, paged_attention,
                                                  paged_attention_plain)
 from repro_torch.models.components import decode_attention
+from test_torch_kernels import elsewhere
 
 # f32: both sides accumulate in f32 but split the keys into different
 # online-softmax tiles (16 vs 64 keys), so results differ by a few f32
@@ -116,9 +117,9 @@ def test_flash_wrapper_rejects_bad_input():
     k = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(q, k, k)
-    q = torch.zeros(1, 4, 4, 16, device="meta")
+    q = torch.zeros(1, 4, 4, 16)
     with pytest.raises(ValueError, match="device"):
-        flash_attention(q, k.to("meta"), k.to("meta"))
+        flash_attention(elsewhere(q), elsewhere(k), elsewhere(k))
     q = torch.zeros(1, 4, 4, 16)
     with pytest.raises(ValueError, match="q must be"):
         flash_attention(q, k, k[:, :3])
@@ -295,9 +296,9 @@ def test_paged_wrapper_rejects_bad_input():
         paged_attention(q, pages, pages, torch.zeros(3, 2, dtype=torch.int32),
                         torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="device"):
-        paged_attention(q.to("meta"), pages.to("meta"), pages.to("meta"),
-                        torch.zeros(2, 2, dtype=torch.int32, device="meta"),
-                        torch.zeros(2, dtype=torch.int32, device="meta"))
+        paged_attention(*map(elsewhere, (
+            q, pages, pages, torch.zeros(2, 2, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32))))
 
 
 def test_plain_versions_are_the_cpu_path():

@@ -1,0 +1,300 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the JAX
+package on the CPU, without compiling anything.
+
+* The cell table (``SHAPES``, ``cells()``, ``OPT_SETTINGS``,
+  ``OPT_SHAPE_SETTINGS``, ``opt_settings_for``), the input specs
+  (``data/specs.py``) and ``auto_microbatches`` equal the reference's.
+* Every cell's argument bytes on rank 0 of the production meshes
+  (16, 16) and (2, 16, 16) equal what the reference's ``logical_spec``
+  places on one device of a stand-in mesh: parameters, optimizer state
+  and batch, cache and tokens (the port keeps a decode cache's ``pos``
+  on the host, so the reference's 4-byte scalar is left out).
+* Model FLOPs are the reference's formula on the reference's active
+  parameter count, exactly.
+* The cost counter's units: a projection, the attention forward and
+  backward at causal, window and Sq != Skv masks, the dry collectives'
+  ring factors, a softmax's transcendentals, the peak of a chain.
+* The whole table at smoke configs on a (2, 2) dry mesh completes;
+  ``--rules sp`` raises naming ROADMAP item 14d, and ``--variant opt``
+  fails exactly its cells under the "sp" rules.
+
+``repro.launch.dryrun`` is not imported: it sets ``XLA_FLAGS`` to 512
+host devices at import, which would change JAX for later tests.
+"""
+import json
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.data import specs as jspecs
+from repro.models import build_model as jbuild
+from repro.sharding import logical_spec as jlogical_spec
+from repro.train import optimizer as jopt
+from repro.train.step import auto_microbatches as jauto_microbatches
+from repro_torch import configs
+from repro_torch.data import specs
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_dry_mesh
+from repro_torch.cost import OpCounter
+from repro_torch.models import components as C
+from repro_torch.sharding import collectives
+from repro_torch.train.step import auto_microbatches
+from test_sharding_rules import FakeMesh
+
+MESHES = {"single": {"data": 16, "model": 16},
+          "multi": {"pod": 2, "data": 16, "model": 16}}
+CELLS = [(a, s.name) for a, s, skip in configs.cells() if skip is None]
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def test_cell_table_matches_reference():
+    assert [(s.name, s.seq_len, s.global_batch, s.kind)
+            for s in configs.SHAPES] == [
+        (s.name, s.seq_len, s.global_batch, s.kind)
+        for s in jconfigs.SHAPES]
+    assert [(a, s.name, skip) for a, s, skip in configs.cells()] == [
+        (a, s.name, skip) for a, s, skip in jconfigs.cells()]
+    assert configs.OPT_SETTINGS == jconfigs.OPT_SETTINGS
+    assert configs.OPT_SHAPE_SETTINGS == jconfigs.OPT_SHAPE_SETTINGS
+    for arch in configs.ARCH_NAMES:
+        for s in configs.SHAPES:
+            assert configs.opt_settings_for(arch, s.name) == \
+                jconfigs.opt_settings_for(arch, s.name)
+    assert configs.shape_by_name("decode_32k") == configs.SHAPES[2]
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_input_specs_match_reference(arch):
+    cfg, jcfg = configs.get(arch), jconfigs.get(arch)
+    for s in configs.SHAPES:
+        B, S = s.global_batch, s.seq_len
+        got = specs.train_specs(cfg, B, S)
+        want = jspecs.train_specs(jcfg, B, S)
+        assert list(got) == list(want)
+        for k in got:
+            assert got[k].shape == tuple(want[k].shape), k
+            assert _dtype_name(got[k].dtype) == str(want[k].dtype), k
+            assert got[k].meta().shape == got[k].shape
+        assert specs.train_axes(cfg, B, S) == jspecs.train_axes(jcfg, B, S)
+        tok, axes = specs.decode_token_specs(cfg, B)
+        jtok, jaxes = jspecs.decode_token_specs(jcfg, B)
+        assert (tok.shape, _dtype_name(tok.dtype), axes) == (
+            tuple(jtok.shape), str(jtok.dtype), jaxes)
+        for dp in ((16, 32) if s.kind == "train" else ()):
+            assert auto_microbatches(cfg, B, S, dp) == \
+                jauto_microbatches(jcfg, B, S, dp)
+
+
+def _ref_bytes(spec_tree, mesh) -> int:
+    """Bytes of one device's shards of a reference spec tree (leaves
+    with ``shape``, ``dtype`` and ``axes``, or ShapeDtypeStructs paired
+    with axes) under the reference's ``logical_spec``."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    total = 0
+    for ps in jax.tree.leaves(spec_tree, is_leaf=lambda x: hasattr(x, "axes")):
+        spec = jlogical_spec(ps.axes, ps.shape, mesh)
+        n = math.prod(ps.shape)
+        for entry in spec:
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                n //= sizes[a]
+        total += n * np.dtype(ps.dtype).itemsize
+    return total
+
+
+class _Spec:
+    def __init__(self, sds, axes):
+        self.shape, self.dtype, self.axes = tuple(sds.shape), sds.dtype, axes
+
+
+def _reference_argument_bytes(arch, shape, mesh) -> int:
+    jcfg = jconfigs.get(arch)
+    s = jconfigs.shape_by_name(shape)
+    model = jbuild(jcfg)
+    pspecs = model.param_specs()
+    total = _ref_bytes(pspecs, mesh)
+    B, S = s.global_batch, s.seq_len
+    if s.kind == "train":
+        opt = jopt.OptConfig(keep_master=(jcfg.param_dtype != "float32"))
+        total += _ref_bytes(jopt.opt_state_specs(pspecs, opt), mesh)
+    if s.kind in ("train", "prefill"):
+        sds, axes = jspecs.train_specs(jcfg, B, S), \
+            jspecs.train_axes(jcfg, B, S)
+        total += _ref_bytes([_Spec(sds[k], axes[k]) for k in sds], mesh)
+    else:
+        cache = model.cache_specs(B, S)
+        pos = cache.pop("pos")
+        assert pos.shape == () and np.dtype(pos.dtype).itemsize == 4
+        tok, axes = jspecs.decode_token_specs(jcfg, B)
+        total += _ref_bytes(cache, mesh) + _ref_bytes([_Spec(tok, axes)],
+                                                      mesh)
+    return total
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+def test_argument_bytes_match_reference_placement(mesh_kind):
+    """Rank 0's argument bytes of every non-skipped default-rules cell
+    (what ``build_step`` hands the step, placed by the port's rules)
+    against the reference's placement on a stand-in mesh."""
+    fake = FakeMesh(MESHES[mesh_kind])
+    mesh = dryrun.dry_mesh_for(mesh_kind)
+    for arch, shape in CELLS:
+        _, args, _ = dryrun.build_step(arch, shape, mesh)
+        got = dryrun.memory_of(args, (), 0)["argument_bytes"]
+        assert got == _reference_argument_bytes(arch, shape, fake), \
+            (arch, shape)
+
+
+def test_model_flops_match_reference():
+    for arch, shape in CELLS:
+        jcfg = jconfigs.get(arch)
+        s = jconfigs.shape_by_name(shape)
+        tokens = s.global_batch * (s.seq_len if s.kind != "decode" else 1)
+        want = (6 if s.kind == "train" else 2) * jcfg.n_active_params() \
+            * tokens
+        got = dryrun.model_flops(configs.get(arch), shape, 256)
+        assert got["global"] == want, (arch, shape)
+        assert got["per_device"] == want / 256, (arch, shape)
+
+
+def _count(fn, *tensors):
+    counter = OpCounter()
+    with counter:
+        counter.track(tensors)
+        out = fn()
+    return counter, out
+
+
+def _meta(*shape, dtype=torch.bfloat16, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta",
+                       requires_grad=grad)
+
+
+def test_counter_counts_a_projection():
+    M, K, N = 24, 64, 48
+    x, w = _meta(M, K), _meta(K, N)
+    c, y = _count(lambda: C.linear(x, w), x, w)
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    k = c.cost.kernels["gemm_dataflow"]
+    assert (k["launches"], k["flops"]) == (1, 2 * M * N * K)
+    assert k["bytes"] == (M * K + K * N) * 2 + M * N * 4
+    # the f32 output rounded to bf16 is one more op: a copy, no flops
+    assert c.cost.flops == 2 * M * N * K
+    assert c.cost.bytes == k["bytes"] + M * N * (4 + 2)
+    c, _ = _count(lambda: x.float() @ w.float(), x, w)   # a library GEMM
+    assert c.cost.flops == 2 * M * N * K and "gemm_dataflow" not in \
+        c.cost.kernels
+
+
+@pytest.mark.parametrize("case", [
+    ("causal", 2, 256, 256, 4, 2, 64, True, None,
+     256 * 257 // 2),
+    ("window", 1, 256, 256, 4, 4, 64, True, 64,
+     sum(min(p + 1, 64) for p in range(256))),
+    ("cross", 2, 16, 300, 6, 6, 64, False, None, 16 * 300)],
+    ids=lambda c: c[0])
+def test_counter_counts_attention(case):
+    _, B, Sq, Skv, H, KVH, Dh, causal, window, pairs = case
+    q = _meta(B, Sq, H, Dh, grad=True)
+    k, v = (_meta(B, Skv, KVH, Dh, grad=True) for _ in range(2))
+    fwd = 4 * Dh * pairs * B * H
+
+    def step():
+        out = fa.flash_attention_train(q, k, v, causal=causal,
+                                       window=window)
+        out.backward(torch.empty_like(out))
+        return out
+    c, out = _count(step, q, k, v)
+    kern = c.cost.kernels
+    assert out.shape == q.shape
+    assert (kern["flash_attention"]["launches"],
+            kern["flash_attention"]["flops"]) == (1, fwd)
+    assert (kern["flash_attention_bwd"]["launches"],
+            kern["flash_attention_bwd"]["flops"]) == (1, 2.5 * fwd)
+    assert fa.visible_pairs(Sq, Skv, causal, window) == pairs
+
+
+def test_dry_collectives_count_ring_bytes():
+    mesh = make_dry_mesh((1, 4), ("data", "model"))
+    t = _meta(2, 8)                                       # bf16, 32 bytes
+    c, outs = _count(lambda: (
+        collectives.all_gather(t, mesh, ("model",), 0),
+        collectives.all_reduce(t, mesh, ("model",)),
+        collectives.reduce_scatter(_meta(8, 8), mesh, ("model",), 0)), t)
+    gathered, summed, scattered = outs
+    assert (gathered.shape, gathered.dtype) == ((8, 8), torch.bfloat16)
+    assert (summed.shape, summed.dtype) == ((2, 8), torch.bfloat16)
+    assert (scattered.shape, scattered.dtype) == ((2, 8), torch.bfloat16)
+    # all-gather: result (128 bytes) x 3/4; all-reduce in f32: 2 x 64
+    # x 3/4; reduce-scatter in f32: result (64 bytes) x 3
+    assert c.cost.coll_bytes["all-gather"] == 96
+    assert c.cost.coll_bytes["all-reduce"] == 96
+    assert c.cost.coll_bytes["reduce-scatter"] == 192
+    assert c.cost.coll_ops["all-gather"] == 1
+    assert c.cost.coll_total == 384
+
+
+def test_counter_counts_softmax_transcendentals():
+    x = _meta(4, 8, dtype=torch.float32)
+    c, _ = _count(lambda: torch.softmax(x, -1), x)
+    assert c.cost.transcendentals == 32
+    assert c.cost.bytes == 2 * 32 * 4
+
+
+def test_counter_tracks_the_peak_of_a_chain():
+    x = _meta(1000, dtype=torch.float32)                  # 4,000 bytes
+
+    def chain():
+        v = x.view(10, 100)                               # no new storage
+        y = v.repeat(4, 1)                                # 16,000: peak
+        del y
+        z = x * 2                                         # 4,000
+        return z + 1                                      # 4,000
+    c, _ = _count(chain, x)
+    assert c.peak == 4000 + 16000
+    assert c.live == 4000 + 4000                          # x and the result
+
+
+def test_whole_table_at_smoke_size_completes(tmp_path):
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--all", "--smoke", "--mesh", "single", "--out",
+                     str(tmp_path)])
+    assert done.value.code == 0
+    skips = json.loads((tmp_path / "skips.json").read_text())
+    assert [(r["arch"], r["shape"], r["reason"]) for r in skips] == [
+        (a, s.name, skip) for a, s, skip in jconfigs.cells() if skip]
+    for arch, shape in CELLS:
+        res = json.loads((tmp_path / f"{arch}__{shape}__single.json")
+                         .read_text())
+        assert res["xla_cost_analysis"] is None
+        assert res["loop_aware"]["flops"] > 0 and res["memory"]["fits"]
+        assert res["roofline"]["step_time_s"] > 0
+
+
+def test_sp_rules_raise_naming_the_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="14d"):
+        dryrun.main(["--rules", "sp", "--all", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("arch, shape, ok", [
+    ("qwen3-0.6b", "decode_32k", True), ("rwkv6-3b", "decode_32k", False),
+    ("qwen2-vl-7b", "decode_32k", False)])
+def test_opt_variant_fails_the_sp_cells(tmp_path, arch, shape, ok):
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", arch, "--shape", shape, "--smoke",
+                     "--variant", "opt", "--out", str(tmp_path)])
+    assert done.value.code == (0 if ok else 1)
+    name = f"{arch}__{shape}__single"
+    assert (configs.opt_settings_for(arch, shape)[1] == "sp") == (not ok)
+    if ok:
+        res = json.loads((tmp_path / f"{name}.json").read_text())
+        assert res["memory"]["argument_bytes"] > 0
+    else:
+        assert "14d" in (tmp_path / f"{name}.error.txt").read_text()

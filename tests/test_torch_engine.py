@@ -45,10 +45,25 @@ def _prompts(cfg, seed, lens):
             for L in lens]
 
 
-def _oracle(model, params, prompts, gen):
-    return {i: greedy_generate(model, params, p[None], gen,
-                               cache_len=len(p) + gen)[0].numpy()
-            for i, p in enumerate(prompts)}
+def _oracle(model, params, prompts, gen, memo=None):
+    """{i: greedy_generate of prompt i}; ``memo`` ({(prompt bytes,
+    gen): tokens}) keeps each stream for the next call that asks."""
+    memo = {} if memo is None else memo
+    out = {}
+    for i, p in enumerate(prompts):
+        key = (p.tobytes(), gen)
+        if key not in memo:
+            memo[key] = greedy_generate(model, params, p[None], gen,
+                                        cache_len=len(p) + gen)[0].numpy()
+        out[i] = memo[key]
+    return out
+
+
+@pytest.fixture(scope="module")
+def streams():
+    """The port's greedy streams, shared by the engine tests' cases
+    (``_oracle``'s ``memo``)."""
+    return {}
 
 
 def _run(model, params, prompts, gen, **kw):
@@ -68,12 +83,12 @@ def _assert_parity(done, oracle):
 
 # ------------------------------------------------------------ parity
 @pytest.mark.parametrize("spec_k", [0, 4])
-def test_engine_token_exact_vs_greedy_generate(port, spec_k):
+def test_engine_token_exact_vs_greedy_generate(port, streams, spec_k):
     cfg, model, params = port
     prompts, gen = _prompts(cfg, 7, [9, 17, 24, 12, 31, 8]), 10
     eng, done = _run(model, params, prompts, gen, max_batch=3, n_pages=24,
                      page_size=8, max_pages_per_seq=8, spec_k=spec_k)
-    _assert_parity(done, _oracle(model, params, prompts, gen))
+    _assert_parity(done, _oracle(model, params, prompts, gen, streams))
     eng.cache.check_invariants()
     eng.cache.release_prefix_pages(len(eng.cache.prefix))
     eng.cache.check_invariants()
@@ -81,7 +96,7 @@ def test_engine_token_exact_vs_greedy_generate(port, spec_k):
 
 
 @pytest.mark.parametrize("spec_k,n_pages", [(0, 13), (4, 10)])
-def test_engine_preemption_token_exact(port, spec_k, n_pages):
+def test_engine_preemption_token_exact(port, streams, spec_k, n_pages):
     """A small pool forces preemption; the evicted request replays and
     still matches the oracle."""
     cfg, model, params = port
@@ -91,12 +106,13 @@ def test_engine_preemption_token_exact(port, spec_k, n_pages):
                      prefix_sharing=False, spec_k=spec_k)
     assert sum(r.n_preemptions for r in done) >= 1
     assert eng.n_replay_steps >= 1
-    _assert_parity(done, _oracle(model, params, prompts, gen))
+    _assert_parity(done, _oracle(model, params, prompts, gen, streams))
     eng.cache.check_invariants()
 
 
 @pytest.mark.parametrize("spec_k", [0, 4])
-def test_engine_chunking_and_prefix_sharing_token_exact(port, spec_k):
+def test_engine_chunking_and_prefix_sharing_token_exact(port, streams,
+                                                        spec_k):
     cfg, model, params = port
     # a prompt spanning five chunks and several context buckets
     long = _prompts(cfg, 5, [70])
@@ -104,7 +120,7 @@ def test_engine_chunking_and_prefix_sharing_token_exact(port, spec_k):
                      page_size=8, max_pages_per_seq=12, chunk_size=16,
                      bucket_edges=[2, 4, 8, 12], spec_k=spec_k)
     assert eng.n_prefill_chunks == 5
-    _assert_parity(done, _oracle(model, params, long, 6))
+    _assert_parity(done, _oracle(model, params, long, 6, streams))
     # three prompts sharing a 20-token prefix that diverges mid-page
     rng = np.random.default_rng(3)
     prefix = rng.integers(0, cfg.vocab_size, size=(20,)).astype(np.int32)
@@ -114,7 +130,7 @@ def test_engine_chunking_and_prefix_sharing_token_exact(port, spec_k):
                      page_size=8, max_pages_per_seq=8, chunk_size=16,
                      spec_k=spec_k)
     assert eng.cache.n_shared_tokens >= 2 * 20 and eng.cache.n_cow >= 2
-    _assert_parity(done, _oracle(model, params, prompts, 6))
+    _assert_parity(done, _oracle(model, params, prompts, 6, streams))
     eng.cache.check_invariants()
 
 

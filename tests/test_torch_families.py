@@ -21,6 +21,7 @@ Dh 256.
 * One decode step sends every projection through ``linear``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -299,13 +300,14 @@ def test_flash_plain_window_and_dh256_match_reference(dh, window, skv):
     k, v = _rand(rng, (2, skv, KVH, dh)), _rand(rng, (2, skv, KVH, dh))
     got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
                                 q_offset=0, causal=causal, window=window)
-    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                     causal=causal, window=window, kv_chunk=16)
+    want = jax.jit(functools.partial(
+        jax_flash, causal=causal, window=window, kv_chunk=16))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
     if causal and skv % window == 0:
-        loc = jax_local(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                        window=window)
+        loc = jax.jit(functools.partial(jax_local, window=window))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         np.testing.assert_allclose(got.numpy(), np.asarray(loc), rtol=2e-5,
                                    atol=2e-5)
 
@@ -323,9 +325,9 @@ def test_paged_plain_dh256_ring_matches_reference():
     got = paged_attention_plain(
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(tables), torch.from_numpy(lengths - 1))
-    want = paged_attention_ref(jnp.asarray(q[:, 0]), jnp.asarray(kp),
-                               jnp.asarray(vp), jnp.asarray(tables),
-                               jnp.asarray(lengths))
+    want = jax.jit(paged_attention_ref)(
+        jnp.asarray(q[:, 0]), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lengths))
     np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
@@ -370,7 +372,8 @@ def test_wkv_scan_matches_reference_chunked_form():
     lw = -np.exp(np.minimum(_rand(rng, (B, S, H, Dh)) - 2.0, 1.0))
     u = _rand(rng, (H, Dh))
     o, st = wkv_scan(*(torch.from_numpy(a) for a in (r, k, v, lw, u)))
-    jo, jst = wkv_chunked(*(jnp.asarray(a) for a in (r, k, v, lw, u)))
+    jo, jst = jax.jit(wkv_chunked)(*(jnp.asarray(a)
+                                     for a in (r, k, v, lw, u)))
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-4,
@@ -390,7 +393,8 @@ def test_wkv_chunked_matches_reference():
         lw = -np.exp(np.minimum(_rand(rng, (B, S, H, Dh)) - 2.0, 1.0))
         u = _rand(rng, (H, Dh))
         o, st = wkv_chunked(*(torch.from_numpy(a) for a in (r, k, v, lw, u)))
-        jo, jst = jax_chunked(*(jnp.asarray(a) for a in (r, k, v, lw, u)))
+        jo, jst = jax.jit(jax_chunked)(*(jnp.asarray(a)
+                                         for a in (r, k, v, lw, u)))
         np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-5,
                                    atol=1e-5)
         np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-5,
@@ -410,8 +414,8 @@ def test_rglru_scan_and_steps_match_reference(S):
          "wi": _rand(rng, (Wd, Wd)) / 4, "bi": _rand(rng, (Wd,)),
          "lam": rng.uniform(0.38, 0.8, Wd).astype(np.float32)}
     x = _rand(rng, (2, S, Wd))
-    jh, jlast = jax_scan({k: jnp.asarray(a) for k, a in p.items()},
-                         jnp.asarray(x))
+    jh, jlast = jax.jit(jax_scan)({k: jnp.asarray(a) for k, a in p.items()},
+                                  jnp.asarray(x))
     tp = {k: torch.from_numpy(a) for k, a in p.items()}
     tx = torch.from_numpy(x)
     h, last = rglru_scan(tp, tx)

@@ -217,9 +217,24 @@ def test_lut_exact_on_grid():
 
 
 # ------------------------------------------------------- the wrappers
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device no wrapper takes."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def elsewhere(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as seen on a device other than the CPU, CUDA and meta."""
+    return torch.Tensor._make_subclass(_Elsewhere, t)
+
+
 def test_wrappers_use_the_plain_version_only_on_the_cpu():
     """CPU tensors take the plain version without building or counting
-    anything; any other device than the CPU or CUDA is refused."""
+    anything; any other device than the CPU or CUDA is refused (the
+    dataflow GEMM's also takes meta: the dry run's shape-only
+    branch)."""
     from repro_torch.kernels import build
     before = (gd_ops.launches, bs_ops.launches, lut_ops.launches)
     a = torch.ones(8, 8)
@@ -231,7 +246,7 @@ def test_wrappers_use_the_plain_version_only_on_the_cpu():
         & set(build._libs)
     m = torch.ones(8, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        gd.matmul(m, m)
+        gd.matmul(elsewhere(a), elsewhere(a))
     with pytest.raises(ValueError, match="unsupported device"):
         bs.matmul(m, m, np.ones((1, 1), bool))
     with pytest.raises(ValueError, match="unsupported device"):

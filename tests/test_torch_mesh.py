@@ -238,16 +238,26 @@ def test_train_step_on_mesh_matches_reference(runs, name):
             assert (np.linalg.norm(g.numpy() - w)
                     <= GRAD_RTOL * np.linalg.norm(w)), n
 
+    # the reference's step at n_ref microbatches: the first is its own
+    # ``make_train_step`` (the scan accumulating in grad_accum_dtype);
+    # the later ones the mean of the microbatches' gradients
+    # (``_reference_grads``, summed in f32 in microbatch order as that
+    # scan sums them, which holds while grad_accum_dtype is f32 and no
+    # gradient is compressed), then its AdamW update
     opt = jopt.OptConfig(lr=LR, warmup_steps=1)
+    assert jcfg.grad_accum_dtype == "float32" and not opt.compress_grads
     jtrain = jax.jit(jstep.make_train_step(jmodel, jcfg, opt=opt,
                                            n_micro=n_ref))
+    jadamw = jax.jit(lambda p, g, s: jopt.adamw_update(p, g, s, opt))
+    treedef = jax.tree.structure(jparams)
     state = jopt.init_opt_state(jparams, opt)
     noise = [np.zeros(np.shape(w), bool) for w in want]
     slack = [np.zeros(np.shape(w), bool) for w in want]
     params = jparams
     for step in range(STEPS):
         jb = pipe.device_batch(step)
-        _, g = _reference_grads(jmodel, jcfg, params, jb, n_ref)
+        jloss, g = ((None, want) if step == 0 else
+                    _reference_grads(jmodel, jcfg, params, jb, n_ref))
         noise = [m | ((np.abs(a) < GRAD_ATOL) & (a != 0))
                  for m, a in zip(noise, g)]
         # Adam moves an element by about lr g / |g|, so an error e in
@@ -259,8 +269,13 @@ def test_train_step_on_mesh_matches_reference(runs, name):
             slack = [m | (np.abs(a) < GRAD_RTOL * LR / PARAM_ATOL
                           * float(np.abs(a).max()))
                      for m, a in zip(slack, g)]
-        params, state, m = jtrain(params, state, jb)
-        np.testing.assert_allclose(out["losses"][step], float(m["loss"]),
+        if step == 0:
+            params, state, jm = jtrain(params, state, jb)
+            jloss = float(jm["loss"])
+        else:
+            params, state, _ = jadamw(
+                params, jax.tree.unflatten(treedef, g), state)
+        np.testing.assert_allclose(out["losses"][step], jloss,
                                    rtol=LOSS_RTOL)
     for n, p, jp, mask, loose in zip(names, tree_leaves(out["params"]),
                                      jax.tree.leaves(params), noise, slack):
@@ -287,13 +302,14 @@ def test_expert_parallel_moe_matches_reference_shards(runs):
     (rtol 1e-5), the aux loss its shard's."""
     jcfg, p, x = runs["refs"]["moe_inputs"]
     jp = jax.tree.map(jnp.asarray, p)
+    jmoe = jax.jit(JC._moe_compute, static_argnums=(2, 3, 4))
     ep, dp = MESH[1], MESH[0]
     n = x.shape[0] // dp
     for rank, out in enumerate(runs["out"]):
         d = rank // MESH[1]
         assert out["ep"]["tp"] == (True, True)
         xs = jnp.asarray(x[d * n:(d + 1) * n])
-        parts = [JC._moe_compute(_expert_shard(jp, ep, i), xs, jcfg, ep, i)
+        parts = [jmoe(_expert_shard(jp, ep, i), xs, jcfg, ep, i)
                  for i in range(ep)]
         want = sum(np.asarray(y) for y, _ in parts)
         np.testing.assert_allclose(out["ep"]["y"].numpy(), want,
@@ -308,8 +324,8 @@ def test_expert_parallel_model_close_to_unsharded_reference(runs):
     each data shard routed with its own capacity, against the
     reference's unsharded ``apply``: more than 98 % within 3e-2."""
     jcfg, jmodel, jparams, batch = runs["refs"]["ep_model"]
-    want = np.asarray(jmodel.apply(jparams, batch, train=False)[0],
-                      np.float32)
+    want = np.asarray(jax.jit(lambda p, b: jmodel.apply(
+        p, b, train=False))(jparams, batch)[0], np.float32)
     got = np.concatenate([out["ep_model"].numpy() for rank, out in
                           enumerate(runs["out"]) if rank % MESH[1] == 0])
     close = np.mean(np.isclose(got, want, rtol=CLOSE_TOL, atol=CLOSE_TOL))

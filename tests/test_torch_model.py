@@ -19,6 +19,7 @@ code paths moves the logits.
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,19 @@ from repro_torch.models.lm import DecoderLM
 from repro_torch.serve.step import ServePrograms
 
 ARCH = "qwen3-0.6b"
+
+
+def share_cores() -> None:
+    """Under pytest-xdist, give torch's CPU pool in each worker its share
+    of the cores (ceil(cores / workers)) instead of every core: with 6
+    workers of 8 threads each on 8 cores, the port's test files took
+    about 2.8 times the worker time they take with 2 threads a worker
+    (their junit, ``-n 6 --dist loadfile``, 8 cores).  A single pytest
+    process keeps torch's default pool."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        cores = len(os.sched_getaffinity(0))
+        torch.set_num_threads(max(1, -(-cores // workers)))
 
 
 def warm_torch_threads() -> None:
@@ -56,6 +70,7 @@ def warm_torch_threads() -> None:
         fn(x)
 
 
+share_cores()
 warm_torch_threads()
 # f32 logits of the contiguous path: both sides compute in f32 and keep
 # an f32 cache; they differ only in summation order (attention tiles,
@@ -222,20 +237,21 @@ def check_contiguous_path(jcfg):
     jmodel = build_model(_f32(jcfg))
     model, params = _port(ref)
     toks = _tokens(1, (2, 21), jcfg.vocab_size)
-    want, _ = jmodel.apply(ref[1], {"tokens": jnp.asarray(toks)},
-                           train=False)
+    want, _ = jax.jit(lambda p, b: jmodel.apply(p, b, train=False))(
+        ref[1], {"tokens": jnp.asarray(toks)})
     got = model.apply(params, torch.from_numpy(toks))
     _close(got, want, CONTIG_TOL)
     assert np.array_equal(got.argmax(-1).numpy(),
                           np.asarray(jnp.argmax(want, -1)))
 
-    jlast, jcache = jmodel.prefill(ref[1], {"tokens": jnp.asarray(toks)},
-                                   max_len=26)
+    jlast, jcache = jax.jit(lambda p, b: jmodel.prefill(p, b, max_len=26))(
+        ref[1], {"tokens": jnp.asarray(toks)})
     last, cache = model.prefill(params, torch.from_numpy(toks), max_len=26)
     _close(last, jlast, CONTIG_TOL)
     tok = np.array(jnp.argmax(jlast, -1), np.int32)[:, None]
+    jdecode = jax.jit(jmodel.decode_step)
     for _ in range(4):
-        jlog, jcache = jmodel.decode_step(ref[1], jcache, jnp.asarray(tok))
+        jlog, jcache = jdecode(ref[1], jcache, jnp.asarray(tok))
         log, cache = model.decode_step(params, cache, torch.from_numpy(tok))
         _close(log, jlog, CONTIG_TOL)
         tok = np.array(jnp.argmax(jlog, -1), np.int32)[:, None]
@@ -294,7 +310,7 @@ def check_paged_programs(jcfg):
     n_valid = np.asarray([8, 5, 0], np.int32)
     ptoks = _tokens(3, (B, C), V)
     jst, tst = _both_states(k, v, tables, lengths)
-    jl, jst = jmodel.prefill_chunk_paged(
+    jl, jst = jax.jit(jmodel.prefill_chunk_paged)(
         ref[1], jst, jnp.asarray(ptoks), jnp.asarray(tables[:, :2]),
         jnp.asarray(starts), jnp.asarray(n_valid))
     tl, tst = model.prefill_chunk_paged(
@@ -311,13 +327,13 @@ def check_paged_programs(jcfg):
         dtoks = _tokens(4 + width, (B, width), V)
         jst, tst = _both_states(k, v, tables, lengths)
         if width == 1:
-            jl, jst = jmodel.decode_step_paged(ref[1], jst,
-                                               jnp.asarray(dtoks))
+            jl, jst = jax.jit(jmodel.decode_step_paged)(
+                ref[1], jst, jnp.asarray(dtoks))
             tl, tst = model.decode_step_paged(params, tst,
                                               torch.from_numpy(dtoks))
         else:
-            jl, jst = jmodel.verify_step_paged(ref[1], jst,
-                                               jnp.asarray(dtoks))
+            jl, jst = jax.jit(jmodel.verify_step_paged)(
+                ref[1], jst, jnp.asarray(dtoks))
             tl, tst = model.verify_step_paged(params, tst,
                                               torch.from_numpy(dtoks))
         _close_paged(tl, jl)
@@ -335,7 +351,7 @@ def check_paged_programs(jcfg):
     ptab[0] = tables[2, :2]
     ptoks = _tokens(10, (1, C), V)
     jst, tst = _both_states(k, v, dtables, dlen)
-    (jd, jp), jst = jmodel.fused_step_paged(
+    (jd, jp), jst = jax.jit(jmodel.fused_step_paged)(
         ref[1], jst, jnp.asarray(dtoks), jnp.asarray(ptoks),
         jnp.asarray(ptab), jnp.asarray([0], jnp.int32),
         jnp.asarray([6], jnp.int32))

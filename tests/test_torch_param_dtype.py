@@ -47,6 +47,7 @@ from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 from test_torch_model import reference, to_port_config
 from test_torch_runtime import _bits
 from test_torch_train import LOSS_RTOL, PARAM_ATOL, _np
+from test_torch_train_families import reference_step
 
 BF16 = dict(param_dtype="bfloat16")
 B, S = 2, 32
@@ -163,10 +164,11 @@ def test_keep_master_step_matches_reference(arch):
     jbatch = JPipeline(jcfg, B, S).device_batch(0)
     batch = SyntheticPipeline(cfg, B, S).device_batch(0, "cpu")
 
-    # the gradients only to mark the elements in f32 noise (below
-    # 1e-6, or of other signs), as tests/test_torch_train_families does
-    _, jgrads = jax.jit(jax.value_and_grad(jstep.make_loss_fn(jmodel, jcfg),
-                                           has_aux=True))(jparams, jbatch)
+    # the reference's gradients: they mark the elements in f32 noise
+    # (below 1e-6, or of other signs), as tests/test_torch_train_families
+    # does, and its step applies AdamW to them (``reference_step``)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        jstep.make_loss_fn(jmodel, jcfg), has_aux=True))(jparams, jbatch)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, _ = tstep.make_loss_fn(model, cfg)(
         tree_unflatten(params, leaves), batch)
@@ -174,8 +176,8 @@ def test_keep_master_step_matches_reference(arch):
 
     opt = topt.OptConfig(lr=LR, warmup_steps=1, keep_master=True)
     jopt_cfg = jopt.OptConfig(lr=LR, warmup_steps=1, keep_master=True)
-    jp, js, jm = jax.jit(jstep.make_train_step(jmodel, jcfg, opt=jopt_cfg))(
-        jparams, jopt.init_opt_state(jparams, jopt_cfg), jbatch)
+    jp, js = reference_step(jparams, jgrads, jopt_cfg)
+    jm = {"loss": jloss}
     state = topt.init_opt_state(params, opt)
     assert {t.dtype for t in tree_leaves(state["master"])} == {torch.float32}
     tp, ts, m = tstep.make_train_step(model, cfg, opt=opt)(

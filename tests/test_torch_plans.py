@@ -173,7 +173,7 @@ def test_attention_backward_split_runs_match_reference(B_, S_, H, KVH, Dh,
     def f(q, k, v):
         return jnp.sum(JC.flash_attention(q, k, v, causal=causal,
                                           window=window, kv_chunk=16) * do)
-    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5, err_msg=name)

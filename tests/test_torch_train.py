@@ -239,19 +239,23 @@ def test_loss_grads_and_steps_match_reference(arch):
     # three steps; an element whose reference gradient was ever below
     # GRAD_ATOL but not 0 (f32 noise of its leaf) moves by up to lr a step either
     # way in either package: Adam divides it by its own root mean square
+    # the reference's step at one microbatch is its gradient (which also
+    # marks the noise elements) and its AdamW update on it
     opt = topt.OptConfig(lr=1e-3, warmup_steps=1)
     jopt_cfg = jopt.OptConfig(lr=1e-3, warmup_steps=1)
-    jtrain = jax.jit(jstep.make_train_step(jmodel, jcfg, opt=jopt_cfg))
+    assert not jopt_cfg.compress_grads     # its step adds no noise
+    jadamw = jax.jit(lambda p, g, s: jopt.adamw_update(p, g, s, jopt_cfg))
     train = tstep.make_train_step(model, model.cfg, opt=opt)
     js, ts = jopt.init_opt_state(jparams, jopt_cfg), topt.init_opt_state(
         params, opt)
     noise = [np.zeros(np.shape(g), bool) for g in jax.tree.leaves(jgrads)]
     for step in range(3):
         jb = JPipeline(jcfg, B, S).device_batch(step)
+        (jl, _), jg = jgrad(jparams, jb)
         noise = [n | ((np.abs(g) < GRAD_ATOL) & (g != 0)) for n, g in
-                 zip(noise, map(np.asarray,
-                                jax.tree.leaves(jgrad(jparams, jb)[1])))]
-        jparams, js, jm = jtrain(jparams, js, jb)
+                 zip(noise, map(np.asarray, jax.tree.leaves(jg)))]
+        jparams, js, _ = jadamw(jparams, jg, js)
+        jm = {"loss": jl}
         params, ts, m = train(params, ts, SyntheticPipeline(
             model.cfg, B, S).device_batch(step, "cpu"))
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
@@ -366,7 +370,7 @@ def test_attention_backward_matches_reference(B_, S_, Skv, H, KVH, Dh,
             o = JC.flash_attention(q, k, v, causal=causal, window=window,
                                    kv_chunk=16)
         return jnp.sum(o * do)
-    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     auto = torch.autograd.grad(
         fa.flash_attention_plain(*leaves, causal=causal, window=window),
