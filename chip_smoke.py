@@ -469,6 +469,16 @@ MESH_FAMILIES = (("whisper-tiny", None, 8, 64),
 MESH_FAMILY_DECODE_STEPS = 8
 MESH_TIMEOUT_S = 600
 MESH_DEVICE = "cuda:0"
+# sequence parallelism (SP_RULES: the residual stream on sequence shards
+# over model) beside the default rules, from one set of parameters and
+# one batch: qwen3-0.6b FULL widths at MESH_SP_LAYERS layers inside the
+# train job on (2, 2), deepseek-moe (MESH_MOE_LAYERS) inside the
+# moe_decode job on (1, 4), routed as the single device's grad step;
+# gates: the SP grad step's loss within GRAD_LOSS_TOL and every leaf
+# within GRAD_REL_L2 relative L2 of the default step's, no leaf without
+# a gradient, each rank's launches equal, and a forward alone with no
+# all-reduce (every block's sums reduce-scattered)
+MESH_SP_LAYERS = 2
 # dryrun phase: the anchors' model and shapes (the train phase's B x S;
 # a decode step over a cache of DRYRUN_PROMPT + GEN positions), the
 # traced peak's tolerance against max_memory_allocated, and the
@@ -4064,17 +4074,19 @@ def _mesh_capacities(cfg):
     return (("C=T", m.n_experts / m.top_k), ("own", m.capacity_factor))
 
 
-def _mesh_grad_check(mesh, grads, shardings, ref_path) -> dict:
-    """Each leaf's gradient shard against the same shard of the
-    single-device gradient (``ref_path``, read mapped): the squared
-    difference and the reference's squared norm summed over the
-    elements this rank owns (a replicated leaf counted once), added
-    over every rank; rank 0's result holds each leaf's relative L2."""
+def _mesh_grad_check(mesh, grads, shardings, ref) -> dict:
+    """Each leaf's gradient shard against the same shard of a reference:
+    the single device's whole gradients (``ref`` their path, read
+    mapped), or another step's shards on this rank (``ref`` a list in
+    ``grads``' order).  The squared difference and the reference's
+    squared norm summed over the elements this rank owns (a replicated
+    leaf counted once), added over every rank; rank 0's result holds
+    each leaf's relative L2."""
     import torch
     from repro_torch.sharding.collectives import all_reduce
     from repro_torch.train.optimizer import _owned
     from repro_torch.tree import tree_items
-    ref = torch.load(ref_path, mmap=True)
+    whole = None if isinstance(ref, list) else torch.load(ref, mmap=True)
     names = ["/".join(p) for p, _ in tree_items(shardings)]
     owned = _owned(shardings, mesh)
     sums = torch.zeros(len(names), 3, dtype=torch.float64,
@@ -4083,7 +4095,8 @@ def _mesh_grad_check(mesh, grads, shardings, ref_path) -> dict:
                                                  grads, names)):
         if not owned[i]:
             continue
-        want = mesh.shard(ref[name], spec).double()
+        want = (ref[i] if whole is None
+                else mesh.shard(whole[name], spec)).to(g.device).double()
         got = g.double()
         sums[i, 0] = torch.sum((got - want) ** 2)
         sums[i, 1] = torch.sum(want ** 2)
@@ -4146,6 +4159,62 @@ def _mesh_grads(mesh, model, cfg, params, batch, sh, ref, rec, name):
         rec.update({f"{name}_{k}": v for k, v in _mesh_grad_check(
             mesh, grads, sh, ref).items()})
     return grads
+
+
+def _mesh_sp(mesh, cfg, B, rec, name, ids=None) -> None:
+    """``cfg`` on the mesh at B x MESH_S, one set of parameters and one
+    batch: the grad step under the default rules, then under SP_RULES
+    (the MoE routed as ``ids`` in both, the single device's), each
+    followed by a forward alone; records each step's loss, launches,
+    seconds, peak and collectives, the forward's collectives, and the
+    SP step's leaves against the default step's (``_mesh_grad_check``;
+    the default step's gradients wait on the host, so each step's peak
+    counts its own), and the pair's seconds, model and comparison
+    included."""
+    import torch
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES,
+                                            set_active_rules)
+    from repro_torch.train.step import make_grad_fn
+    t_pair = time.perf_counter()
+    model, params, sh = _mesh_model(cfg, mesh)
+    batch = SyntheticPipeline(cfg, B, MESH_S).device_batch(0, mesh=mesh)
+    grads = {}
+    for tag, rules in (("default", DEFAULT_RULES), ("sp", SP_RULES)):
+        key = f"{name}_{tag}"
+        set_active_rules(rules)
+        try:
+            _, undo = _route_as(ids)
+            try:
+                _train_launches_reset()
+                collectives.reset_stats()
+                _mesh_sync(reset_peak=True)
+                t0 = time.perf_counter()
+                with mesh:
+                    loss, _, grads[tag] = make_grad_fn(model, cfg)(params,
+                                                                   batch)
+                _mesh_sync()
+            finally:
+                undo()
+            rec[f"{key}_grad_s"] = time.perf_counter() - t0
+            if tag == "default":
+                grads[tag] = [g.cpu() for g in grads[tag]]
+            rec[f"{key}_loss"] = float(loss)
+            rec[f"{key}_launches"] = _train_launches()
+            rec[f"{key}_peak_gb"] = _mesh_peak_gb()
+            rec[f"{key}_collectives"] = collectives.stats()
+            collectives.reset_stats()
+            with mesh, torch.no_grad():
+                model.apply(params, batch, train=True, want_hidden=True)
+            rec[f"{key}_forward_collectives"] = collectives.stats()
+        finally:
+            set_active_rules(DEFAULT_RULES)
+    rec.update({f"{name}_sp_{k}": v for k, v in _mesh_grad_check(
+        mesh, grads["sp"], sh, grads["default"]).items()})
+    del params, grads
+    _mesh_free()
+    rec[f"{name}_sp_pair_s"] = time.perf_counter() - t_pair
 
 
 def _mesh_train(mesh, root, rec) -> None:
@@ -4226,6 +4295,9 @@ def _mesh_train(mesh, root, rec) -> None:
     rec["ckpt_files_unequal_to_shards"] = bad
     del params, state, tree
     _mesh_free()
+    _mesh_sp(mesh, dataclasses.replace(configs.get(MESH_ARCH),
+                                       n_layers=MESH_SP_LAYERS),
+             MESH_B, rec, "qwen3")
     _mesh_family_train(mesh, root, rec)
 
 
@@ -4319,9 +4391,10 @@ def _mesh_moe_decode(mesh, root, rec) -> None:
     _mesh_grads(mesh, model, cfg, params, batch, sh,
                 root / "moe_grads_ref.pt", rec, "moe")
     undo()
-    del ref
     del params
     _mesh_free()
+    _mesh_sp(mesh, cfg, MESH_MOE_B, rec, "moe", ids=ref["ids_grads"])
+    del ref
 
     cfg = configs.get(MESH_ARCH)
     model, params, sh = _mesh_model(cfg, mesh)
@@ -4519,6 +4592,43 @@ def phase_mesh():
         "ckpt_restored_onto_elastic_mesh": (not s0["restored_unequal"]
                                             and s0["restored_leaves"] > 0),
     }
+    sp = {}
+    for name, recs, arch, shape, layers, B in (
+            ("qwen3", train, MESH_ARCH, MESH_TRAIN_SHAPE, MESH_SP_LAYERS,
+             MESH_B),
+            ("moe", moe, MESH_MOE, MESH_MOE_SHAPE, MESH_MOE_LAYERS,
+             MESH_MOE_B)):
+        first = recs[0]
+        gates.update({
+            f"sp_{name}_loss_close": abs(first[f"{name}_sp_loss"]
+                                         - first[f"{name}_default_loss"])
+            <= GRAD_LOSS_TOL,
+            f"sp_{name}_grads_close":
+                first[f"{name}_sp_grad_rel_l2_max"] <= GRAD_REL_L2,
+            f"sp_{name}_every_leaf_has_a_gradient":
+                not first[f"{name}_sp_leaves_without_gradient"],
+            f"sp_{name}_launches_equal_default": all(
+                r[f"{name}_sp_launches"] == r[f"{name}_default_launches"]
+                for r in recs),
+            f"sp_{name}_no_forward_all_reduce": all(
+                "all_reduce" not in r[f"{name}_sp_forward_collectives"]
+                for r in recs)})
+        sp[name] = {
+            "arch": arch, "layers": layers, "mesh": shape, "B": B,
+            "S": MESH_S,
+            **{f"{k}_{tag}": first[f"{name}_{tag}_{k}"]
+               for tag in ("default", "sp") for k in ("loss", "launches")},
+            "grad_rel_l2_max": first[f"{name}_sp_grad_rel_l2_max"],
+            "grad_rel_l2_worst_leaf":
+                first[f"{name}_sp_grad_rel_l2_worst_leaf"],
+            **{f"{k}_per_rank_{tag}": [r[f"{name}_{tag}_{k}"] for r in recs]
+               for tag in ("default", "sp") for k in ("peak_gb", "grad_s")},
+            "pair_s_per_rank": [r[f"{name}_sp_pair_s"] for r in recs],
+            **{f"collectives_rank0_{tag}": first[f"{name}_{tag}_collectives"]
+               for tag in ("default", "sp")},
+            **{f"forward_collectives_rank0_{tag}":
+               first[f"{name}_{tag}_forward_collectives"]
+               for tag in ("default", "sp")}}
     families = {}
     for arch, layers, B, S in MESH_FAMILIES:
         cfg = _mesh_family_config(arch, layers)
@@ -4615,6 +4725,7 @@ def phase_mesh():
                           "leaves": s0["restored_leaves"],
                           "spawn_s": s0["spawn_s"]},
            "families": families,
+           "sp": sp,
            "peak_gb_per_rank": peaks,
            "peak_gb_sum_train": sum(r["peak_gb"] for r in train),
            "peak_gb_sum_moe_decode": sum(r["peak_gb"] for r in moe),
@@ -4625,7 +4736,10 @@ def phase_mesh():
         fail(f"mesh: gates failed: {bad}")
     launches = _mesh_sum_launches(train, "train_launches")
     for recs, key in ((moe, "moe_launches"),
-                      *((train, f"{a[0]}_launches") for a in MESH_FAMILIES)):
+                      *((train, f"{a[0]}_launches") for a in MESH_FAMILIES),
+                      *((recs, f"{name}_{tag}_launches")
+                        for name, recs in (("qwen3", train), ("moe", moe))
+                        for tag in ("default", "sp"))):
         for k, n in _mesh_sum_launches(recs, key).items():
             launches[k] = launches.get(k, 0) + n
     return launches

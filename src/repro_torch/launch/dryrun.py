@@ -28,10 +28,17 @@ counts every other op.  It records, from an H100's datasheet numbers
 The dry run computes nothing, so it needs no GPU (``chip_smoke.py``'s
 ``dryrun`` phase holds its predictions against a real step on one).
 
+``--rules sp`` traces under ``SP_RULES`` (the residual stream on
+sequence shards over ``model``: Megatron's sequence parallelism,
+``sharding/spmd.py``), and ``--variant opt`` each cell at the
+reference's ``OPT_SETTINGS`` (config overrides and rules variant).
+
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all --mesh both
+    python -m repro_torch.launch.dryrun --all --mesh both --rules sp
+    python -m repro_torch.launch.dryrun --all --mesh both --variant opt
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ from ..configs import shape_by_name
 from ..data.specs import decode_token_specs, train_axes, train_specs
 from ..models import build_model
 from ..sharding import spmd
-from ..sharding.rules import (DEFAULT_RULES, RULE_VARIANTS, logical_spec,
+from ..sharding.rules import (DEFAULT_RULES, RULE_VARIANTS, active_rules,
+                              logical_spec, set_active_rules,
                               tree_shardings)
 from ..train.optimizer import OptConfig, init_opt_state
 from ..train.step import auto_microbatches, make_train_step
@@ -63,11 +71,6 @@ __all__ = ["apply_overrides", "build_step", "run_cell", "main",
            "dry_mesh_for", "memory_of", "model_flops", "trace"]
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-
-#: why a cell under other rules than the default cannot be traced yet
-NOT_PORTED = ("the port lays out no activation by SP_RULES yet (ROADMAP "
-              "Queue 1 item 14d): a run under these rules would print the "
-              "default layout's numbers")
 
 
 def dry_mesh_for(mesh_kind: str):
@@ -161,9 +164,9 @@ def build_step(arch: str, shape, mesh, rules=DEFAULT_RULES, cfg=None):
     dry mesh ``mesh`` (None: one device, no mesh): the train step at
     the reference's microbatch count (``auto_microbatches`` at dp = pod
     x data), the model's ``prefill`` or its ``decode_step``.  ``shape``
-    is a ``ShapeSpec`` or the name of one of ``SHAPES``."""
-    if rules is not DEFAULT_RULES:
-        raise NotImplementedError(NOT_PORTED)
+    is a ``ShapeSpec`` or the name of one of ``SHAPES``.  ``rules``
+    places the arguments; the activations follow the rules active when
+    the step runs (``run_cell`` sets them)."""
     cfg = cfg or configs.get(arch)
     if isinstance(shape, str):
         shape = shape_by_name(shape)
@@ -242,12 +245,21 @@ def model_flops(cfg, shape_name: str, world: int) -> dict:
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              rules=DEFAULT_RULES, cfg=None, tag: str = "",
              mesh=None) -> dict:
-    """One cell's JSON (the reference's keys; module docstring).
-    ``mesh``: a dry mesh in place of ``mesh_kind``'s production one."""
+    """One cell's JSON (the reference's keys; module docstring), traced
+    under ``rules`` as the active rules (``set_active_rules``, as the
+    reference's ``run_cell`` sets them; the previous rules restored
+    after): ``SP_RULES`` lays the residual stream out on sequence shards
+    over ``model``.  ``mesh``: a dry mesh in place of ``mesh_kind``'s
+    production one."""
     mesh = mesh or dry_mesh_for(mesh_kind)
     world = mesh.size
-    fn, args, meta = build_step(arch, shape_name, mesh, rules, cfg=cfg)
-    out, counter, t_trace = trace(fn, args, mesh)
+    before = active_rules()
+    set_active_rules(rules)
+    try:
+        fn, args, meta = build_step(arch, shape_name, mesh, rules, cfg=cfg)
+        out, counter, t_trace = trace(fn, args, mesh)
+    finally:
+        set_active_rules(before)
     cost = counter.cost
 
     mf = model_flops(cfg or configs.get(arch), shape_name, world)
@@ -312,8 +324,6 @@ def main(argv: Optional[list] = None) -> None:
     args = ap.parse_args(argv)
     overrides = dict(kv.split("=", 1) for kv in args.overrides)
     rules = RULE_VARIANTS[args.rules]
-    if rules is not DEFAULT_RULES:
-        raise NotImplementedError(NOT_PORTED)
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

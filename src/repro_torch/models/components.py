@@ -12,8 +12,13 @@ summed, rounded once), experts expert-parallel (the reference's
 ``_moe_compute`` at ``ep_size`` = model), the vocabulary split in the
 embedding and the unembedding, and a decode cache (a local-attention
 ring, whisper's cross cache) split along its sequence
-(``sharded_decode_attention``, ``cross_attention_block``).  ``tp=None``
-is the single-device path, unchanged.
+(``sharded_decode_attention``, ``cross_attention_block``).  With
+``tp.seq`` (sequence parallelism, ``sharding/spmd.py``) a block's input
+and output are the rank's sequence shard: column-parallel entries
+gather it (``fanout_linear``), row-parallel exits reduce-scatter
+(``row_parallel``, ``model_sum``), and work that does not split runs on
+the whole sequence (``whole_sequence``).  ``tp=None`` is the
+single-device path, unchanged.
 
 Plain functions of ``(params, inputs, cfg)`` on tensors.  The dtype
 contract is the reference's: activations in the compute dtype (bf16),
@@ -41,6 +46,7 @@ writes, and the two groups' write targets are disjoint.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -53,7 +59,7 @@ from ..kernels.flash_attention.ops import (flash_attention_lse,
 from ..kernels.gemm_dataflow.ops import LinearFn, project, project_f32
 from ..kernels.paged_attention import paged_attention
 from ..sharding.collectives import (all_gather, all_reduce, fanout, gather,
-                                    reduce)
+                                    reduce, reduce_scatter, scatter, split)
 from ..sharding.spmd import MODEL
 from .base import ParamSpec, normal, ones, zeros
 
@@ -65,7 +71,9 @@ __all__ = ["linear", "fanout_linear", "row_sum", "rms_norm", "layer_norm",
            "encode_cross_kv", "mlp_specs", "mlp_block", "moe_specs",
            "moe_capacity", "moe_route", "moe_block",
            "embed_specs", "embed_tokens", "unembed", "unembed_local",
-           "rank_slice", "row_parallel", "sharded_decode_attention",
+           "rank_slice", "row_parallel", "model_sum", "model_rows",
+           "whole_sequence", "gather_sequence", "fanout_tree",
+           "sharded_decode_attention",
            "decode_attention",
            "flash_decode_layout", "flash_decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
@@ -120,8 +128,23 @@ def fanout_linear(x, *ws, tp):
     every partial to x's dtype before the sum: a second rounding, which
     put RWKV6's decay bias ``w0`` (its most cancelling bf16 gradient)
     8.7e-2 relative L2 from the single device's on an H100, 4.2e-2
-    without it (PERF.md)."""
+    without it (PERF.md).
+
+    With ``tp.seq`` x (B, S / m, D) is this rank's sequence shard: it is
+    all-gathered along the sequence first, so the products see the
+    whole (B, S, D), and the f32 partials of x's gradient are
+    reduce-scattered along the sequence instead (Megatron's sequence
+    parallelism: the all-reduce's sum, each rank keeping its rows),
+    then rounded once."""
     ws = tuple(w.to(x.dtype) for w in ws)
+    if tp.seq:
+        lead = (x.shape[0], x.shape[1] * tp.size)
+        if _needs_grad(x, *ws):
+            ys = _GatherLinearFn.apply(x, tp.mesh, *ws)
+        else:
+            x2 = all_gather(x, tp.mesh, MODEL, 1).reshape(-1, x.shape[-1])
+            ys = tuple(project(x2, w) for w in ws)
+        return tuple(y.reshape(*lead, w.shape[1]) for y, w in zip(ys, ws))
     x2 = x.reshape(-1, x.shape[-1])
     if _needs_grad(x, *ws):
         ys = _FanoutLinearFn.apply(x2, tp.mesh, *ws)
@@ -161,6 +184,103 @@ class _FanoutLinearFn(torch.autograd.Function):
         dws = [project(xt, dy) if need else None
                for dy, need in zip(dys, ctx.needs_input_grad[2:])]
         return (dx, None, *dws)
+
+
+class _GatherLinearFn(torch.autograd.Function):
+    """``fanout_linear`` of a sequence shard x (B, S / m, D): x
+    all-gathered along the sequence over ``model``, then ``x @ w`` for
+    each w, the outputs flattened to rows; backward dW = x^T dY as
+    ``LinearFn``'s, dX the products' f32 partials added in order, then
+    one reduce-scatter along the sequence and one rounding."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, *ws):
+        xg = all_gather(x, mesh, MODEL, 1)
+        ctx.shape, ctx.dtype, ctx.mesh = xg.shape, x.dtype, mesh
+        x2 = xg.reshape(-1, xg.shape[-1])
+        ctx.save_for_backward(x2, *ws)
+        return tuple(project(x2, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *ws = ctx.saved_tensors
+        dys = [dy.to(x.dtype).contiguous() for dy in dys]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            for dy, w in zip(dys, ws):
+                part = project_f32(dy, w.t().contiguous())
+                dx = part if dx is None else dx + part
+            dx = reduce_scatter(dx.reshape(ctx.shape), ctx.mesh, MODEL,
+                                1).to(ctx.dtype)
+        xt = x.t().contiguous() if any(ctx.needs_input_grad[2:]) else None
+        dws = [project(xt, dy) if need else None
+               for dy, need in zip(dys, ctx.needs_input_grad[2:])]
+        return (dx, None, *dws)
+
+
+def whole_sequence(fn, x, tp):
+    """``fn(x, tp)`` of a block whose work does not split over
+    ``model`` (heads, hidden dim or width that ``model`` does not
+    divide, a prefill that builds a cache): with ``tp.seq`` the
+    sequence shard x is all-gathered, ``fn`` runs on the whole sequence
+    exactly as without sequence parallelism (duplicated on every rank,
+    its gradients whole on every rank), and each rank keeps its rows of
+    its first output (``Split``: backward an all-gather, so the whole
+    output's gradient reaches every rank's duplicated work, and x's
+    gradient is this rank's rows of it).  ``fn`` returns a tensor, or a
+    tuple whose first entry is the block's output."""
+    if tp is None or not tp.seq:
+        return fn(x, tp)
+    out = fn(*gather_sequence(x, tp))
+    if isinstance(out, tuple):
+        return (model_rows(out[0], tp),) + out[1:]
+    return model_rows(out, tp)
+
+
+def gather_sequence(x, tp):
+    """(the whole sequence of this rank's shard x, ``tp`` with ``seq``
+    off): sequence parallelism's entry into work that runs on the whole
+    sequence as without it, every rank of ``model`` the same, so x's
+    gradient is this rank's rows of a gradient every rank holds whole
+    (``Gather(split=False)``)."""
+    return (gather(x, tp.mesh, MODEL, 1, split=False),
+            dataclasses.replace(tp, seq=False))
+
+
+def model_rows(y, tp):
+    """This rank's sequence rows of y (B, S, ...), which every rank of
+    ``model`` holds whole, under ``tp.seq`` (``Split``); else y."""
+    if tp is None or not tp.seq:
+        return y
+    return split(y, tp.mesh, MODEL, 1)
+
+
+def model_sum(y, tp):
+    """The sum over ``model`` of f32 partials y (B, S, ...): all of it
+    (``Reduce``), or under ``tp.seq`` this rank's sequence rows of it
+    (``Scatter``, a reduce-scatter; backward an all-gather)."""
+    if tp.seq:
+        return scatter(y, tp.mesh, MODEL, 1)
+    return reduce(y, tp.mesh, MODEL)
+
+
+def fanout_tree(tree, tp):
+    """Every leaf of a dict of replicated parameters, in f32, through
+    ``fanout`` over ``model``: the leaves a rank consumes on its own
+    sequence shard under ``tp.seq`` (the norms' scales and biases, a
+    bias added after a row-parallel sum), whose gradient on each rank is
+    its rows' share only.  A norm computes in f32, so its leaves' f32
+    partials are summed before the one rounding to the leaf's dtype (a
+    bf16 scale's partials rounded before the sum put it 3e-3 relative
+    L2 from the default layout's on the CPU); a bias added in the
+    compute dtype sums its rows' gradient in that dtype first, as the
+    default layout does, then over ``model`` (whisper's ``b2``: 3.5e-3
+    in bf16, 2e-7 in f32)."""
+    if tp is None or not tp.seq:
+        return tree
+    if isinstance(tree, dict):
+        return {k: fanout_tree(v, tp) for k, v in tree.items()}
+    return fanout(tree.float(), tp.mesh, MODEL)
 
 
 # ---------------------------------------------------------------- norms
@@ -341,8 +461,10 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     query heads, and its KVH / m KV heads (``tp.kv``) or, where m does
     not divide KVH, the KV heads repeated G-fold to H and cut to its
     H / m; the replicated biases and norm scales enter through
-    ``fanout``, x through ``fanout_linear``."""
-    B, S, _ = x.shape
+    ``fanout``, x through ``fanout_linear`` (with ``tp.seq`` x is this
+    rank's sequence shard, which ``fanout_linear`` gathers: q, k, v hold
+    the whole sequence)."""
+    B = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
     qn, kn = p.get("q_norm"), p.get("k_norm")
@@ -362,9 +484,9 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     ws = (p["wq"], p["wk"], p["wv"])
     q, k, v = (fanout_linear(x, *ws, tp=tp) if split
                else tuple(linear(x, w) for w in ws))
-    q = _add_bias(q, bq).reshape(B, S, h, hd)
-    k = _add_bias(k, bk).reshape(B, S, kvh, hd)
-    v = _add_bias(v, bv).reshape(B, S, kvh, hd)
+    q = _add_bias(q, bq).reshape(B, -1, h, hd)
+    k = _add_bias(k, bk).reshape(B, -1, kvh, hd)
+    v = _add_bias(v, bv).reshape(B, -1, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, qn, cfg.norm_eps)
         k = rms_norm(k, kn, cfg.norm_eps)
@@ -405,9 +527,10 @@ def out_proj(p, out, tp=None):
 def row_parallel(x, w, tp):
     """``x @ w`` for a ``w`` holding this rank's rows of the whole
     product: the f32 partials summed over ``model``, rounded once to
-    x's dtype (as ``linear`` rounds its one product)."""
+    x's dtype (as ``linear`` rounds its one product); under ``tp.seq``
+    reduce-scattered along the sequence (x (B, S, F) -> (B, S / m, D))."""
     y = linear(x, w, f32_out=True)
-    return reduce(y, tp.mesh, MODEL).to(x.dtype)
+    return model_sum(y, tp).to(x.dtype)
 
 
 def attention_block(p, x, cfg, *, positions, causal: bool = True,
@@ -437,13 +560,23 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
     the row's q, k, v heads are gathered (one packed all-gather), every
     head attends, and this rank's heads go to the row-parallel ``wo``.
     A cache split along its sequence (``tp.seq_shards``) goes through
-    ``sharded_decode_attention``."""
+    ``sharded_decode_attention``.
+
+    With ``tp.seq`` (sequence parallelism) x is this rank's sequence
+    shard and so is the output: split heads gather it in their QKV
+    products (``fanout_linear``) and reduce-scatter ``wo``'s sum
+    (``row_parallel``); whole heads run on the whole sequence
+    (``whole_sequence``).  ``positions`` are the whole sequence's."""
+    if tp is not None and tp.seq and not tp.heads:
+        return whole_sequence(lambda x, tp: attention_block(
+            p, x, cfg, positions=positions, causal=causal, window=window,
+            mrope_positions=mrope_positions, paged=paged, tp=tp), x, tp)
     q, k, v = project_qkv(p, x, cfg, positions, mrope_positions, tp)
     if cache is None:
-        if window is not None and x.shape[1] % window:
+        if window is not None and q.shape[1] % window:
             # the reference's local_attention contract
             raise ValueError(f"local attention needs S % window == 0, got "
-                             f"S = {x.shape[1]}, window = {window}")
+                             f"S = {q.shape[1]}, window = {window}")
         attend = (flash_attention_train if _needs_grad(q, k, v)
                   else flash_attention)
         out = attend(q, k, v, q_offset=0, causal=causal, window=window)
@@ -550,12 +683,17 @@ def cross_attention_block(p, x, enc_kv, cfg, tp=None, step: bool = False):
     holds every head: the row's q heads are gathered, every head
     attends, and this rank's go on.  A step's cache split along its
     frames (``tp.seq_shards``) is attended shard by shard and the
-    partials combined (``_combine_shards``), with no causal mask."""
-    B, S, _ = x.shape
+    partials combined (``_combine_shards``), with no causal mask.  With
+    ``tp.seq`` x and the output are this rank's sequence shard, as in
+    ``attention_block``."""
+    if tp is not None and tp.seq and not tp.heads:
+        return whole_sequence(lambda x, tp: cross_attention_block(
+            p, x, enc_kv, cfg, tp), x, tp)
+    B = x.shape[0]
     split = tp is not None and tp.heads
     h = cfg.n_heads // tp.size if split else cfg.n_heads
     q = fanout_linear(x, p["wq"], tp=tp)[0] if split else linear(x, p["wq"])
-    q = q.reshape(B, S, h, cfg.head_dim).contiguous()
+    q = q.reshape(B, -1, h, cfg.head_dim).contiguous()
     k, v = enc_kv
     if step and split:
         q = _gather_heads(tp, q)[0]
@@ -578,13 +716,16 @@ def encode_cross_kv(p, enc_out, cfg, tp=None):
     ``model`` does not divide KVH, every KV head expanded and cut as in
     ``project_qkv``), ``enc_out`` entering through ``fanout_linear`` at
     each use, so its gradient into the encoder is summed over ``model``
-    layer by layer."""
-    B, S, _ = enc_out.shape
+    layer by layer.  With ``tp.seq`` ``enc_out`` is this rank's shard of
+    the frames, gathered first (by ``fanout_linear``, or whole where the
+    heads do not split); the K/V hold every frame."""
+    if tp is not None and tp.seq and not tp.heads:
+        enc_out, tp = gather_sequence(enc_out, tp)
     kvh = cfg.n_kv_heads
     split = tp is not None and tp.heads
     if split and tp.kv:
         kvh //= tp.size
-    shape = (B, S, kvh, cfg.head_dim)
+    shape = (enc_out.shape[0], -1, kvh, cfg.head_dim)
     ws = (p["wk"], p["wv"])
     k, v = (t.reshape(shape) for t in (
         fanout_linear(enc_out, *ws, tp=tp) if split
@@ -754,7 +895,13 @@ def mlp_block(p, x, cfg, gather=None, tp=None):
     (concatenated, not reduced) before the replicated down projection.
     On a training mesh with ``tp.ff`` the up projections are column-
     and the down projection row-parallel over ``model``
-    (``row_parallel``: f32 partials summed, rounded once)."""
+    (``row_parallel``: f32 partials summed, rounded once); with
+    ``tp.seq`` x and the output are this rank's sequence shard (a split
+    FFN gathers x and reduce-scatters its sum, a whole one runs on the
+    whole sequence: ``whole_sequence``)."""
+    if tp is not None and tp.seq and not tp.ff:
+        return whole_sequence(lambda x, tp: mlp_block(p, x, cfg, tp=tp), x,
+                              tp)
     if tp is not None and tp.ff:
         return _mlp_split(p, x, cfg, tp)
     if cfg.mlp_kind == "gelu":
@@ -773,7 +920,10 @@ def _mlp_split(p, x, cfg, tp):
         h = _add_bias(fanout_linear(x, w1, tp=tp)[0],
                       rank_slice(p["b1"], tp, w1.shape[1]))
         h = F.gelu(h, approximate="tanh")
-        return row_parallel(h, p["w2"], tp) + p["b2"].to(x.dtype)
+        # under tp.seq b2 is added on the rank's rows: its gradient is
+        # summed over model (fanout_tree)
+        return (row_parallel(h, p["w2"], tp)
+                + fanout_tree(p["b2"], tp).to(x.dtype))
     g, u = fanout_linear(x, p["wg"], p["wu"], tp=tp)
     return row_parallel(F.silu(g) * u, p["wd"], tp)
 
@@ -851,8 +1001,19 @@ def moe_block(p, x, cfg, tp=None):
     expert's row-parallel partial (``tp.shared``) added before the one
     f32 sum.  An expert's slots are counted over the pairs routed to it
     in token order, so a rank's dispatch is the single-device dispatch
-    restricted to its experts."""
+    restricted to its experts.
+
+    With ``tp.seq`` x (B, S / m, D) is this rank's sequence shard: it is
+    all-gathered first, so routing and capacity see the whole call's
+    rows, as without sequence parallelism; the experts' and the shared
+    expert's sums are reduce-scattered along the sequence
+    (``model_sum``) and duplicated outputs cut to the rank's rows
+    (``model_rows``).  Between the two the block computes what it
+    computes without sequence parallelism (``tp`` with ``seq`` off)."""
     m = cfg.moe
+    outer = tp
+    if tp is not None and tp.seq:
+        x, tp = gather_sequence(x, tp)
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     probs, topw, topi = moe_route(p, xf, cfg)
@@ -862,7 +1023,8 @@ def moe_block(p, x, cfg, tp=None):
     xe, gate = ((fanout(xf, tp.mesh, MODEL), fanout(topw, tp.mesh, MODEL))
                 if ep else (xf, topw))
     y = _moe_partial(p, xe, gate, topi, cfg,
-                    tp.size if ep else 1, tp.index if ep else 0)
+                     tp.size if ep else 1,
+                     tp.index if ep else 0).reshape(B, S, D)
     if m.n_shared:
         sp = p["shared"]
         split = tp is not None and tp.shared
@@ -870,18 +1032,21 @@ def moe_block(p, x, cfg, tp=None):
                 else (linear(xf, sp["wg"]), linear(xf, sp["wu"])))
         h = F.silu(g) * u
         if split:
-            sh = linear(h, sp["wd"], f32_out=True)
-            y = reduce(y.float() + sh, tp.mesh, MODEL) if ep else \
-                y + reduce(sh, tp.mesh, MODEL).to(x.dtype)
+            sh = linear(h, sp["wd"], f32_out=True).reshape(B, S, D)
+            y = (model_sum(y.float() + sh, outer) if ep else
+                 model_rows(y, outer) + model_sum(sh, outer).to(x.dtype))
         else:
-            y = (reduce(y.float(), tp.mesh, MODEL).to(x.dtype) if ep
-                 else y) + linear(h, sp["wd"])
+            y = ((model_sum(y.float(), outer).to(x.dtype) if ep
+                  else model_rows(y, outer))
+                 + model_rows(linear(h, sp["wd"]).reshape(B, S, D), outer))
     elif ep:
-        y = reduce(y.float(), tp.mesh, MODEL)
+        y = model_sum(y.float(), outer)
+    else:
+        y = model_rows(y, outer)
     E = m.n_experts
     me = probs.mean(dim=0)
     ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
-    return y.to(x.dtype).reshape(B, S, D), E * torch.sum(me * ce)
+    return y.to(x.dtype), E * torch.sum(me * ce)
 
 
 def _moe_partial(p, xf, topw, topi, cfg, ep_size: int = 1,
@@ -950,7 +1115,10 @@ def embed_tokens(p, tokens, cfg, dtype, tp=None):
     """Token embeddings in ``dtype``.  With ``tp.vocab`` the table holds
     this rank's vocabulary slice: each rank looks up the tokens it owns
     (zeros elsewhere) and the ranks' rows are summed over ``model``,
-    one non-zero term each, so the sum is the row itself."""
+    one non-zero term each, so the sum is the row itself.  With
+    ``tp.seq`` the result is this rank's sequence rows: the vocabulary
+    slices' sum reduce-scattered, or a whole table's lookup cut
+    (``model_rows``)."""
     # F.embedding: the gather's bits, and a backward that sums a
     # repeated token's gradients in a fixed order on the card
     tok = tokens.long()
@@ -960,9 +1128,9 @@ def embed_tokens(p, tokens, cfg, dtype, tp=None):
         mine = (local >= 0) & (local < n)
         x = F.embedding(torch.where(mine, local, 0), p["tok"])
         x = torch.where(mine[..., None], x, 0).to(dtype)
-        x = reduce(x, tp.mesh, MODEL)
+        x = model_sum(x, tp)
     else:
-        x = F.embedding(tok, p["tok"]).to(dtype)
+        x = model_rows(F.embedding(tok, p["tok"]).to(dtype), tp)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x

@@ -44,7 +44,10 @@ parameters are the rank's shards (``sharding.spmd.shard_tree`` by
 the data axes, and each block is computed as ``sharding/spmd.py``
 describes (FSDP gathers over ``data``; over ``model`` every block kind
 splits: attention heads, FFN, experts, the RG-LRU width, RWKV6's heads
-and channel mix).  ``cache_specs`` places a decode cache.
+and channel mix).  ``cache_specs`` places a decode cache.  Under
+``set_active_rules(SP_RULES)`` the residual stream between blocks is
+the rank's sequence shard (Megatron's sequence parallelism,
+``sharding/spmd.py``) wherever ``model`` divides the sequence length.
 """
 from __future__ import annotations
 
@@ -207,13 +210,15 @@ class DecoderLM(MeshModel):
     # as ``sharding/spmd.py`` describes.  A one-rank mesh computes what
     # no mesh computes.
     def _tp(self, mesh, kind, pl, use_moe: bool, whole_heads: bool = False,
-            cache_step: bool = False, seq_shards: int = 1):
+            cache_step: bool = False, seq_shards: int = 1,
+            seq: bool = False):
         """The split over ``model`` of one ``kind`` block placed as
         ``pl``, as stored: attention heads as ``_heads_split`` says
         (``whole_heads``: a prefill that builds a cache;
         ``cache_step``: a decode step), the RG-LRU width, RWKV6's heads
         (its states are cut by heads as they are computed, so neither
-        flag applies), the FFN's hidden dim, the experts."""
+        flag applies), the FFN's hidden dim, the experts; ``seq``: the
+        residual stream on sequence shards (``_seq_split``)."""
         m = mesh.axis_size(spmd.MODEL)
         if m == 1:
             return spmd.TP(mesh)
@@ -222,7 +227,7 @@ class DecoderLM(MeshModel):
         if kind == "rwkv":
             return spmd.TP(mesh, heads=cfg.n_heads % m == 0
                            and spmd.splits(mix["wr"][0], 1),
-                           ff=spmd.splits(ffn["wk"][0], 1))
+                           ff=spmd.splits(ffn["wk"][0], 1), seq=seq)
         heads = kv = lru = False
         if kind == "rglru":
             lru = spmd.splits(mix["w_in"][0], 1)
@@ -232,10 +237,11 @@ class DecoderLM(MeshModel):
         if use_moe:
             return spmd.TP(mesh, heads, kv, experts=spmd.splits(
                 ffn["wg"][0], 0), shared="shared" in ffn and spmd.splits(
-                ffn["shared"]["wg"][0], 1), lru=lru, seq_shards=seq_shards)
+                ffn["shared"]["wg"][0], 1), lru=lru, seq_shards=seq_shards,
+                seq=seq)
         w = "w1" if cfg.mlp_kind == "gelu" else "wg"
         return spmd.TP(mesh, heads, kv, ff=spmd.splits(ffn[w][0], 1),
-                       lru=lru, seq_shards=seq_shards)
+                       lru=lru, seq_shards=seq_shards, seq=seq)
 
     # ------------------------------------------------------------ blocks
     def _norm(self, p, x):
@@ -258,11 +264,16 @@ class DecoderLM(MeshModel):
         or one decode step at ``pos``; ``train``: the training forward
         (RWKV6 runs the reference's chunked WKV).  On a mesh ``p`` is
         the block's stored shards, placed as ``pl``, and ``tp`` its
-        split over ``model``.  Returns (x, the layer's cache, the MoE's
-        aux loss or None)."""
+        split over ``model``.  With ``tp.seq`` x is this rank's sequence
+        shard: the norms and the residual adds run on it (the norms'
+        leaves through ``fanout``, as each rank sees only its rows), and
+        each sub-layer takes and returns the shard.  Returns (x, the
+        layer's cache, the MoE's aux loss or None)."""
         cfg = self.cfg
         if tp is not None:
             p = spmd.localize(p, pl, tp)
+            p = {**p, "ln1": C.fanout_tree(p["ln1"], tp),
+                 "ln2": C.fanout_tree(p["ln2"], tp)}
         h = self._norm(p["ln1"], x)
         part = (lambda name: None) if cache is None else cache.get
         if kind in ("attn", "local_attn"):
@@ -325,17 +336,25 @@ class DecoderLM(MeshModel):
         """Final-norm hidden states (B, S, D), every layer's cache (none
         with ``train``) and the MoE layers' summed aux loss (f32).  On a
         mesh ``decode_plan`` keeps every head on every rank of ``model``
-        (the layout a decode cache is cut from)."""
+        (the layout a decode cache is cut from); under sequence
+        parallelism (``_seq_split``) the residual stream between the
+        blocks, and so each layer's input that ``checkpoint`` keeps, is
+        the rank's sequence shard (B, S / m, D), and the final states
+        are gathered whole."""
         mesh = current_mesh()
         place = None if mesh is None else self.placement(mesh)
         tokens, pe, mrope = self._batch(batch)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        x = self._embed(params, tokens)
+        seq = mesh is not None and self._seq_split(mesh, B, S)
+        x = self._embed(params, tokens, seq)
         if pe is not None:
             # the VLM stub frontend: precomputed patch embeddings replace
-            # the leading placeholder tokens
-            x[:, :pe.shape[1]] = pe.to(self.dtype)
+            # the leading placeholder tokens (those of the rank's rows)
+            off = mesh.axis_index(spmd.MODEL) * x.shape[1] if seq else 0
+            n = max(0, min(pe.shape[1] - off, x.shape[1]))
+            if n:
+                x[:, :n] = pe[:, off:off + n].to(self.dtype)
         caches = []
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         if train and self.scanned:
@@ -346,7 +365,8 @@ class DecoderLM(MeshModel):
                       "layers": tree_map(torch.unbind, params["layers"])}
         for kind, use_moe, p, pl in self._blocks(params, place):
             tp = (None if mesh is None else
-                  self._tp(mesh, kind, pl, use_moe, whole_heads=decode_plan))
+                  self._tp(mesh, kind, pl, use_moe, whole_heads=decode_plan,
+                           seq=seq))
             if train:
                 def layer(p, x, kind=kind, use_moe=use_moe, tp=tp, pl=pl):
                     y, _, aux = self._block(kind, use_moe, p, x,
@@ -374,7 +394,8 @@ class DecoderLM(MeshModel):
             if aux is not None:
                 aux_total = aux_total + aux
             caches.append(c)
-        return self._norm(params["final_norm"], x), caches, aux_total
+        return (self._final_norm(params["final_norm"], x, seq, mesh), caches,
+                aux_total)
 
     def apply(self, params, batch, *, train: bool = False,
               want_hidden: bool = False, want_aux: bool = False):

@@ -7,13 +7,17 @@ from __future__ import annotations
 
 from ..launch.mesh import current_mesh
 from ..sharding import spmd
-from ..sharding.rules import logical_spec
+from ..sharding.collectives import gather
+from ..sharding.rules import active_rules, logical_spec
 from . import components as C
 
-__all__ = ["MeshModel", "KV_AXES"]
+__all__ = ["MeshModel", "KV_AXES", "STREAM_AXES"]
 
 #: the logical axes of an attention decode cache (the reference's)
 KV_AXES = ("batch", "kv_seq", "act_heads", None)
+#: the logical axes of the residual stream, as the reference's models
+#: mark it at every block's output (``constrain``)
+STREAM_AXES = ("batch", "seq", "act_embed")
 
 
 class MeshModel:
@@ -38,6 +42,19 @@ class MeshModel:
               and spmd.splits(attn["wk"][0], 1))
         return heads and (kv or not cache_step), kv
 
+    def _seq_split(self, mesh, rows: int, seq: int) -> bool:
+        """Whether the residual stream of ``rows`` rows (this rank's
+        batch rows) of ``seq`` positions lives on sequence shards over
+        ``model`` (sequence parallelism): the active rules
+        (``set_active_rules``) place ``STREAM_AXES``' ``seq`` on
+        ``model``, which divides ``seq``.  Where it does not (a decode
+        step's one position), the layout is the default one, as the
+        reference's soft ``constrain`` falls back."""
+        rows *= mesh.axis_size(mesh.data_axes())
+        spec = logical_spec(STREAM_AXES, (rows, seq, self.cfg.d_model),
+                            mesh, active_rules())
+        return spmd.splits(spec, 1)
+
     def _seq_shards(self, mesh, batch: int, seqs) -> int:
         """How many ranks of ``model`` split the attention caches of
         ``batch`` rows (whole batch) and sequence lengths ``seqs`` (all
@@ -58,9 +75,10 @@ class MeshModel:
                              "split over model unevenly")
         return got.pop() if got else 1
 
-    def _embed_tp(self, mesh):
+    def _embed_tp(self, mesh, seq: bool = False):
         place = self.placement(mesh)["embed"]
-        return spmd.TP(mesh, vocab=spmd.splits(place["tok"][0], 0)), place
+        return spmd.TP(mesh, vocab=spmd.splits(place["tok"][0], 0),
+                       seq=seq), place
 
     def unembed_local(self, params, h):
         """(this rank's vocabulary slice of the logits of final-norm
@@ -78,14 +96,30 @@ class MeshModel:
         out = C.unembed_local(p, h, self.cfg, tp)
         return out, tp.index * out.shape[-1]
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, seq: bool = False):
+        """Token embeddings; ``seq``: this rank's sequence shard of them
+        (sequence parallelism)."""
         mesh = current_mesh()
         p, tp = params["embed"], None
         if mesh is not None:
-            tp, place = self._embed_tp(mesh)
+            tp, place = self._embed_tp(mesh, seq)
             p = spmd.localize(p, place, tp)
         return C.embed_tokens(p, tokens.to(self.device), self.cfg,
                               self.dtype, tp)
+
+    def _final_norm(self, p, x, seq: bool, mesh):
+        """The final norm of the residual stream, and under sequence
+        parallelism (``seq``) the whole sequence of its states, gathered
+        over ``model`` for the unembedding and the loss: the norm runs
+        on the rank's rows, its leaves through ``fanout`` (their gradient
+        summed over ``model``); the head's work is every rank's whole
+        work, as without sequence parallelism, so the gather's backward
+        keeps the rank's rows of a gradient every rank holds whole."""
+        if not seq:
+            return self._norm(p, x)
+        tp = spmd.TP(mesh, seq=True)
+        h = self._norm(C.fanout_tree(p, tp), x)
+        return gather(h, mesh, spmd.MODEL, 1, split=False)
 
     def logits(self, params, h):
         """f32 logits of final-norm hidden states (..., D); on a mesh

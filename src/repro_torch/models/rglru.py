@@ -140,7 +140,12 @@ def rglru_block(p, x, cfg, *, state=None, tp=None):
     """The Griffin recurrent block.  x: (B, S, D); ``state`` (decode):
     {"conv": (B, 3, W), "h": (B, W) f32}.  Returns (out (B, S, D), the
     state after the last token).  ``tp``: see the module docstring (W is
-    then this rank's slice, in the state too)."""
+    then this rank's slice, in the state too; with ``tp.seq`` x and the
+    output are this rank's sequence shard, and the conv and the scan
+    run on the whole sequence)."""
+    if tp is not None and tp.seq and not tp.lru:
+        return C.whole_sequence(lambda x, tp: rglru_block(p, x, cfg,
+                                                          tp=tp), x, tp)
     split = tp is not None and tp.lru
     if split:
         w = p["w_in"].shape[1]

@@ -37,7 +37,11 @@ channel mix splits its hidden dim (``tp.ff``: ``wk`` column-, ``wv``
 row-parallel); its gate ``sigmoid(xr @ wr)`` is duplicated and
 multiplies the summed output, so ``wr`` gets each rank's whole
 gradient as it is.  The WKV state splits by heads; the token-shift
-states stay whole.
+states stay whole.  Under sequence parallelism (``tp.seq``) both blocks
+gather the sequence first (the token shift reads the position before,
+which may be another rank's) and run as without it; the heads' and the
+hidden dim's sums leave reduce-scattered along the sequence, the
+channel mix's duplicated gate keeps the rank's rows.
 """
 from __future__ import annotations
 
@@ -213,6 +217,14 @@ def rwkv_time_block(p, x, cfg, *, state=None, chunked: bool = False,
     else ``wkv_scan``.  Returns (out (B, S, D), state after the last
     token).  ``tp``: see the module docstring (H is then this rank's
     heads, in the WKV state too)."""
+    if tp is not None and tp.seq and not tp.heads:
+        return C.whole_sequence(lambda x, tp: rwkv_time_block(
+            p, x, cfg, chunked=chunked, tp=tp), x, tp)
+    outer = tp
+    if tp is not None and tp.seq:
+        # the token shift and the duplicated token mix and decay LoRA
+        # need the whole sequence; the heads' sum leaves reduce-scattered
+        x, tp = C.gather_sequence(x, tp)
     B, S, D = x.shape
     r, k, v, lw, u, g = wkv_inputs(p, x, cfg, state, tp)
     H, Dh = r.shape[2], r.shape[3]
@@ -223,7 +235,7 @@ def rwkv_time_block(p, x, cfg, *, state=None, chunked: bool = False,
     o = C.group_norm_heads(o.reshape(B, S, H, Dh), p["ln_x_scale"],
                            p["ln_x_bias"], 64e-5).to(x.dtype)
     o = o.reshape(B, S, H * Dh) * g
-    out = (C.row_parallel(o, p["wo"], tp) if tp is not None and tp.heads
+    out = (C.row_parallel(o, p["wo"], outer) if tp is not None and tp.heads
            else C.linear(o, p["wo"]))
     return out, {"shift": x[:, -1], "wkv": wkv}
 
@@ -231,16 +243,23 @@ def rwkv_time_block(p, x, cfg, *, state=None, chunked: bool = False,
 def rwkv_channel_block(p, x, cfg, *, state=None, tp=None):
     """Channel-mixing FFN with token shift and squared ReLU; with
     ``tp.ff`` its hidden dim split (see the module docstring)."""
+    if tp is not None and tp.seq and not tp.ff:
+        return C.whole_sequence(lambda x, tp: rwkv_channel_block(
+            p, x, cfg, tp=tp), x, tp)
+    outer = tp
+    if tp is not None and tp.seq:
+        x, tp = C.gather_sequence(x, tp)
     xx = _shift(x, None if state is None else state["shift"]) - x
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
     if tp is not None and tp.ff:
         kk = torch.square(F.relu(C.fanout_linear(xk, p["wk"], tp=tp)[0]))
-        v = C.row_parallel(kk, p["wv"], tp)
+        v = C.row_parallel(kk, p["wv"], outer)
     else:
         v = C.linear(torch.square(F.relu(C.linear(xk, p["wk"]))), p["wv"])
-    out = torch.sigmoid(C.linear(xr, p["wr"])) * v
-    return out, {"shift": x[:, -1]}
+    # the duplicated gate keeps the rank's rows (backward an all-gather)
+    gate = C.model_rows(torch.sigmoid(C.linear(xr, p["wr"])), outer)
+    return gate * v, {"shift": x[:, -1]}
 
 
 def rwkv_state_specs(cfg, batch: int) -> dict:

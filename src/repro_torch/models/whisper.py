@@ -29,7 +29,9 @@ hidden dim where it divides d_ff.  A prefill on a mesh keeps the
 decoder's heads whole (its caches hold every head) and cuts the self
 and cross caches along their sequence (``cache_specs``: ``kv_seq`` over
 ``model``), as ``shard_cache`` cuts a whole cache; a decode step
-attends each shard and combines the partials.
+attends each shard and combines the partials.  Under ``SP_RULES`` the
+encoder's and the decoder's streams each lie on sequence shards where
+``model`` divides their length (``sharding/spmd.py``).
 """
 from __future__ import annotations
 
@@ -108,15 +110,16 @@ class WhisperModel(MeshModel):
 
     # ----------------------------------------------------------- encoder
     def _local(self, name, p, *, whole_heads: bool = False,
-               step: bool = False, seq_shards: int = 1):
+               step: bool = False, seq_shards: int = 1, seq: bool = False):
         """(a layer's stored shards as its computation reads them, its
         split over ``model``): off a mesh (p, None); on one each
         data-sharded leaf gathered and the heads and the MLP's hidden
         dim split as placed (``sharding.spmd``).  ``whole_heads``: a
         prefill that builds caches; ``step``: a decode step, whose
         caches hold every head, its self cache split along its sequence
-        over ``seq_shards`` ranks.  ``p`` may hold only some of the
-        layer's leaves."""
+        over ``seq_shards`` ranks; ``seq``: the stream the layer reads
+        lives on sequence shards (sequence parallelism).  ``p`` may hold
+        only some of the layer's leaves."""
         mesh = current_mesh()
         if mesh is None:
             return p, None
@@ -128,11 +131,14 @@ class WhisperModel(MeshModel):
                 whole_heads, step)
             tp = spmd.TP(mesh, heads, kv,
                          ff=spmd.splits(pl["mlp"]["w1"][0], 1),
-                         seq_shards=seq_shards)
-        return spmd.localize(p, pl, tp), tp
+                         seq_shards=seq_shards, seq=seq)
+        p = spmd.localize(p, pl, tp)
+        # under sequence parallelism the norms run on the rank's rows
+        return {k: C.fanout_tree(v, tp) if k.startswith("ln") else v
+                for k, v in p.items()}, tp
 
-    def _enc_block(self, name, p, x, pos):
-        p, tp = self._local(name, p)
+    def _enc_block(self, name, p, x, pos, seq: bool = False):
+        p, tp = self._local(name, p, seq=seq)
         a, _ = C.attention_block(p["attn"], self._norm(p["ln1"], x),
                                  self.cfg, positions=pos, causal=False,
                                  paged=False, tp=tp)
@@ -140,29 +146,40 @@ class WhisperModel(MeshModel):
         return x + C.mlp_block(p["mlp"], self._norm(p["ln2"], x), self.cfg,
                                tp=tp)
 
-    def encode(self, params, frames, train: bool = False):
-        """frames (B, F, D) stub embeddings -> encoder states (B, F, D)."""
+    def encode(self, params, frames, train: bool = False,
+               seq: bool = False):
+        """frames (B, F, D) stub embeddings -> encoder states (B, F, D);
+        ``seq`` (sequence parallelism): the rank's rows of them, (B, F /
+        m, D)."""
         cfg = self.cfg
         frames = frames.to(self.device)
         B, F, D = frames.shape
         x = (frames.to(self.dtype)
              + C.sinusoid_pos(F, D, self.device).to(self.dtype)[None])
+        if seq:
+            x = _rows(x, current_mesh())
         pos = torch.arange(F, device=self.device)[None].expand(B, F)
         for i in range(cfg.n_encoder_layers):
             name = f"enc_{i:02d}"
             x = self._remat(train, lambda p, x, n=name: self._enc_block(
-                n, p, x, pos), params[name], x)
-        return self._norm(params["enc_final_norm"], x)
+                n, p, x, pos, seq), params[name], x)
+        norm = params["enc_final_norm"]
+        if seq:
+            norm = C.fanout_tree(norm, spmd.TP(current_mesh(), seq=True))
+        return self._norm(norm, x)
 
-    def cross_kv(self, params, enc_out, whole_heads: bool = False) -> dict:
+    def cross_kv(self, params, enc_out, whole_heads: bool = False,
+                 seq: bool = False) -> dict:
         """Each decoder layer's cross K/V of the encoder output; on a
-        mesh this rank's heads, or every head with ``whole_heads``."""
+        mesh this rank's heads, or every head with ``whole_heads``;
+        ``seq``: ``enc_out`` is the rank's rows of the frames, and the
+        K/V hold every frame."""
         out = {}
         for i in range(self.cfg.n_layers):
             n = f"dec_{i:02d}"
             kv = {k: params[n]["cross_attn"][k] for k in ("wk", "wv")}
             p, tp = self._local(n, {"cross_attn": kv},
-                                whole_heads=whole_heads)
+                                whole_heads=whole_heads, seq=seq)
             out[n] = C.encode_cross_kv(p["cross_attn"], enc_out, self.cfg,
                                        tp)
         return out
@@ -170,17 +187,18 @@ class WhisperModel(MeshModel):
     # ----------------------------------------------------------- decoder
     def _dec_block(self, name, p, x, positions, cross, cache=None,
                    cache_pos=None, whole_heads: bool = False,
-                   seq_shards=(1, 1)):
+                   seq_shards=(1, 1), seq: bool = False):
         """One decoder layer: a prompt (``cache`` None) or one decode
         step; ``seq_shards``: how many ranks of ``model`` split the
-        (self, cross) caches' sequence."""
+        (self, cross) caches' sequence; ``seq``: x is the rank's
+        sequence shard (sequence parallelism)."""
         cfg = self.cfg
         step = cache is not None
         # the cross K/V projections ran once a prompt (cross_kv)
         p = {**p, "cross_attn": {k: t for k, t in p["cross_attn"].items()
                                  if k not in ("wk", "wv")}}
         p, tp = self._local(name, p, whole_heads=whole_heads, step=step,
-                            seq_shards=seq_shards[0])
+                            seq_shards=seq_shards[0], seq=seq)
         a, kv = C.attention_block(
             p["self_attn"], self._norm(p["ln1"], x), cfg,
             positions=positions, cache=cache, cache_pos=cache_pos,
@@ -196,25 +214,30 @@ class WhisperModel(MeshModel):
 
     def _decoder(self, params, x, positions, cross, *, caches=None,
                  cache_pos=None, train: bool = False,
-                 whole_heads: bool = False, seq_shards=(1, 1)):
+                 whole_heads: bool = False, seq_shards=(1, 1),
+                 seq: bool = False):
         kvs = {}
         for i in range(self.cfg.n_layers):
             name = f"dec_{i:02d}"
             if train:
                 x = self._remat(
                     True, lambda p, x, k, v, n=name: self._dec_block(
-                        n, p, x, positions, (k, v))[0],
+                        n, p, x, positions, (k, v), seq=seq)[0],
                     params[name], x, *cross[name])
                 continue
             x, kvs[name] = self._dec_block(
                 name, params[name], x, positions, cross[name],
                 None if caches is None else caches[name], cache_pos,
-                whole_heads, seq_shards)
+                whole_heads, seq_shards, seq)
         return x, kvs
 
-    def _embed_at(self, params, tokens, pe):
-        """Token embeddings plus sinusoidal positions ``pe`` (S, D)."""
-        return self._embed(params, tokens) + pe.to(self.dtype)[None]
+    def _embed_at(self, params, tokens, pe, seq: bool = False):
+        """Token embeddings plus sinusoidal positions ``pe`` (S, D);
+        ``seq``: the rank's sequence rows of them."""
+        pe = pe.to(self.dtype)[None]
+        if seq:
+            pe = _rows(pe, current_mesh())
+        return self._embed(params, tokens, seq) + pe
 
     def apply(self, params, batch, *, train: bool = False,
               want_hidden: bool = False, want_aux: bool = False):
@@ -234,17 +257,28 @@ class WhisperModel(MeshModel):
                  decode_plan: bool = False):
         """(final-norm hidden states, the self K/V, the cross K/V); on a
         mesh ``decode_plan`` keeps the decoder's heads whole (the
-        layout its caches are cut from)."""
-        enc_out = self.encode(params, batch["frames"], train)
-        cross = self.cross_kv(params, enc_out, whole_heads=decode_plan)
+        layout its caches are cut from).  Under sequence parallelism
+        (``_seq_split``, the encoder's frames and the decoder's tokens
+        each on their own) a stream between blocks is the rank's
+        sequence shard; the final states are gathered whole."""
+        mesh = current_mesh()
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         B, S = tokens.shape
+        frames = batch["frames"]
+        enc_seq = mesh is not None and self._seq_split(mesh, B,
+                                                       frames.shape[1])
+        seq = mesh is not None and self._seq_split(mesh, B, S)
+        enc_out = self.encode(params, frames, train, seq=enc_seq)
+        cross = self.cross_kv(params, enc_out, whole_heads=decode_plan,
+                              seq=enc_seq)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = self._embed_at(params, tokens,
-                           C.sinusoid_pos(S, self.cfg.d_model, self.device))
+                           C.sinusoid_pos(S, self.cfg.d_model, self.device),
+                           seq)
         x, kvs = self._decoder(params, x, pos, cross, train=train,
-                               whole_heads=decode_plan)
-        return self._norm(params["final_norm"], x), kvs, cross
+                               whole_heads=decode_plan, seq=seq)
+        return (self._final_norm(params["final_norm"], x, seq, mesh), kvs,
+                cross)
 
     # ----------------------------------------------------------- serving
     def cache_specs(self, batch: int, seq_len: int) -> dict:
@@ -351,3 +385,10 @@ class WhisperModel(MeshModel):
         x = self._norm(params["final_norm"], x)
         cache["pos"] = pos + 1
         return self.logits(params, x)[:, 0], cache
+
+
+def _rows(x, mesh):
+    """This rank's sequence rows (dim 1) of an input every rank of
+    ``model`` holds whole (frames, positions: nothing flows back)."""
+    step = x.shape[1] // mesh.axis_size(spmd.MODEL)
+    return x.narrow(1, mesh.axis_index(spmd.MODEL) * step, step)

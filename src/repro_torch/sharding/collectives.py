@@ -21,6 +21,11 @@ the sharded layout needs it:
   rank's piece of the output kept), backward an all-gather: the dual of
   ``Gather``, for a product whose input dim is split over the axes but
   whose consumer reads only this rank's slice of the output.
+* ``Split`` - forward this rank's piece of a tensor every rank of the
+  axes holds whole (no communication), backward an all-gather: the dual
+  of ``Gather(split=False)``, where work duplicated over the axes hands
+  each rank its own rows (sequence parallelism's exit from a block whose
+  work does not split).
 
 Every collective over axes of one rank is the identity and moves
 nothing, so a ``(1, 1)`` mesh runs exactly the single-device arithmetic.
@@ -56,8 +61,8 @@ import torch.distributed as dist
 from .. import cost as op_cost
 
 __all__ = ["all_gather", "all_reduce", "reduce_scatter", "Gather", "Reduce",
-           "Fanout", "Scatter", "gather", "reduce", "fanout", "scatter",
-           "stats", "reset_stats"]
+           "Fanout", "Scatter", "Split", "gather", "reduce", "fanout",
+           "scatter", "split", "stats", "reset_stats"]
 
 #: bytes each kind of collective took from this rank (its input
 #: buffer) since ``reset_stats``; with ``TIMING`` also the seconds
@@ -147,9 +152,10 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str],
 
 
 def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
-               op=dist.ReduceOp.SUM) -> torch.Tensor:
+               op=dist.ReduceOp.SUM, kind: str = "all_reduce") -> torch.Tensor:
     """``op`` over every rank of ``axes`` (a sum in f32 for a bf16
-    tensor), on a copy; every rank gets the same bits."""
+    tensor), on a copy; every rank gets the same bits.  ``kind``: the
+    collective it is tallied as (gloo's reduce-scatter runs as one)."""
     n = mesh.axis_size(axes)
     if n == 1:
         return t
@@ -159,7 +165,7 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
 
     def run():
         dist.all_reduce(w, op=op, group=mesh.group(axes))
-    _run("all_reduce", x, run, mesh,
+    _run(kind, x, run, mesh,
          2 * w.numel() * w.element_size() * (n - 1) / n)
     return _from_wire(w, x).to(dt)
 
@@ -168,15 +174,16 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
                    dim: int) -> torch.Tensor:
     """The sum over ``axes`` of ``t``, of which this rank keeps its
     piece along ``dim`` (in f32 for bf16).  NCCL runs a reduce-scatter;
-    gloo an all-reduce and a slice (the same sums)."""
+    gloo an all-reduce and a slice (the same sums), tallied as a
+    reduce-scatter."""
     n = mesh.axis_size(axes)
     if n == 1:
         return t
     step = t.shape[dim] // n
     i = mesh.axis_index(axes)
     if mesh.backend == "gloo":
-        return all_reduce(t, mesh, axes).narrow(dim, i * step,
-                                                step).contiguous()
+        return _piece(all_reduce(t, mesh, axes, kind="reduce_scatter"),
+                      dim, i, step)
     dt = t.dtype
     x = t.float() if dt in (torch.bfloat16, torch.float16) else t
     x = x.movedim(dim, 0).contiguous()
@@ -188,6 +195,14 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
     _run("reduce_scatter", x, run, mesh,
          out.numel() * out.element_size() * (n - 1))
     return out.movedim(0, dim).to(dt).contiguous()
+
+
+def _piece(t: torch.Tensor, dim: int, i: int, step: int) -> torch.Tensor:
+    """Piece ``i`` of ``step`` along ``dim`` in storage of its own (a
+    view returned by an autograd Function could not be written in
+    place)."""
+    return t.narrow(dim, i * step, step).clone(
+        memory_format=torch.contiguous_format)
 
 
 class Gather(torch.autograd.Function):
@@ -250,6 +265,23 @@ class Scatter(torch.autograd.Function):
                 None, None, None)
 
 
+class Split(torch.autograd.Function):
+    """This rank's piece along ``dim`` of a tensor every rank of ``axes``
+    holds whole; backward an all-gather along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n = mesh.axis_size(axes)
+        step = x.shape[dim] // n
+        return _piece(x, dim, mesh.axis_index(axes), step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
 def gather(x, mesh, axes, dim: int, split: bool = True):
     axes = tuple(axes)
     if mesh is None or mesh.axis_size(axes) == 1:
@@ -276,3 +308,10 @@ def scatter(x, mesh, axes, dim: int):
     if mesh is None or mesh.axis_size(axes) == 1:
         return x
     return Scatter.apply(x, mesh, axes, dim % x.dim())
+
+
+def split(x, mesh, axes, dim: int):
+    axes = tuple(axes)
+    if mesh is None or mesh.axis_size(axes) == 1:
+        return x
+    return Split.apply(x, mesh, axes, dim % x.dim())

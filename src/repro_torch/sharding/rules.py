@@ -26,8 +26,12 @@ The reference's ``constrain`` (``with_sharding_constraint`` on an
 activation) has no counterpart: the port's SPMD is explicit (each
 collective is written where the reference's GSPMD would insert one,
 ``sharding/collectives.py``), so an activation's layout is whatever the
-code that makes it computes.  ``soft=True`` is kept for the rules'
-own semantics.
+code that makes it computes.  The one activation layout the rules
+choose is the residual stream's under the active rules
+(``set_active_rules``): the models ask ``logical_spec`` where
+``("batch", "seq", "act_embed")`` goes (``models/meshed.py``), and lay
+it out on sequence shards where ``seq`` lands on ``model``
+(``SP_RULES``).  ``soft=True`` is kept for the rules' own semantics.
 """
 from __future__ import annotations
 
@@ -91,9 +95,14 @@ class ShardingRules:
 
 DEFAULT_RULES = ShardingRules()
 
-#: Megatron-style sequence parallelism: the residual stream sharded
-#: over ``model`` along seq.  ``logical_spec`` resolves it; the port's
-#: models do not lay their activations out so yet (ROADMAP Queue 1).
+#: Megatron-style sequence parallelism: the residual stream
+#: (``("batch", "seq", "act_embed")``) sharded over ``model`` along seq,
+#: so the layer inputs remat keeps for the backward are S / m long;
+#: each block gathers the sequence for its split work and
+#: reduce-scatters its sums (``sharding/spmd.py``).  A rules variant,
+#: not a model change: select it with ``set_active_rules`` (under
+#: ``with mesh:``) or ``dryrun --rules sp``.  Where ``model`` does not
+#: divide the sequence length the stream stays whole.
 SP_RULES = dataclasses.replace(DEFAULT_RULES, seq=("model",))
 
 RULE_VARIANTS = {"default": DEFAULT_RULES, "sp": SP_RULES}

@@ -45,10 +45,46 @@ head, split along its sequence instead) the attention runs whole on
 every rank of ``model``: ``localize`` gathers its projections
 (backward: the rank's own slice, as the work was duplicated).  A decode
 step whose heads split gathers its q, k, v heads instead
-(``components.attention_block``).  Where ``model`` divides H but not KVH the KV projections
-are gathered and their heads repeated G-fold before this rank's heads
-are taken (the reference's ``_gqa_expand_factor``).  Recurrent states
-(RG-LRU, RWKV6) are cut by width / heads as they are computed.
+(``components.attention_block``).  Where ``model`` divides H but not
+KVH the KV projections are gathered and their heads repeated G-fold
+before this rank's heads are taken (the reference's
+``_gqa_expand_factor``).  Recurrent states (RG-LRU, RWKV6) are cut by
+width / heads as they are computed.
+
+**Sequence parallelism** (``TP.seq``; ``SP_RULES`` active and
+``model`` dividing the sequence length, ``MeshModel._seq_split``):
+Megatron's layout.  Between blocks the residual stream is the rank's
+sequence shard (B, S / m, D), so each layer's input that
+``checkpoint`` keeps is S / m long; the norms and the residual adds run
+on it, their leaves (and a bias added after a row-parallel sum)
+through ``fanout`` in f32, since each rank's gradient of them is its
+rows' share.  A block's split work starts from the whole sequence:
+
+* a column-parallel entry (``fanout_linear``: attention's QKV, the
+  FFN's up projections, the RG-LRU's gate and input, whisper's cross
+  K/V from the encoder's shard) all-gathers the shard and
+  reduce-scatters the f32 partials of its input's gradient (the
+  all-reduce's sum, each rank keeping its rows), then rounds once;
+* a row-parallel exit (``row_parallel``: ``wo``, ``wd`` / ``w2``,
+  ``w_out``, RWKV6's ``wo`` / ``wv``; the MoE's and the shared
+  expert's sums; the vocab-parallel embedding) reduce-scatters along
+  the sequence instead of all-reducing (``Scatter``, backward an
+  all-gather);
+* work that does not split (heads, hidden dim or width ``model`` does
+  not divide; a prefill that builds a cache) gathers the sequence with
+  its gradient cut to the rank's rows, runs whole as without sequence
+  parallelism, and keeps the rank's rows of its output
+  (``components.whole_sequence``, ``collectives.Split``); so do the
+  blocks whose whole-sequence work comes first: the MoE (routing and
+  capacity over the call's rows, as without sequence parallelism) and
+  RWKV6's token shift, token mix, decay LoRA and channel-mix gate,
+  whose split products' sums still leave reduce-scattered; no state
+  crosses ranks;
+* the unembedding and the cross-entropy read the final norm's states
+  gathered whole.
+
+A decode step (one position) and a sequence ``model`` does not divide
+keep the default layout, bit for bit.
 """
 from __future__ import annotations
 
@@ -79,6 +115,7 @@ class TP:
     lru: bool = False        # the RG-LRU width
     vocab: bool = False      # vocab-parallel embedding / unembedding
     seq_shards: int = 1      # decode cache: kv_seq split over model
+    seq: bool = False        # SP: input and output are sequence shards
 
     @property
     def size(self) -> int:

@@ -87,6 +87,16 @@ CLOSE_TOL, CLOSE_FRAC = 3e-2, 0.98
 #: beyond PARAM_ATOL by the f32 noise of their gradient (see the train
 #: test)
 RECURRENT_SLACK = 1e-3
+#: sequence parallelism (SP_RULES) against the default layout on the
+#: mesh, in f32: the loss (relative) and each leaf (relative L2)
+SP_LOSS_RTOL, SP_GRAD_REL = 1e-6, 1e-5
+#: qwen2-vl for SP: one layer, 12 positions, so its 8 patch embeddings
+#: straddle the two sequence shards of 6
+VL_LAYERS, VL_S = 1, 12
+#: a sequence length model = 2 does not divide
+ODD_S = 15
+#: the leaves a rank consumes on its own sequence shard under SP
+SHARD_LEAVES = ("ln1", "ln2", "ln_x", "final_norm", "enc_final_norm", "b2")
 
 
 def _port_params(jcfg, tmp, name):
@@ -145,6 +155,18 @@ def runs(tmp_path_factory):
     for name in FAMILIES:
         payload["family_decode"][name], refs["family_decode"][name] = \
             _decode_payload(refs[name], payload["train"][name])
+
+    jcfg = _jcfg("qwen2-vl-7b", n_layers=VL_LAYERS)
+    jmodel, jparams, cfg, path = _port_params(jcfg, tmp, "sp_vl")
+    refs["sp_vl"] = (jcfg, jmodel, jparams, 1)
+    payload["sp_vl"] = {"cfg": cfg, "params": str(path), "B": B, "S": VL_S,
+                        "n_micro": 1, "steps": 0}
+    payload["sp_prefill"] = {"dense": payload["decode"],
+                             **payload["family_decode"]}
+    dense = payload["train"]["dense"]
+    payload["sp_indivisible"] = {"cfg": dense["cfg"],
+                                 "params": dense["params"], "B": B,
+                                 "S": ODD_S}
     return {"tmp": tmp, "payload": payload, "refs": refs,
             "out": ranks.spawn("mesh22", MESH, tmp, payload)}
 
@@ -210,22 +232,25 @@ def _expert_shard(p, ep: int, i: int):
                        "wd": cut(p["shared"]["wd"], 0)}}
 
 
-@pytest.mark.parametrize("name", list(TRAIN))
-def test_train_step_on_mesh_matches_reference(runs, name):
-    """The (2, 2) mesh's loss, every leaf's gradient and the parameters
-    after three steps against the reference's single-device step at
-    2 x n_micro microbatches."""
-    jcfg, jmodel, jparams, n_micro = runs["refs"][name]
-    out = runs["out"][0][name]
-    n_ref = MESH[0] * n_micro
-    pipe = JPipeline(jcfg, B, S)
-    loss, want = _reference_grads(jmodel, jcfg, jparams,
-                                  pipe.device_batch(0), n_ref)
-    np.testing.assert_allclose(out["grad_loss"], loss, rtol=LOSS_RTOL)
-    names = ["/".join(p) for p, _ in tree_items(out["params"])]
-    assert len(out["grads"]) == len(want) == len(names)
-    recurrent = TRAIN[name][0] in RECURRENT
-    for n, g, w in zip(names, out["grads"], want):
+def _first_grads(runs, name, S_=S):
+    """The reference's first-step loss and gradient of a mesh case, at
+    2 x n_micro microbatches (computed once a case)."""
+    cache = runs.setdefault("first_grads", {})
+    if name not in cache:
+        jcfg, jmodel, jparams, n_micro = runs["refs"][name]
+        cache[name] = _reference_grads(
+            jmodel, jcfg, jparams, JPipeline(jcfg, B, S_).device_batch(0),
+            MESH[0] * n_micro)
+    return cache[name]
+
+
+def _hold_grads(loss, grads, names, ref, recurrent):
+    """A mesh step's loss and every leaf's gradient against the
+    reference's (``_first_grads``) at the mesh test's tolerances."""
+    want_loss, want = ref
+    np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
+    assert len(grads) == len(want) == len(names)
+    for n, g, w in zip(names, grads, want):
         # the recurrent stacks' f32 noise, held as on one device
         # (test_torch_train_families.RECURRENT): each element also within
         # GRAD_RTOL of the leaf's largest gradient, the leaf's relative
@@ -237,6 +262,26 @@ def test_train_step_on_mesh_matches_reference(runs, name):
         if recurrent:
             assert (np.linalg.norm(g.numpy() - w)
                     <= GRAD_RTOL * np.linalg.norm(w)), n
+
+
+def _names(out) -> list:
+    return ["/".join(p) for p, _ in tree_items(out["params"])]
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_train_step_on_mesh_matches_reference(runs, name):
+    """The (2, 2) mesh's loss, every leaf's gradient and the parameters
+    after three steps against the reference's single-device step at
+    2 x n_micro microbatches."""
+    jcfg, jmodel, jparams, n_micro = runs["refs"][name]
+    out = runs["out"][0][name]
+    n_ref = MESH[0] * n_micro
+    pipe = JPipeline(jcfg, B, S)
+    want = _first_grads(runs, name)[1]
+    names = _names(out)
+    recurrent = TRAIN[name][0] in RECURRENT
+    _hold_grads(out["grad_loss"], out["grads"], names,
+                _first_grads(runs, name), recurrent)
 
     # the reference's step at n_ref microbatches: the first is its own
     # ``make_train_step`` (the scan accumulating in grad_accum_dtype);
@@ -294,6 +339,84 @@ def test_train_step_on_mesh_matches_reference(runs, name):
         mask = mask | extra
         assert d[~mask].max(initial=0) <= PARAM_ATOL, n
         assert d[mask].max(initial=0) <= 2 * STEPS * LR, n
+
+
+#: the SP cases: the TRAIN stacks and qwen2-vl at VL_LAYERS (its patch
+#: embeddings and M-RoPE positions on sequence shards)
+SP_CASES = (*TRAIN, "vl")
+
+
+def _sp_out(runs, name):
+    return runs["out"][0]["sp_vl" if name == "vl" else name]
+
+
+@pytest.mark.parametrize("name", SP_CASES)
+def test_sp_train_step_matches_reference(runs, name):
+    """The grad step under ``SP_RULES`` (the residual stream on sequence
+    shards over model) against the reference's single-device step, at
+    the tolerances of ``test_train_step_on_mesh_matches_reference``."""
+    out = _sp_out(runs, name)
+    ref = (_first_grads(runs, "sp_vl", VL_S) if name == "vl"
+           else _first_grads(runs, name))
+    recurrent = name != "vl" and TRAIN[name][0] in RECURRENT
+    _hold_grads(out["sp_loss"], out["sp_grads"], _names(out), ref,
+                recurrent)
+
+
+@pytest.mark.parametrize("name", SP_CASES)
+def test_sp_train_step_matches_default_layout(runs, name):
+    """The grad step under ``SP_RULES`` against the same mesh's step
+    under the default rules, in f32: the loss within 1e-6 relative
+    (bit-equal in every case here: on a model axis of 2 a sum of two
+    partials does not depend on their order), every leaf within 1e-5
+    relative L2 and none without a gradient."""
+    out = _sp_out(runs, name)
+    np.testing.assert_allclose(out["sp_loss"], out["grad_loss"],
+                               rtol=SP_LOSS_RTOL)
+    for n, g, w in zip(_names(out), out["sp_grads"], out["grads"]):
+        assert torch.linalg.norm(g - w) <= SP_GRAD_REL * torch.linalg.norm(
+            w), n
+        assert bool(g.ne(0).any()) == bool(w.ne(0).any()), n
+
+
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_sp_shard_leaves_get_their_whole_gradient(runs, name):
+    """The replicated leaves a rank consumes on its own sequence shard
+    under SP (the norms' scales and biases, a bias added after the
+    row-parallel sum) get the sum over model of the ranks' shares: the
+    default layout's gradient within 1e-5, where one rank's share alone
+    would lie about 1 / 2 from it."""
+    out = runs["out"][0][name]
+    held = 0
+    for n, g, w in zip(_names(out), out["sp_grads"], out["grads"]):
+        if any(part in SHARD_LEAVES for part in n.split("/")):
+            assert torch.linalg.norm(g - w) <= SP_GRAD_REL * \
+                torch.linalg.norm(w), n
+            held += 1
+    assert held >= 3
+
+
+@pytest.mark.parametrize("name", ("dense", *FAMILIES))
+def test_sp_prefill_equals_default_layout(runs, name):
+    """A prefill under ``SP_RULES`` (heads whole on every rank, as a
+    prefill that builds a cache runs them, on the gathered sequence)
+    gives every rank the logits and cache shards of the default
+    layout's prefill, ``torch.equal``."""
+    for out in runs["out"]:
+        got = out["sp_prefill"][name]
+        assert got["leaves"] > 0
+        assert got["logits"] and got["cache"]
+
+
+def test_sp_indivisible_length_is_default_layout(runs):
+    """At a sequence length model does not divide (15 on model = 2) the
+    stream stays whole, as the reference's soft ``logical_spec`` falls
+    back: the grad step under ``SP_RULES`` gives the default rules'
+    loss, gradients and collectives bit for bit on every rank."""
+    assert ODD_S % MESH[1]
+    for out in runs["out"]:
+        assert out["sp_indivisible"] == {"loss": True, "tally": True,
+                                         "grads": True}
 
 
 def test_expert_parallel_moe_matches_reference_shards(runs):

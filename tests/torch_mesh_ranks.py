@@ -6,18 +6,22 @@ test holds against the reference to ``<tmp>/<job>_<rank>.pt``.  The
 rendezvous is a ``FileStore`` in the test's own directory, so parallel
 test workers never share a port.
 """
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.data import SyntheticPipeline
 from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.models import build_model
 from repro_torch.models import components as C
-from repro_torch.sharding import spmd, tree_shardings
+from repro_torch.sharding import collectives, spmd, tree_shardings
+from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES,
+                                        set_active_rules)
 from repro_torch.sharding.spmd import shard_tree, unshard_tree
 from repro_torch.train.optimizer import (OptConfig, init_opt_state,
                                          opt_state_specs)
@@ -62,22 +66,45 @@ def _sharded(model, mesh, full):
     return shard_tree(full, sh, mesh), sh
 
 
+@contextlib.contextmanager
+def _rules(rules):
+    """Run under ``rules`` as the active rules (the default restored)."""
+    set_active_rules(rules)
+    try:
+        yield
+    finally:
+        set_active_rules(DEFAULT_RULES)
+
+
+def _grads(mesh, model, cfg, params, sh, batch, n_micro, rules):
+    """(loss, every leaf's whole gradient, the collectives' tally) of
+    the grad step under ``rules``."""
+    collectives.reset_stats()
+    with _rules(rules), mesh:
+        loss, _, grads = make_grad_fn(model, cfg, n_micro=n_micro)(
+            params, batch)
+        tally = collectives.stats()
+        return (float(loss), [mesh.unshard(g, spec) for g, spec in
+                              zip(grads, _specs(sh))], tally)
+
+
 def train_case(mesh, case) -> dict:
-    """The gradient of step 0 and ``steps`` train steps of one model on
-    the mesh; the whole arrays (gathered), and the checkpoint of the
-    last state when ``case`` names a directory."""
+    """The gradient of step 0 under the default rules and under
+    ``SP_RULES`` (sequence parallelism) and ``steps`` train steps of one
+    model on the mesh; the whole arrays (gathered), and the checkpoint
+    of the last state when ``case`` names a directory."""
     cfg = case["cfg"]
     model = build_model(cfg, device="cpu")
     params, sh = _sharded(model, mesh, torch.load(case["params"]))
     pipe = SyntheticPipeline(cfg, case["B"], case["S"])
     opt = OptConfig(lr=1e-3, warmup_steps=1)
     out = {"losses": []}
+    batch = pipe.device_batch(0, mesh=mesh)
+    out["grad_loss"], out["grads"], _ = _grads(
+        mesh, model, cfg, params, sh, batch, case["n_micro"], DEFAULT_RULES)
+    out["sp_loss"], out["sp_grads"], _ = _grads(
+        mesh, model, cfg, params, sh, batch, case["n_micro"], SP_RULES)
     with mesh:
-        loss, _, grads = make_grad_fn(model, cfg, n_micro=case["n_micro"])(
-            params, pipe.device_batch(0, mesh=mesh))
-        out["grad_loss"] = float(loss)
-        out["grads"] = [mesh.unshard(g, spec) for g, spec in
-                        zip(grads, _specs(sh))]
         state = init_opt_state(params, opt)
         step = make_train_step(model, cfg, opt=opt, n_micro=case["n_micro"])
         for s in range(case["steps"]):
@@ -171,10 +198,51 @@ def model_logits(mesh, case) -> torch.Tensor:
         return model.apply(params, batch)
 
 
+def sp_prefill(mesh, case) -> dict:
+    """A prefill on the mesh under the default rules and under
+    ``SP_RULES``: whether the logits and every cache leaf (this rank's
+    shards) are ``torch.equal``."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, _ = _sharded(model, mesh, torch.load(case["params"]))
+    batch = case["batch"]
+    n = batch["tokens"].shape[0] // mesh.axis_size("data")
+    mine = {k: t[mesh.axis_index("data") * n:][:n] for k, t in batch.items()}
+    got = []
+    for rules in (DEFAULT_RULES, SP_RULES):
+        with _rules(rules), mesh, torch.no_grad():
+            got.append(model.prefill(params, mine, max_len=case["max_len"]))
+    (l0, c0), (l1, c1) = got
+    leaves = [(a, b) for a, b in zip(tree_flatten(c0)[0],
+                                     tree_flatten(c1)[0])
+              if isinstance(a, torch.Tensor)]
+    return {"logits": torch.equal(l0, l1), "leaves": len(leaves),
+            "cache": all(torch.equal(a, b) for a, b in leaves)}
+
+
+def sp_indivisible(mesh, case) -> dict:
+    """The grad step at a sequence length ``model`` does not divide,
+    under the default rules and under ``SP_RULES``: whether the loss,
+    every gradient and the collectives' tally are equal."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, torch.load(case["params"]))
+    batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+        0, mesh=mesh)
+    a, b = (_grads(mesh, model, cfg, params, sh, batch, 1, rules)
+            for rules in (DEFAULT_RULES, SP_RULES))
+    return {"loss": a[0] == b[0], "tally": a[2] == b[2],
+            "grads": all(torch.equal(x, y) for x, y in zip(a[1], b[1]))}
+
+
 def mesh22(mesh, tmp, payload) -> dict:
     """Everything the (2, 2) group checks, in one spawn."""
     out = {name: train_case(mesh, case)
            for name, case in payload["train"].items()}
+    out["sp_vl"] = train_case(mesh, payload["sp_vl"])
+    out["sp_prefill"] = {name: sp_prefill(mesh, case) for name, case in
+                         payload["sp_prefill"].items()}
+    out["sp_indivisible"] = sp_indivisible(mesh, payload["sp_indivisible"])
     out["ep"] = moe_case(mesh, payload["ep"])
     out["ep_model"] = model_logits(mesh, payload["ep_model"])
     out["decode"] = decode_case(mesh, payload["decode"])
@@ -182,7 +250,8 @@ def mesh22(mesh, tmp, payload) -> dict:
                             in payload["family_decode"].items()}
     return out if mesh.rank == 0 else {
         k: v for k, v in out.items()
-        if k in ("ep", "ep_model", "decode", "family_decode")}
+        if k in ("ep", "ep_model", "decode", "family_decode", "sp_prefill",
+                 "sp_indivisible")}
 
 
 def restore(mesh, tmp, payload) -> dict:
