@@ -199,8 +199,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                qwen3-0.6b and qwen1.5-110b ``train_4k`` on rank 0 of
                (16, 16), traced on the CPU in subprocesses started
                before the families phase, are read (per-device GB,
-               fits, bottleneck, model fraction; model FLOPs a device
-               exactly 6 N_active tokens / 256, gated).
+               fits, bottleneck, model fraction; gated: model FLOPs a
+               device exactly 6 N_active tokens / 256, and the traced
+               FLOPs a device and the dataflow GEMM's share at or below
+               DRYRUN_FLOPS + 1 %, which a rank projecting every KV
+               head, not only those its query heads read, exceeds).
 14. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
                ranks as processes (``torch.multiprocessing``), every one
                on this card over gloo (NCCL refuses two ranks on one
@@ -218,9 +221,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                split along its sequence, each step's logits within 2e-2
                relative L2; a checkpoint saved on (2, 2) from the shards
                and restored on the (1, 2) ``plan_elastic_mesh`` gives 2
-               ranks, every leaf ``torch.equal``.  Step ms and peak GB
-               per rank and the collectives' bytes and seconds are
-               readings (the ranks time-share the card).
+               ranks, every leaf ``torch.equal``.  The families
+               (``MESH_FAMILIES``) train on (2, 2) and decode on (1, 4)
+               against the single device under the same gates;
+               recurrentgemma's attention on (2, 2) splits its 10 query
+               heads while each rank projects only the one KV head they
+               read.  Step ms and peak GB per rank and the collectives'
+               bytes and seconds are readings (the ranks time-share the
+               card).
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
 serve, fleet, archs, tp, families, train, train_families, mesh and paper
@@ -460,9 +468,12 @@ MESH_CLOSE_TOL, MESH_CLOSE_FRAC = 3e-2, 0.98
 # ``cache_specs`` places them.  whisper-tiny every layer (4 + 4), 1,500
 # frames; recurrentgemma one (RG-LRU, RG-LRU, local attention) pattern
 # at S 4,096, twice its 2,048-key window (its ring wrapped before the
-# first decode step); rwkv6 2 of 32 layers.  On (1, 4) whisper's 6 and
-# recurrentgemma's 10 heads do not divide 4: their attention runs whole
-# on every rank, their FFN / RG-LRU split.
+# first decode step); rwkv6 2 of 32 layers.  On (2, 2) recurrentgemma's
+# 10 heads split over model but its one KV head does not: each rank
+# projects only that head (the one its 5 query heads read) and repeats
+# it to them.  On (1, 4) whisper's 6 and recurrentgemma's 10 heads do
+# not divide 4: their attention runs whole on every rank, their FFN /
+# RG-LRU split.
 MESH_FAMILIES = (("whisper-tiny", None, 8, 64),
                  ("recurrentgemma-2b", 3, 2, 4096),
                  ("rwkv6-3b", 2, 4, 256))
@@ -488,6 +499,17 @@ DRYRUN_PROMPT = 256
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen1.5-110b", "train_4k"))
 DRYRUN_TIMEOUT_S = 300
+# each production cell's FLOPs a device (``loop_aware.flops``, and the
+# dataflow GEMM's share, ``kernels.gemm_dataflow.flops``) as the dry run
+# traced them on a CPU once a rank of model projected only the KV heads
+# its query heads read (PERF.md section 6); gated at or below each
+# times 1 + DRYRUN_FLOPS_TOL, so that whole K/V products (qwen3 55.97 /
+# 43.29 T, qwen1.5-110b 4,355 / 4,222 T) fail
+DRYRUN_FLOPS = {("qwen3-0.6b", "train_4k"): (28966660143226.0,
+                                             16355235463168.0),
+                ("qwen1.5-110b", "train_4k"): (3738704297058538.0,
+                                               3606398139105280.0)}
+DRYRUN_FLOPS_TOL = 0.01
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
 BITWISE_LENS = (256, 241, 200, 177, 130, 96, 64, 33)
@@ -3853,7 +3875,9 @@ def _dry_cells_start():
 
 def _dry_cells_finish(procs, root) -> list:
     """Wait for the production cells' traces; each cell's readings and
-    its gate: model FLOPs a device exactly 6 N_active tokens / 256."""
+    its gates: model FLOPs a device exactly 6 N_active tokens / 256, and
+    the traced FLOPs a device and the GEMM's share at or below
+    DRYRUN_FLOPS within DRYRUN_FLOPS_TOL."""
     from repro_torch import configs
     out = []
     for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
@@ -3872,6 +3896,9 @@ def _dry_cells_finish(procs, root) -> list:
         want = 6 * configs.get(arch).n_active_params() * s.global_batch \
             * s.seq_len / 256
         mem, roof = res["memory"], res["roofline"]
+        flops = res["loop_aware"]["flops"]
+        gemm = res["kernels"]["gemm_dataflow"]["flops"]
+        cap = [f * (1 + DRYRUN_FLOPS_TOL) for f in DRYRUN_FLOPS[arch, shape]]
         out.append({
             "arch": arch, "shape": shape, "mesh": [16, 16],
             "world": res["world"], "n_micro": res["n_micro"],
@@ -3882,10 +3909,14 @@ def _dry_cells_finish(procs, root) -> list:
             "model_fraction": roof["model_fraction"],
             "useful_ratio": res["model_flops"]["useful_ratio"],
             "trace_s": res["lower_s"],
+            "flops": flops, "gemm_flops": gemm,
+            "flops_cap": cap[0], "gemm_flops_cap": cap[1],
             "launches": {k: v["launches"]
                          for k, v in res["kernels"].items()},
             "gates": {"model_flops_exact":
-                      res["model_flops"]["per_device"] == want}})
+                      res["model_flops"]["per_device"] == want,
+                      "flops_within_cap": flops <= cap[0],
+                      "gemm_flops_within_cap": gemm <= cap[1]}})
     return out
 
 

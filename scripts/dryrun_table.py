@@ -4,17 +4,24 @@ print its cells as the markdown table of PERF.md section 5.
     python scripts/dryrun_table.py run --out DIR --mesh both --jobs 8 \\
         [-- --rules sp | --variant opt]
     python scripts/dryrun_table.py table DIR [--mesh single] \\
-        [--against DIR2]
+        [--shape train_4k] [--against DIR2]
 
 ``run`` starts one ``python -m repro_torch.launch.dryrun --arch A
 --shape S --mesh M --out DIR`` (with the arguments after ``--``) a cell
 and mesh of ``configs.cells()``'s non-skipped cells, at most ``--jobs``
 at a time, the slowest traces first (rwkv6's, then qwen1.5-110b's
 ``train_4k``); it exits 1 if any cell failed.  ``table`` prints one row
-a cell JSON of DIR on ``--mesh``: GB a device, whether it fits, the
-roofline's bottleneck and step time, and the collective bytes by kind
-(GB); with ``--against`` each number is followed by DIR2's for the
-same cell in parentheses.
+a cell JSON of DIR on ``--mesh`` (of ``--shape`` only, if given): GB a
+device, whether it fits, the roofline's bottleneck and step time, the
+FLOPs a device (``loop_aware.flops``, TFLOP) and the collective bytes
+of each of the five kinds (GB; a kind a JSON lacks reads 0); with
+``--against`` each number that differs is followed by DIR2's for the
+same cell in parentheses.  DIR2 may be the JAX package's own output
+directory as its dry run writes it (``python -m repro.launch.dryrun
+--arch A --shape S`` writes ``results/dryrun/A__S__single.json``, the
+same names and keys), which puts the port beside the reference; its
+``fits`` is against the reference's own device, and its step time from
+the reference's own hardware constants.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
 
 
 def _cells():
@@ -70,6 +78,7 @@ def _row(res) -> list:
     coll = res["loop_aware"]["collective_bytes"]
     return [mem["per_device_bytes"] / 1e9, "yes" if mem["fits"] else "no",
             roof["bottleneck"], roof["step_time_s"],
+            res["loop_aware"]["flops"] / 1e12,
             *(coll.get(k, 0.0) / 1e9 for k in KINDS)]
 
 
@@ -79,12 +88,14 @@ def _fmt(v) -> str:
     return f"{v:.4g}" if abs(v) < 100 else f"{v:.1f}"
 
 
-def table(path: Path, mesh: str, against) -> None:
-    cols = ["GB / device", "fits", "bottleneck", "step_time_s",
+def table(path: Path, mesh: str, against, only=None) -> None:
+    cols = ["GB / device", "fits", "bottleneck", "step_time_s", "TFLOP",
             *(f"{k} GB" for k in KINDS)]
     print("| arch | shape | " + " | ".join(cols) + " |")
     print("|---" * (len(cols) + 2) + "|")
     for arch, shape in _cells():
+        if only is not None and shape != only:
+            continue
         name = f"{arch}__{shape}__{mesh}.json"
         f = path / name
         if not f.exists():
@@ -117,6 +128,7 @@ def main(argv=None) -> int:
     t = sub.add_parser("table")
     t.add_argument("dir")
     t.add_argument("--mesh", default="single")
+    t.add_argument("--shape", default=None)
     t.add_argument("--against", default=None)
     args = ap.parse_args(argv)
     if args.cmd == "run":
@@ -124,7 +136,7 @@ def main(argv=None) -> int:
                   else [args.mesh])
         return run(Path(args.out), meshes, args.jobs, extra)
     table(Path(args.dir), args.mesh,
-          None if args.against is None else Path(args.against))
+          None if args.against is None else Path(args.against), args.shape)
     return 0
 
 

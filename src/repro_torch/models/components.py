@@ -60,7 +60,7 @@ from ..kernels.gemm_dataflow.ops import LinearFn, project, project_f32
 from ..kernels.paged_attention import paged_attention
 from ..sharding.collectives import (all_gather, all_reduce, fanout, gather,
                                     reduce, reduce_scatter, scatter, split)
-from ..sharding.spmd import MODEL
+from ..sharding.spmd import MODEL, rank_kv_heads
 from .base import ParamSpec, normal, ones, zeros
 
 __all__ = ["linear", "fanout_linear", "row_sum", "rms_norm", "layer_norm",
@@ -71,8 +71,8 @@ __all__ = ["linear", "fanout_linear", "row_sum", "rms_norm", "layer_norm",
            "encode_cross_kv", "mlp_specs", "mlp_block", "moe_specs",
            "moe_capacity", "moe_route", "moe_block",
            "embed_specs", "embed_tokens", "unembed", "unembed_local",
-           "rank_slice", "row_parallel", "model_sum", "model_rows",
-           "whole_sequence", "gather_sequence", "fanout_tree",
+           "rank_slice", "expand_kv", "row_parallel", "model_sum",
+           "model_rows", "whole_sequence", "gather_sequence", "fanout_tree",
            "sharded_decode_attention",
            "decode_attention",
            "flash_decode_layout", "flash_decode_attention",
@@ -459,15 +459,19 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
 
     With ``tp.heads`` (heads split over ``model``): this rank's H / m
     query heads, and its KVH / m KV heads (``tp.kv``) or, where m does
-    not divide KVH, the KV heads repeated G-fold to H and cut to its
-    H / m; the replicated biases and norm scales enter through
-    ``fanout``, x through ``fanout_linear`` (with ``tp.seq`` x is this
-    rank's sequence shard, which ``fanout_linear`` gathers: q, k, v hold
-    the whole sequence)."""
+    not divide KVH, only the KV heads its query heads read
+    (``spmd.rank_kv_heads``: their columns of the gathered ``wk`` /
+    ``wv`` and of the biases taken before the product), normed and
+    roped, then repeated to its H / m query heads (``expand_kv``); the
+    replicated biases and norm scales enter through ``fanout``, x
+    through ``fanout_linear`` (with ``tp.seq`` x is this rank's sequence
+    shard, which ``fanout_linear`` gathers: q, k, v hold the whole
+    sequence)."""
     B = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
     qn, kn = p.get("q_norm"), p.get("k_norm")
+    wk, wv = p["wk"], p["wv"]
     split = tp is not None and tp.heads
     if split:
         h //= tp.size
@@ -479,9 +483,9 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
             bk, bv = (None if t is None else rank_slice(t, tp, kvh * hd)
                       for t in (bk, bv))
         else:
-            bk, bv = (None if t is None else fanout(t, tp.mesh, MODEL)
-                      for t in (bk, bv))
-    ws = (p["wq"], p["wk"], p["wv"])
+            wk, wv, bk, bv = _rank_kv_columns(cfg, tp, wk, wv, bk, bv)
+            kvh = wk.shape[1] // hd
+    ws = (p["wq"], wk, wv)
     q, k, v = (fanout_linear(x, *ws, tp=tp) if split
                else tuple(linear(x, w) for w in ws))
     q = _add_bias(q, bq).reshape(B, -1, h, hd)
@@ -501,16 +505,33 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        fraction=cfg.rope_fraction)
     if split and not tp.kv:
-        k, v = _expand_kv(cfg, tp, k, v)
+        k, v = (expand_kv(t, cfg.n_heads, cfg.n_kv_heads, tp.size,
+                          tp.index) for t in (k, v))
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _expand_kv(cfg, tp, *ts):
-    """Every KV head (B, S, KVH, Dh) repeated G-fold to the H query
-    heads and cut to this rank's H / m."""
-    g, h = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // tp.size
-    return tuple(t.repeat_interleave(g, dim=2).narrow(2, tp.index * h, h)
-                 for t in ts)
+def _rank_kv_columns(cfg, tp, wk, wv, bk=None, bv=None):
+    """This rank's columns of the whole (gathered) ``wk`` / ``wv`` and of
+    the replicated ``bk`` / ``bv``: the KV heads its query heads read
+    (``spmd.rank_kv_heads``).  Each slice's backward writes its gradient
+    into zeros of the whole leaf; the weights' gather and the biases'
+    ``fanout`` sum those over ``model``."""
+    kv = rank_kv_heads(cfg.n_heads, cfg.n_kv_heads, tp.size, tp.index)
+    first, n = kv.start * cfg.head_dim, len(kv) * cfg.head_dim
+    return (wk.narrow(1, first, n), wv.narrow(1, first, n),
+            *(None if b is None else
+              fanout(b, tp.mesh, MODEL).narrow(0, first, n)
+              for b in (bk, bv)))
+
+
+def expand_kv(t, n_heads: int, n_kv_heads: int, size: int, index: int):
+    """K or V (B, S, n, Dh) of the KV heads rank ``index`` of ``size``
+    reads (``spmd.rank_kv_heads``) -> (B, S, H / size, Dh) of its query
+    heads: query head j takes KV head j // G, as every KV head repeated
+    G-fold to the H query heads and cut to the rank's would."""
+    g, h = n_heads // n_kv_heads, n_heads // size
+    first = rank_kv_heads(n_heads, n_kv_heads, size, index).start
+    return t.repeat_interleave(g, dim=2).narrow(2, index * h - first * g, h)
 
 
 def out_proj(p, out, tp=None):
@@ -713,25 +734,27 @@ def encode_cross_kv(p, enc_out, cfg, tp=None):
     """The cross-attention K/V of one decoder layer from the encoder
     output (B, S_enc, D): computed once per prompt.  With ``tp.heads``
     this rank's heads: ``wk`` / ``wv`` column-parallel (or, where
-    ``model`` does not divide KVH, every KV head expanded and cut as in
-    ``project_qkv``), ``enc_out`` entering through ``fanout_linear`` at
-    each use, so its gradient into the encoder is summed over ``model``
-    layer by layer.  With ``tp.seq`` ``enc_out`` is this rank's shard of
-    the frames, gathered first (by ``fanout_linear``, or whole where the
-    heads do not split); the K/V hold every frame."""
+    ``model`` does not divide KVH, only the KV heads its query heads
+    read, repeated to them, as in ``project_qkv``), ``enc_out`` entering
+    through ``fanout_linear`` at each use, so its gradient into the
+    encoder is summed over ``model`` layer by layer.  With ``tp.seq``
+    ``enc_out`` is this rank's shard of the frames, gathered first (by
+    ``fanout_linear``, or whole where the heads do not split); the K/V
+    hold every frame."""
     if tp is not None and tp.seq and not tp.heads:
         enc_out, tp = gather_sequence(enc_out, tp)
-    kvh = cfg.n_kv_heads
-    split = tp is not None and tp.heads
-    if split and tp.kv:
-        kvh //= tp.size
-    shape = (enc_out.shape[0], -1, kvh, cfg.head_dim)
     ws = (p["wk"], p["wv"])
+    split = tp is not None and tp.heads
+    if split and not tp.kv:
+        ws = _rank_kv_columns(cfg, tp, *ws)[:2]
+    shape = (enc_out.shape[0], -1, ws[0].shape[1] // cfg.head_dim,
+             cfg.head_dim)
     k, v = (t.reshape(shape) for t in (
         fanout_linear(enc_out, *ws, tp=tp) if split
         else tuple(linear(enc_out, w) for w in ws)))
     if split and not tp.kv:
-        k, v = _expand_kv(cfg, tp, k, v)
+        k, v = (expand_kv(t, cfg.n_heads, cfg.n_kv_heads, tp.size,
+                          tp.index) for t in (k, v))
     return k.contiguous(), v.contiguous()
 
 

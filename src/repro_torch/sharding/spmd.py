@@ -46,10 +46,13 @@ every rank of ``model``: ``localize`` gathers its projections
 (backward: the rank's own slice, as the work was duplicated).  A decode
 step whose heads split gathers its q, k, v heads instead
 (``components.attention_block``).  Where ``model`` divides H but not
-KVH the KV projections are gathered and their heads repeated G-fold
-before this rank's heads are taken (the reference's
-``_gqa_expand_factor``).  Recurrent states (RG-LRU, RWKV6) are cut by
-width / heads as they are computed.
+KVH the KV projections are gathered (backward: a reduce-scatter, each
+rank's gradient summed over the ranks that read it), a rank projects
+only the KV heads its H / m query heads read (``rank_kv_heads``: its
+columns of the gathered ``wk`` / ``wv`` taken before the product) and
+repeats them G-fold to its query heads, as the reference's
+``_gqa_expand_factor`` repeats its column shard.  Recurrent states
+(RG-LRU, RWKV6) are cut by width / heads as they are computed.
 
 **Sequence parallelism** (``TP.seq``; ``SP_RULES`` active and
 ``model`` dividing the sequence length, ``MeshModel._seq_split``):
@@ -96,7 +99,7 @@ import torch
 from .collectives import gather
 from .rules import logical_spec, spec_axes
 
-__all__ = ["TP", "localize", "splits", "MODEL",
+__all__ = ["TP", "localize", "splits", "MODEL", "rank_kv_heads",
            "placements", "unstack", "shard_tree", "unshard_tree",
            "shard_shapes"]
 
@@ -126,6 +129,17 @@ class TP:
         return self.mesh.axis_index(MODEL)
 
 
+def rank_kv_heads(n_heads: int, n_kv_heads: int, size: int,
+                  index: int) -> range:
+    """The KV heads that rank ``index`` of ``size`` along ``model``
+    reads, where its query heads are [index h, (index + 1) h), h =
+    n_heads / size: query head j reads KV head j // G (G = n_heads /
+    n_kv_heads), so one head where G >= h, else several, a head at a
+    boundary read by both neighbours."""
+    g, h = n_heads // n_kv_heads, n_heads // size
+    return range(index * h // g, ((index + 1) * h - 1) // g + 1)
+
+
 def splits(spec, dim: int) -> bool:
     """Whether dim ``dim`` of a ``logical_spec`` tuple is split over
     ``model``."""
@@ -151,7 +165,8 @@ def localize(tree, place, tp):
         elif axes[dim] in ("q_heads", "act_heads") and not tp.heads:
             t = gather(t, mesh, ax, dim, split=False)
         elif axes[dim] == "kv_heads" and not tp.kv:
-            # the expanded KV of split heads is split work; a whole
+            # split heads take their ranks' columns of it (split work:
+            # each shard's gradient summed over its readers); a whole
             # attention is duplicated work
             t = gather(t, mesh, ax, dim, split=tp.heads)
     return t

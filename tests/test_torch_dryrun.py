@@ -18,6 +18,11 @@ package on the CPU, without compiling anything.
   under the default rules and under ``--rules sp`` (``SP_RULES``:
   the residual stream on sequence shards over ``model``);
   ``--variant opt`` traces its cells under either rules variant.
+* Where ``model`` divides H but not KVH (qwen3-0.6b ``train_4k`` at 2
+  layers on the dry (16, 16) mesh), every product of the step has the
+  shape of one of the rank's own weights: its K/V products have the
+  rank's KV heads' columns (one head, 128), not all KVH heads' (1,024),
+  and the step launches the GEMM as often as before.
 * Under ``SP_RULES`` every cell's argument bytes on both production
   meshes equal the reference's placement under its ``SP_RULES``, and on
   a smoke train cell SP lowers the traced peak, leaves no all-reduce of
@@ -45,11 +50,12 @@ from repro.train.step import auto_microbatches as jauto_microbatches
 from repro_torch import configs
 from repro_torch.data import specs
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.gemm_dataflow import ops as gemm
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_dry_mesh
 from repro_torch.cost import OpCounter
 from repro_torch.models import components as C
-from repro_torch.sharding import collectives
+from repro_torch.sharding import collectives, spmd
 from repro_torch.sharding.rules import DEFAULT_RULES, SP_RULES
 from repro_torch.train.step import auto_microbatches
 from test_sharding_rules import FakeMesh
@@ -244,6 +250,52 @@ def test_counter_counts_attention(case):
     assert (kern["flash_attention_bwd"]["launches"],
             kern["flash_attention_bwd"]["flops"]) == (1, 2.5 * fwd)
     assert fa.visible_pairs(Sq, Skv, causal, window) == pairs
+
+
+def test_split_heads_project_only_the_rank_kv_heads(monkeypatch):
+    """qwen3-0.6b (H 16, KVH 8) at ``train_4k`` with 2 layers on the dry
+    (16, 16) mesh: rank 0 holds query head 0 and reads KV head 0 only.
+    Each GEMM of the step is the forward (twice: remat), dX or dW
+    product of one of the rank's weights (K_w, N_w); keyed by the
+    product's (K, N), or (M, N) for dW, whose K is the microbatch's
+    tokens, the launches are 3 a layer and microbatch at (K_w, N_w) and
+    1 at (N_w, K_w): ``wk`` / ``wv`` enter at (D, 128), never at the
+    whole (D, 1,024), and the launch count is 4 a product, as before."""
+    cfg = dryrun.apply_overrides(configs.get("qwen3-0.6b"),
+                                 {"n_layers": "2"})
+    seen = []
+    cost = gemm.cost
+
+    def spy(m, n, k, dtype):
+        seen.append((m, n, k))
+        return cost(m, n, k, dtype)
+    monkeypatch.setattr(gemm, "cost", spy)
+    res = dryrun.run_cell("qwen3-0.6b", "train_4k", "single", cfg=cfg)
+    m, dh, D = MESHES["single"]["model"], cfg.head_dim, cfg.d_model
+    kv = spmd.rank_kv_heads(cfg.n_heads, cfg.n_kv_heads, m, 0)
+    assert cfg.n_heads % m == 0 and cfg.n_kv_heads % m and len(kv) == 1
+    s = configs.shape_by_name("train_4k")
+    n_micro = res["n_micro"]
+    tokens = s.global_batch // MESHES["single"]["data"] // n_micro \
+        * s.seq_len
+    weights = [(D, cfg.n_heads // m * dh), (D, len(kv) * dh),
+               (D, len(kv) * dh), (cfg.n_heads // m * dh, D),
+               (D, cfg.d_ff // m), (D, cfg.d_ff // m), (cfg.d_ff // m, D)]
+    want = {}
+    for kw, nw in weights:
+        want[kw, nw] = want.get((kw, nw), 0) + 3 * cfg.n_layers * n_micro
+        want[nw, kw] = want.get((nw, kw), 0) + cfg.n_layers * n_micro
+    got = {}
+    for mm, n, k in seen:
+        key = (mm, n) if k == tokens else (k, n)
+        assert tokens in (mm, k), (mm, n, k)
+        got[key] = got.get(key, 0) + 1
+    assert got == want
+    assert (D, cfg.n_kv_heads * dh) not in got
+    launches = res["kernels"]["gemm_dataflow"]["launches"]
+    assert launches == len(seen) == 4 * len(weights) * cfg.n_layers * n_micro
+    assert res["kernels"]["gemm_dataflow"]["flops"] == sum(
+        2 * a * b * c for a, b, c in seen)
 
 
 def test_dry_collectives_count_ring_bytes():

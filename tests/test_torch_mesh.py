@@ -4,7 +4,13 @@ counterparts of the reference's ``tests/test_multidevice.py``.
 
 One (2, 2) group (data 2, model 2) runs every multi-rank check in one
 spawn (module fixture ``runs``): the train step of a dense stack
-(qwen3 smoke), of an MoE (llama4-scout smoke, ``n_micro=2``) and of the
+(qwen3 smoke), of two dense stacks where ``model`` divides H but not
+KVH, so each rank projects only the KV heads its query heads read
+(``KV_SPLIT``: qwen3 smoke at H 6, KVH 3, rank 0 reading KV heads 0-1
+and rank 1 heads 1-2, with ``k_norm``; qwen1.5-110b smoke at KVH 1,
+both ranks reading the one head, with ``bk`` / ``bv``; whisper's cross
+K/V at H 6, KVH 3 alone, ``CROSS_KV``), of an MoE
+(llama4-scout smoke, ``n_micro=2``) and of the
 three families whose blocks are not plain attention (whisper's
 encoder-decoder, recurrentgemma's RG-LRU and local attention, rwkv6's
 time and channel mix), expert parallelism (deepseek-moe smoke: top 2
@@ -77,7 +83,16 @@ MESH = (2, 2)
 B, S, STEPS, LR = 8, 16, 3, 1e-3
 TRAIN = {"dense": ("qwen3-0.6b", 1), "moe": ("llama4-scout-17b-a16e", 2),
          "whisper": ("whisper-tiny", 1),
-         "recurrentgemma": ("recurrentgemma-2b", 1), "rwkv6": ("rwkv6-3b", 1)}
+         "recurrentgemma": ("recurrentgemma-2b", 1), "rwkv6": ("rwkv6-3b", 1),
+         "kv_shared": ("qwen3-0.6b", 1), "kv_one": ("qwen1.5-110b", 1)}
+#: the smoke configs' fields changed for the cases where model = 2
+#: divides H but not KVH (both packages' configs built with them)
+KV_SPLIT = {"kv_shared": {"n_heads": 6, "n_kv_heads": 3},
+            "kv_one": {"n_kv_heads": 1}}
+#: whisper smoke's fields for ``encode_cross_kv`` with the heads split
+#: over model = 2 but not the KV heads (rank 0 reads KV heads 0-1, rank
+#: 1 heads 1-2), and the rows and frames of its encoder output
+CROSS_KV, CROSS_B, CROSS_S = {"n_heads": 6, "n_kv_heads": 3}, 2, 5
 #: the families whose decode on the mesh is held against the reference
 FAMILIES = ("whisper", "recurrentgemma", "rwkv6")
 DECODE_ROWS, DECODE_PROMPT, DECODE_LEN, DECODE_STEPS = 4, 32, 48, 3
@@ -125,13 +140,31 @@ def _moe_inputs():
     return jcfg, p, x
 
 
+def _cross_kv_inputs():
+    """whisper smoke at CROSS_KV in f32: seeded ``wk`` / ``wv``, an
+    encoder output and the cotangents of the K/V repeated to every query
+    head; (the ranks' job, the reference's config and inputs)."""
+    jcfg = _jcfg("whisper-tiny", **CROSS_KV)
+    rng = np.random.default_rng(11)
+    d, hd = jcfg.d_model, jcfg.head_dim
+    draw = {"wk": (d, jcfg.n_kv_heads * hd), "wv": (d, jcfg.n_kv_heads * hd),
+            "enc": (CROSS_B, CROSS_S, d),
+            "gk": (CROSS_B, CROSS_S, jcfg.n_heads, hd),
+            "gv": (CROSS_B, CROSS_S, jcfg.n_heads, hd)}
+    x = {k: (0.3 * rng.standard_normal(s)).astype(np.float32)
+         for k, s in draw.items()}
+    job = {"cfg": to_port_config(jcfg),
+           **{k: torch.from_numpy(v) for k, v in x.items()}}
+    return job, (jcfg, x)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The (2, 2) group's results beside the reference's inputs."""
     tmp = tmp_path_factory.mktemp("mesh")
     payload, refs = {"train": {}}, {}
     for name, (arch, n_micro) in TRAIN.items():
-        jcfg = _jcfg(arch)
+        jcfg = _jcfg(arch, **KV_SPLIT.get(name, {}))
         jmodel, jparams, cfg, path = _port_params(jcfg, tmp, name)
         refs[name] = (jcfg, jmodel, jparams, n_micro)
         payload["train"][name] = {
@@ -142,6 +175,8 @@ def runs(tmp_path_factory):
     payload["ep"] = {"cfg": to_port_config(jcfg), "x": torch.from_numpy(x),
                       "p": jax.tree.map(torch.from_numpy, p)}
     refs["moe_inputs"] = (jcfg, p, x)
+
+    payload["cross_kv"], refs["cross_kv"] = _cross_kv_inputs()
 
     jcfg = _jcfg("deepseek-moe-16b")
     jmodel, jparams, cfg, path = _port_params(jcfg, tmp, "ep_model")
@@ -275,6 +310,9 @@ def test_train_step_on_mesh_matches_reference(runs, name):
     2 x n_micro microbatches."""
     jcfg, jmodel, jparams, n_micro = runs["refs"][name]
     out = runs["out"][0][name]
+    if name in KV_SPLIT:
+        m = MESH[1]
+        assert jcfg.n_heads % m == 0 and jcfg.n_kv_heads % m
     n_ref = MESH[0] * n_micro
     pipe = JPipeline(jcfg, B, S)
     want = _first_grads(runs, name)[1]
@@ -453,6 +491,47 @@ def test_expert_parallel_model_close_to_unsharded_reference(runs):
                           enumerate(runs["out"]) if rank % MESH[1] == 0])
     close = np.mean(np.isclose(got, want, rtol=CLOSE_TOL, atol=CLOSE_TOL))
     assert close > CLOSE_FRAC, close
+
+
+def test_cross_kv_projects_only_the_rank_kv_heads(runs):
+    """whisper's cross K/V with H 6 split over model = 2 and KVH 3 not:
+    each rank's K/V, from the KV heads its 3 query heads read, against
+    the reference's ``encode_cross_kv`` repeated G-fold to every query
+    head and cut to the rank's (rtol 1e-5); the gradients of a loss of
+    them against ``jax.vjp`` of the same: the encoder output's on every
+    rank, ``wk`` / ``wv``'s as the sum of the ranks' shares over model
+    (each zero outside the columns its rank read), at the train test's
+    tolerances."""
+    jcfg, x = runs["refs"]["cross_kv"]
+    g, m = jcfg.n_heads // jcfg.n_kv_heads, MESH[1]
+    h = jcfg.n_heads // m
+    assert jcfg.n_heads % m == 0 and jcfg.n_kv_heads % m
+
+    def ref(wk, wv, enc):
+        k, v = JC.encode_cross_kv({"wk": wk, "wv": wv}, enc, jcfg)
+        return jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2)
+    (k, v), vjp = jax.vjp(ref, *(jnp.asarray(x[n])
+                                 for n in ("wk", "wv", "enc")))
+    dwk, dwv, denc = (np.asarray(t) for t in vjp(
+        (jnp.asarray(x["gk"]), jnp.asarray(x["gv"]))))
+    outs = [out["cross_kv"] for out in runs["out"]]
+    for rank, out in enumerate(outs):
+        r = rank % m
+        for name, want in (("k", k), ("v", v)):
+            np.testing.assert_allclose(
+                out[name].numpy(), np.asarray(want)[:, :, r * h:(r + 1) * h],
+                rtol=MOE_TOL, atol=MOE_TOL, err_msg=name)
+        np.testing.assert_allclose(out["enc"].numpy(), denc, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        kv = range(r * h // g, ((r + 1) * h - 1) // g + 1)
+        cols = np.zeros(jcfg.n_kv_heads * jcfg.head_dim, bool)
+        cols[kv.start * jcfg.head_dim:kv.stop * jcfg.head_dim] = True
+        assert not out["wk"][:, ~cols].any() and not out["wv"][:, ~cols].any()
+    for name, want in (("wk", dwk), ("wv", dwv)):
+        for d in range(MESH[0]):
+            got = sum(outs[d * m + r][name] for r in range(m))
+            np.testing.assert_allclose(got.numpy(), want, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL, err_msg=name)
 
 
 def _check_decode(runs, dec, want):

@@ -7,12 +7,16 @@ reference's on the reference test's duck-typed ``FakeMesh`` (the
 the reference's logical axes, for all ten architectures.  The leaves'
 shapes and dtypes are held elsewhere (``test_torch_model.py``,
 ``test_torch_param_dtype.py``); the cache's and the optimizer state's
-are checked here with their axes."""
+are checked here with their axes.  Where ``model`` divides H but not
+KVH, a rank's KV heads (``spmd.rank_kv_heads``) repeated to its query
+heads (``components.expand_kv``) are the reference's G-fold repeat of
+every KV head cut to the rank's query heads, ``torch.equal``."""
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 from jax.sharding import PartitionSpec as P
 
@@ -25,9 +29,11 @@ from repro.sharding import logical_spec as jlogical_spec
 from repro.train import optimizer as jopt
 from repro_torch import configs
 from repro_torch.models import build_model
+from repro_torch.models import components as C
 from repro_torch.models.base import ParamSpec
 from repro_torch.sharding import (DEFAULT_RULES, RULE_VARIANTS, SP_RULES,
-                                  UNCONSTRAINED, logical_spec, tree_shardings)
+                                  UNCONSTRAINED, logical_spec, spmd,
+                                  tree_shardings)
 from repro_torch.train import optimizer as topt
 from test_sharding_rules import FakeMesh
 
@@ -217,3 +223,34 @@ def test_leaf_specs_match_reference_on_fake_meshes(arch):
                             node, (list, tuple)) else key]
                     assert node == _want(want[k].axes, want[k].shape, fm,
                                          ref), k
+
+
+#: every (H, KVH, m) up to H = 64 with m | H, KVH | H and m not dividing
+#: KVH: the heads split over ``model`` and the KV heads expanded
+KV_EXPANDED = [(h, kvh, m) for h in range(1, 65) for kvh in range(1, h + 1)
+               for m in range(2, h + 1)
+               if h % kvh == 0 and h % m == 0 and kvh % m]
+
+
+@given(case=st.sampled_from(KV_EXPANDED), dh=st.integers(1, 3),
+       seed=st.integers(0, 2**16))
+@settings(max_examples=300, deadline=None)
+def test_rank_kv_heads_expand_to_the_rank_query_heads(case, dh, seed):
+    """On every rank: the KV heads its query heads read, [r h // G,
+    ((r + 1) h - 1) // G], repeated to its h = H / m query heads equal
+    every KV head repeated G-fold (the reference's ``jnp.repeat`` in
+    ``attention_block``, numpy's ``repeat``; and the port's earlier
+    ``repeat_interleave``) and cut to its query heads, ``torch.equal``."""
+    h, kvh, m = case
+    g, hl = h // kvh, h // m
+    t = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 3, kvh, dh)).astype(np.float32))
+    ref = torch.from_numpy(np.repeat(t.numpy(), g, axis=2))
+    for r in range(m):
+        kv = spmd.rank_kv_heads(h, kvh, m, r)
+        assert (kv.start, kv.stop - 1) == (r * hl // g,
+                                           ((r + 1) * hl - 1) // g)
+        got = C.expand_kv(t[:, :, kv.start:kv.stop], h, kvh, m, r)
+        assert torch.equal(got, ref[:, :, r * hl:(r + 1) * hl])
+        assert torch.equal(got, t.repeat_interleave(g, 2)
+                           .narrow(2, r * hl, hl))

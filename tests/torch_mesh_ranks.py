@@ -146,6 +146,26 @@ def moe_case(mesh, case) -> dict:
     return {"y": y, "aux": float(aux), "tp": (tp.experts, tp.shared)}
 
 
+def cross_kv_case(mesh, case) -> dict:
+    """``components.encode_cross_kv`` with the heads split over ``model``
+    but not the KV heads: this rank's K/V, and the gradients of a loss
+    of them (the cotangents of its heads) into the whole ``wk`` / ``wv``
+    (this rank's share: the columns of the KV heads it read) and into
+    the encoder output (summed over ``model``)."""
+    cfg = case["cfg"]
+    tp = spmd.TP(mesh, heads=True)
+    w = {k: case[k].clone().requires_grad_() for k in ("wk", "wv")}
+    enc = case["enc"].clone().requires_grad_()
+    h = cfg.n_heads // tp.size
+    with mesh:
+        k, v = C.encode_cross_kv(w, enc, cfg, tp)
+        loss = sum((t * case[g].narrow(2, tp.index * h, h)).sum()
+                   for t, g in ((k, "gk"), (v, "gv")))
+        loss.backward()
+    return {"k": k.detach(), "v": v.detach(), "wk": w["wk"].grad,
+            "wv": w["wv"].grad, "enc": enc.grad}
+
+
 def _spec_tree(place):
     if isinstance(place, dict):
         return {k: _spec_tree(v) for k, v in place.items()}
@@ -244,6 +264,7 @@ def mesh22(mesh, tmp, payload) -> dict:
                          payload["sp_prefill"].items()}
     out["sp_indivisible"] = sp_indivisible(mesh, payload["sp_indivisible"])
     out["ep"] = moe_case(mesh, payload["ep"])
+    out["cross_kv"] = cross_kv_case(mesh, payload["cross_kv"])
     out["ep_model"] = model_logits(mesh, payload["ep_model"])
     out["decode"] = decode_case(mesh, payload["decode"])
     out["family_decode"] = {name: decode_case(mesh, case) for name, case
@@ -251,7 +272,7 @@ def mesh22(mesh, tmp, payload) -> dict:
     return out if mesh.rank == 0 else {
         k: v for k, v in out.items()
         if k in ("ep", "ep_model", "decode", "family_decode", "sp_prefill",
-                 "sp_indivisible")}
+                 "sp_indivisible", "cross_kv")}
 
 
 def restore(mesh, tmp, payload) -> dict:
