@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py
 
+and the phases that several cards change, on four cards (the kernels
+on every card; a mesh rank or a tp shard a card, over NCCL):
+
+    python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.main(
+        phases=('env', 'kernels', 'tp', 'mesh'), cards=4))"
+
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. **env**     torch / CUDA versions, the card, and the build of every
@@ -50,7 +56,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the train_families phase's rows.  Beside each backward time
                (``ms``, CUDA events, L2 flushed) its ``device_ms``: the
                kernels' own time from a profiler trace of back-to-back
-               calls.
+               calls.  Where more than one card is visible, every
+               kernel once more on each card in turn, in this one
+               process, against its plain version (``_every_card``: a
+               kernel's attributes belong to each card's context).
 3. **paper**   the paper's kernel path at full width: the dataflow GEMM
                (all four reuse schemes) on llama4-scout's expert
                up-projection (M 8192, K 5120, N 8192, bf16), input-/
@@ -113,12 +122,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the launch gates, the bitwise invariants and the row-bits
                gate; for scout also whether layer 0's routed experts on
                the first chunk equal an f32 recomputation of its router.
-9. **tp**      tensor-parallel serving on the one card (``TP_RUNS``):
-               qwen3-0.6b at tp 2 and 4, qwen2-0.5b and stablelm-1.6b
-               at tp 2, full size, seeded random weights, every shard
-               named ``cuda:0`` (``TPServePrograms(model, devices=
-               [...])``: heads, KV heads and d_ff split, the pools on
-               KV heads), on TP_REQUESTS requests of the serve phase's
+9. **tp**      tensor-parallel serving (``TP_RUNS``): qwen3-0.6b at tp 2
+               and 4, qwen2-0.5b and stablelm-1.6b at tp 2, full size,
+               seeded random weights, placed by ``device_plan``: a card
+               a shard where there are tp cards (``TPServePrograms(
+               model, tp=tp)``), else every shard named ``cuda:0``
+               (``devices=[...]``); heads, KV heads and d_ff split, the
+               pools on KV heads; on TP_REQUESTS requests of the serve phase's
                prompt and generation lengths through TP_BATCH slots (so
                slots and pages turn over) on the step clock beside
                the same engine at tp 1; gated on more admissions than
@@ -129,8 +139,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                each path kernel launched exactly tp times tp 1's count,
                and one dispatch each of chunk, decode, verify at T 5
                and fused giving every shard tp 1's logits
-               (``torch.equal``).  Served tok/s and the peak are
-               readings: co-located shards time-share the card.
+               (``torch.equal``).  Served tok/s and each card's peak
+               are readings (co-located shards time-share the card).
 10. **families** the five families the reference serves only through
                its lockstep path, one after the other at full published
                widths (seeded random weights, projections stored bf16 as
@@ -205,9 +215,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                DRYRUN_FLOPS + 1 %, which a rank projecting every KV
                head, not only those its query heads read, exceeds).
 14. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
-               ranks as processes (``torch.multiprocessing``), every one
-               on this card over gloo (NCCL refuses two ranks on one
-               device), the kernels built before the spawn.  qwen3-0.6b
+               ranks as processes (``torch.multiprocessing``), placed by
+               ``device_plan``: a card a rank over NCCL where there are
+               enough cards, else every one on this card over gloo
+               (NCCL refuses two ranks on one device); the kernels
+               built before the spawn.  qwen3-0.6b
                FULL on (data 2, model 2): the first step's loss and
                every leaf's gradient against the single-device step run
                here (loss within 2e-2, each leaf within 5e-2 relative
@@ -226,9 +238,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                against the single device under the same gates;
                recurrentgemma's attention on (2, 2) splits its 10 query
                heads while each rank projects only the one KV head they
-               read.  Step ms and peak GB per rank and the collectives'
-               bytes and seconds are readings (the ranks time-share the
-               card).
+               read.  Rank 0's collectives in the qwen3 grad step under
+               the default rules and SP_RULES (calls and bytes by kind)
+               equal the dry run's tally of the same step on a dry
+               (2, 2) mesh (gated).  Step ms and peak GB per rank, and
+               the collectives' seconds and GB/s beside the dry run's
+               predicted seconds, are readings.
 
 Then a ``{"kernels": [...]}`` line (all six kernels, launches from the
 serve, fleet, archs, tp, families, train, train_families, mesh and paper
@@ -237,8 +252,9 @@ the dataflow GEMM's also counted apart for f32 operands,
 ``launches_f32``), the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
 last line
-``{"ok": true, "device": {...}}``.  The run uses one card: the first
-one ``CUDA_VISIBLE_DEVICES`` lists (device 0 when it is unset).
+``{"ok": true, "device": {...}}``.  The run uses ``cards`` cards (one
+by default): the first ones ``CUDA_VISIBLE_DEVICES`` lists (from device
+0 when it is unset).
 Without a GPU, or without the rest of the repository beside this file,
 it exits non-zero and prints no result.  It imports neither ``jax`` nor
 the JAX package ``repro``.
@@ -642,7 +658,42 @@ def phase_env():
            "build_s_per_kernel": {k: round(v, 3) for k, v in took.items()}}
     for name in build.SOURCES:
         rec[f"ptxas_{name}"] = _ptxas_summary(build.build_log(name))
+    if torch.cuda.device_count() > 1:
+        rec.update(_card_links(torch.cuda.device_count()))
     emit(rec)
+
+
+def _card_links(cards: int) -> dict:
+    """How the cards talk, for the mesh's readings: ``nvidia-smi topo -m``
+    and ``nvlink --status`` as printed (some hosts refuse them), peer
+    access between every pair, and the rate of a 256 MB copy from
+    ``cuda:0`` to ``cuda:1`` (median of 10; NVLink moves several times
+    what a PCIe link can)."""
+    import statistics
+    import torch
+
+    def smi(*args):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+        return (out.stdout + out.stderr).strip()
+    src = torch.empty(256 << 20, dtype=torch.uint8, device="cuda:0")
+    dst = torch.empty_like(src, device="cuda:1")
+    ts = []
+    for _ in range(11):
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(1)
+        t = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(1)
+        ts.append(time.perf_counter() - t)
+    del src, dst
+    return {"cards": cards, "topology": smi("topo", "-m"),
+            "nvlink": smi("nvlink", "--status"),
+            "peer_access": [[i == j or torch.cuda.can_device_access_peer(
+                i, j) for j in range(cards)] for i in range(cards)],
+            "copy_0_to_1_gb_per_s": (256 << 20) / statistics.median(
+                ts[1:]) / 1e9}
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1062,8 +1113,83 @@ def _gemm_bwd_f32_cases(g, flush, results) -> None:
             results.setdefault("gemm_dataflow_bwd", []).append(rec)
 
 
+def _every_card(cards: int) -> dict:
+    """Every kernel launched on ``cuda:0``, then on ``cuda:1`` .. in this
+    one process (a function's attributes, such as its dynamic shared
+    memory, belong to each device's context), each against its plain
+    version on the same inputs at the kernels phase's tolerances:
+    attention forward and backward and the paged decode at qwen3-0.6b's
+    shapes, the GEMM in bf16 and f32, the block-sparse GEMM and the LUT.
+    A launch that raises is recorded with its error.  Returns the
+    record; ``ok`` when every kernel held on every card."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import gemm_dataflow as gd
+    from repro_torch.kernels import lut_activation as lut
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    def flash_bwd(q, k, v, do):
+        _, lse = fa.flash_attention_lse(q, k, v, True, None)
+        args = (q, k, v, lse, do, True, None)
+        return fa.flash_attention_bwd(*args), fa.flash_attention_bwd_plain(
+            *args)
+    by_card = {}
+    for d in range(cards):
+        with torch.cuda.device(d):
+            g = torch.Generator(device="cuda").manual_seed(3)
+
+            def rnd(*shape, dt=torch.bfloat16):
+                return torch.randn(*shape, generator=g, device="cuda").to(dt)
+            q, do = rnd(2, 256, 16, 128), rnd(2, 256, 16, 128)
+            k, v = rnd(2, 256, 8, 128), rnd(2, 256, 8, 128)
+            a, w = rnd(256, 1024), rnd(1024, 2048)
+            a32, w32 = rnd(1000, 1024, dt=torch.float32), rnd(
+                1024, 1000, dt=torch.float32)
+            mask = np.random.default_rng(3).random((8, 16)) < 0.36
+            x = _lut_x(g, 256, 1024, 2.0)
+            paged = _paged_case(8, 1, [100, 37, 255, 1, 64, 129, 16, 200],
+                                seed=5)
+            cases = {
+                "flash_attention": lambda: (
+                    fa.flash_attention(q, k, v, causal=True),
+                    fa.flash_attention_plain(q, k, v, causal=True)),
+                "flash_attention_bwd": lambda: flash_bwd(q, k, v, do),
+                "paged_attention": lambda: (pa.paged_attention(*paged),
+                                            pa.paged_attention_plain(*paged)),
+                "gemm_dataflow": lambda: (gd.matmul(a, w),
+                                          gd.matmul_plain(a, w)),
+                "gemm_dataflow_f32": lambda: (gd.matmul(a32, w32),
+                                              gd.matmul_plain(a32, w32)),
+                "block_sparse": lambda: (bs.matmul(a, w, mask),
+                                         bs.matmul_plain(a, w, mask)),
+                "lut_activation": lambda: (
+                    lut.apply_lut(x, "silu"),
+                    lut.lut_plain(x, lut.table_for("silu", str(x.device))))}
+            tol = {"gemm_dataflow": (GEMM_ATOL, GEMM_RTOL),
+                   "gemm_dataflow_f32": (GEMM_ATOL, GEMM_RTOL)}
+            card = by_card[f"cuda:{d}"] = {}
+            for name, run in cases.items():
+                try:
+                    got, want = run()
+                    got, want = ((got, want) if isinstance(got, tuple)
+                                 else ((got,), (want,)))
+                    errs = [max_err(a_, b_, *tol.get(name, (ATOL, RTOL)))
+                            for a_, b_ in zip(got, want)]
+                    torch.cuda.synchronize()
+                    card[name] = {"max_abs_err": max(e for e, _ in errs),
+                                  "ok": all(o for _, o in errs)}
+                except Exception as e:                # noqa: BLE001
+                    card[name] = {"ok": False, "error": str(e)[:300]}
+    return {"phase": "kernels", "check": "every_card", "cards": cards,
+            "by_card": by_card,
+            "ok": all(r["ok"] for c in by_card.values() for r in c.values())}
+
+
 def phase_kernels():
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the main path's shapes; where
+    more than one card is visible, each kernel on every card in turn
+    (``_every_card``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -1329,6 +1455,12 @@ def phase_kernels():
     _gemm_bwd_cases(g, flush, results)
     _gemm_bwd_f32_cases(g, flush, results)
     del flush
+    if torch.cuda.device_count() > 1:
+        rec = _every_card(torch.cuda.device_count())
+        emit(rec)
+        if not rec["ok"]:
+            fail(f"kernels: a kernel failed on a card other than the "
+                 f"first: {rec['by_card']}")
     return results
 
 
@@ -2150,9 +2282,10 @@ def _fleet_record(sub, model, params, backend, done, n_requests, wall,
         fail(f"fleet [{sub}]: gates failed: {bad}")
 
 
-def _peak_gb() -> float:
+def _peak_gb(device=None) -> float:
+    """The peak allocated GB of ``device`` (default the current one)."""
     import torch
-    return torch.cuda.max_memory_allocated() / 1e9
+    return torch.cuda.max_memory_allocated(device) / 1e9
 
 
 def _fleet_router(model, params, programs):
@@ -2616,13 +2749,15 @@ def _tp_dispatches(model, p1, progs, ptp) -> dict:
             lambda m, gather, p, st, *a: getattr(m, method)(
                 p, st, *a, gather=gather)[0],
             ptp, {**stp, **(extra or {})}, *args)
+        # shards on other cards: compared on the model's card
+        got = [[a.to(dev) for a in flat(s)] for s in got]
         out[name] = {
             "equal_to_tp1": all(torch.equal(a, b) for a, b in
-                                zip(flat(got[0]), want)),
+                                zip(got[0], want)),
             "shards_equal": all(torch.equal(a, b) for s in got[1:]
-                                for a, b in zip(flat(s), flat(got[0]))),
+                                for a, b in zip(s, got[0])),
             "max_abs_diff": max(float((a - b).abs().max()) for a, b in
-                                zip(flat(got[0]), want))}
+                                zip(got[0], want))}
     tables = i32([[1, 2, 3, 4], [5, 6, 7, 8]])
     n = TP_CHUNK
     both("chunk", "prefill_chunk_paged", tok(2, n), tables, i32([0, 0]),
@@ -2635,26 +2770,29 @@ def _tp_dispatches(model, p1, progs, ptp) -> dict:
          i32([[9, 10, 11, 12]]), i32([0]), i32([n]),
          extra={**state, "lengths": i32([n + 6, n + 6])})
     out["pages_equal"] = all(
-        torch.equal(piece[:, 1:], want[:, 1:])
+        torch.equal(piece[:, 1:].to(dev), want[:, 1:])
         for name in ("k_pages", "v_pages")
         for piece, want in zip(stp[name].shards,
                                s1[name].chunk(progs.tp, -2)))
     return out
 
 
-def _tp_run(model, params, programs, reqs, opts):
+def _tp_run(model, params, programs, reqs, opts, devices):
     """One engine on ``programs`` serves ``reqs`` on the step clock (so a
     tp-way engine and tp 1 take the same steps and the same pages).
-    Returns (engine, stats, launches, peak GB)."""
+    Returns (engine, stats, launches, the peak GB of each distinct card
+    of ``devices``)."""
     import gc
     import torch
     from repro_torch.launch.serve import serve_trace
+    cards = sorted(set(devices), key=str)
     engine = opts.build(model, params, programs=programs)
     gc.collect()
-    torch.cuda.reset_peak_memory_stats()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     _launches_reset()
     stats = serve_trace(engine, reqs, realtime=False)
-    return engine, stats, _launches_read(), _peak_gb()
+    return engine, stats, _launches_read(), [_peak_gb(d) for d in cards]
 
 
 def _count_mesh_calls(progs) -> dict:
@@ -2684,7 +2822,8 @@ def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
     import statistics
     import torch
     mesh = progs._mesh
-    x = torch.zeros(1, device=progs.devices[0])
+    xs = [torch.zeros(1, device=d) for d in progs.devices]
+    cards = sorted(set(progs.devices), key=str)
 
     def timed(make):
         ts = []
@@ -2692,7 +2831,8 @@ def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
             bodies = [make(i) for i in range(progs.tp)]
             t = time.perf_counter()
             mesh.run(bodies)
-            torch.cuda.synchronize()
+            for d in cards:
+                torch.cuda.synchronize(d)
             ts.append((time.perf_counter() - t) * 1e3)
         return statistics.median(ts)
 
@@ -2701,7 +2841,7 @@ def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
 
         def body():
             for _ in range(TP_HANDOFF_GATHERS):
-                hook(x, 0)
+                hook(xs[i], 0)
         return body
     spawn = timed(lambda i: (lambda: None))
     gather_ms = max(timed(gathers) - spawn, 0.0) / TP_HANDOFF_GATHERS
@@ -2715,11 +2855,14 @@ def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
 def _serve_tp(name, tps) -> dict:
     """``name`` at full size (seeded random init, projections bf16) on
     the serve phase's trace at tp 1 and at each tp of ``tps``, the
-    shards co-located on the card by name; gated on streams, pools,
-    launches and one dispatch of each program."""
+    shards placed by ``device_plan`` (a card each, ``make_tp_devices``,
+    where there are enough cards, else co-located on the card by name);
+    gated on streams, pools, launches and one dispatch of each
+    program."""
     import gc
     import torch
     from repro_torch import configs
+    from repro_torch.launch.mesh import device_plan
     from repro_torch.launch.serve import synth_requests
     from repro_torch.models.lm import DecoderLM
     from repro_torch.serve import ServeOptions, ServePrograms
@@ -2736,10 +2879,11 @@ def _serve_tp(name, tps) -> dict:
     opts = opts.sized_for(trace())
     warm = synth_requests(cfg, 2, PROMPT_LEN, 4, rate=50.0, seed=1)
     opts.sized_for(warm).build(model, params, programs=one).run(warm)
-    base, st1, l1, peak1 = _tp_run(model, params, one, trace(), opts)
+    base, st1, l1, peak1 = _tp_run(model, params, one, trace(), opts,
+                                   [model.device])
     streams = {r.rid: r.generated for r in base.finished}
     readings = {1: {"tok_per_s": st1["tok_per_s"], "wall_s": st1["wall_s"],
-                    "peak_mem_gb": peak1, "launches": l1,
+                    "peak_mem_gb_per_card": peak1, "launches": l1,
                     "kv_pool_gb": 2 * base.cache.k_pages.nbytes / 1e9}}
     ok = len(streams) == TP_REQUESTS and all(
         len(s) == GEN for s in streams.values())
@@ -2750,13 +2894,21 @@ def _serve_tp(name, tps) -> dict:
                         f"{opts.batch} slots")
     counters = [k for k in st1 if k.startswith("n_")]
     launches = dict.fromkeys(PATH_COUNTERS, 0)
+    plans = {}
     for tp in tps:
-        devices = [model.device] * tp       # co-located, by name
-        progs = TPServePrograms(model, devices=devices)
+        devices, _ = device_plan(tp)
+        own = len(set(devices)) == tp
+        plans[tp] = {"devices": [str(d) for d in devices],
+                     "card_a_shard": own}
+        emit({"phase": "tp", "arch": cfg.name, "tp": tp, "plan": plans[tp]})
+        # a card a shard: the launcher's default (make_tp_devices)
+        progs = (TPServePrograms(model, tp=tp) if own else
+                 TPServePrograms(model, devices=devices))
         ptp = progs.prepare_params(params)
         opts.sized_for(warm).build(model, params, programs=progs).run(warm)
         tally = _count_mesh_calls(progs)
-        eng, st, lt, peak = _tp_run(model, params, progs, trace(), opts)
+        eng, st, lt, peak = _tp_run(model, params, progs, trace(), opts,
+                                    progs.devices)
         tally = dict(tally)             # the trace's calls only
         for k, v in lt.items():
             launches[k] += v
@@ -2764,7 +2916,7 @@ def _serve_tp(name, tps) -> dict:
         # page 0 is the null page: padding and masked rows write there,
         # in an order no one reads, so it is left out
         pools = {n: all(
-            torch.equal(piece[:, 1:], want[:, 1:])
+            torch.equal(piece[:, 1:].to(want.device), want[:, 1:])
             and piece.shape[-2] == cfg.n_kv_heads // tp
             for piece, want in zip(getattr(eng.cache, n).shards,
                                    getattr(base.cache, n).chunk(tp, -2)))
@@ -2789,7 +2941,7 @@ def _serve_tp(name, tps) -> dict:
                 for k, d in dispatch.items() if k != "pages_equal"),
             "dispatch_pools_equal": dispatch["pages_equal"]}
         readings[tp] = {"tok_per_s": st["tok_per_s"], "wall_s": st["wall_s"],
-                        "peak_mem_gb": peak, "launches": lt,
+                        "peak_mem_gb_per_card": peak, "launches": lt,
                         "kv_pool_gb_per_shard": 2 * pool_bytes[0] / 1e9,
                         "heads_per_shard": [cfg.n_heads // tp,
                                             cfg.n_kv_heads // tp],
@@ -2804,9 +2956,11 @@ def _serve_tp(name, tps) -> dict:
            "requests": TP_REQUESTS, "prompt_len": PROMPT_LEN, "gen": GEN,
            "batch": opts.batch, "admissions": base._admit_counter,
            "spec_k": opts.spec_k, "fused": opts.fused,
-           "n_pages": opts.n_pages, "by_tp": readings,
-           "note": "shards co-located on one card time-share it: no "
-                   "tensor-parallel speed-up is measured",
+           "n_pages": opts.n_pages, "by_tp": readings, "plans": plans,
+           "note": {tp: "a card a shard" if p["card_a_shard"] else
+                    "shards co-located on one card time-share it: no "
+                    "tensor-parallel speed-up is measured"
+                    for tp, p in plans.items()},
            "seconds": time.perf_counter() - t0, "card": nvidia_smi_line()}
     emit(rec)
     if failures:
@@ -2818,9 +2972,9 @@ def _serve_tp(name, tps) -> dict:
 
 
 def phase_tp():
-    """Tensor-parallel serving on one card (``TP_RUNS``), every shard
-    named ``cuda:0``.  Returns the path kernels' launches summed over
-    the tp-way engines' traces."""
+    """Tensor-parallel serving (``TP_RUNS``), a card a shard where there
+    are enough cards, else every shard named ``cuda:0``.  Returns the
+    path kernels' launches summed over the tp-way engines' traces."""
     total = dict.fromkeys(PATH_COUNTERS, 0)
     t0 = time.perf_counter()
     for name, tps in TP_RUNS:
@@ -4141,25 +4295,33 @@ def _mesh_grad_check(mesh, grads, shardings, ref) -> dict:
                                         if s[2] == 0 and s[1] > 0]}
 
 
-def _mesh_rank(rank, world, shape, job, root) -> None:
-    """One rank of a mesh run: every rank on ``cuda:0`` over gloo."""
+def _mesh_rank(rank, world, shape, job, root, devices, backend) -> None:
+    """One rank of a mesh run on ``devices[rank]`` over ``backend``;
+    NCCL raises on a collective that waits MESH_TIMEOUT_S (async error
+    handling) rather than blocking."""
     import torch
+    import torch.distributed as dist
     sys.path.insert(0, str(SRC))
+    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(2)
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.sharding import collectives
-    init_distributed("gloo", rank=rank, world_size=world,
+    init_distributed(backend, rank=rank, world_size=world,
                      init_method=f"file://{root}/store_{job}",
                      timeout_s=MESH_TIMEOUT_S)
-    mesh = make_mesh(shape, ("data", "model"), devices=[MESH_DEVICE] * world)
+    # make_mesh makes the rank's card the current device, which the
+    # syncs and peaks below read
+    mesh = make_mesh(shape, ("data", "model"), devices=devices)
     collectives.TIMING = True
     _mesh_sync(reset_peak=True)
-    rec = {"job": job, "rank": rank, "mesh": list(shape)}
+    rec = {"job": job, "rank": rank, "mesh": list(shape),
+           "device": str(mesh.device), "backend": mesh.backend}
     {"train": _mesh_train, "moe_decode": _mesh_moe_decode,
      "restore": _mesh_restore}[job](mesh, root, rec)
     rec["peak_gb"] = _mesh_peak_gb()
     (root / f"{job}_{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
 
 
 def _mesh_model(cfg, mesh):
@@ -4551,15 +4713,25 @@ def _mesh_restore(mesh, root, rec) -> None:
 
 
 def _mesh_spawn(job, shape, root) -> list:
-    """Run ``job`` on ``shape``'s ranks (torch.multiprocessing, every
-    rank on this card); a rank that fails fails the phase.  Returns
-    every rank's record."""
+    """Run ``job`` on ``shape``'s ranks (torch.multiprocessing, placed by
+    ``device_plan``); a rank that fails fails the phase, and so does a
+    job that has not ended in MESH_TIMEOUT_S (its ranks killed: a rank
+    that skips a collective the others issue would block them).
+    Returns every rank's record."""
     import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import device_plan
     world = int(np.prod(shape))
+    devices, backend = device_plan(world)
     t0 = time.perf_counter()
     try:
-        mp.spawn(_mesh_rank, args=(world, tuple(shape), job, root),
-                 nprocs=world, join=True)
+        ctx = mp.spawn(_mesh_rank, args=(world, tuple(shape), job, root,
+                                         devices, backend),
+                       nprocs=world, join=False)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"mesh [{job}]: the ranks ran past {MESH_TIMEOUT_S} s")
     except Exception as e:                           # noqa: BLE001
         fail(f"mesh [{job}]: a rank failed: {e}")
     recs = [json.loads((root / f"{job}_{r}.json").read_text())
@@ -4567,6 +4739,48 @@ def _mesh_spawn(job, shape, root) -> list:
     for r in recs:
         r["spawn_s"] = time.perf_counter() - t0
     return recs
+
+
+def _mesh_dry_tally() -> dict:
+    """The dry run's tally of the qwen3 SP pair's grad step (MESH_SP_LAYERS
+    layers, B x S MESH_B x MESH_S, one microbatch) under the default
+    rules and under SP_RULES on a dry (2, 2) mesh: by kind, the calls and
+    input bytes a live rank 0 must tally, and the bytes on the wire."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import collective_tally
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.sharding.rules import RULE_VARIANTS
+    cfg = dataclasses.replace(configs.get(MESH_ARCH), n_layers=MESH_SP_LAYERS)
+    mesh = make_dry_mesh(MESH_TRAIN_SHAPE, ("data", "model"))
+    shape = ShapeSpec("mesh_sp", MESH_S, MESH_B, "train")
+    return {tag: collective_tally(cfg, shape, mesh, RULE_VARIANTS[tag])
+            for tag in ("default", "sp")}
+
+
+def _mesh_tally_reading(live: dict, dry: dict) -> dict:
+    """By kind: rank 0's calls, input bytes and seconds (``TIMING``: the
+    device drained before and after each call), its GB/s of input and
+    of wire bytes, and the dry run's wire bytes and its predicted
+    seconds for them (over ``cost.HW.ici_link_bw``, no overlap)."""
+    from repro_torch.cost import HW
+    out = {}
+    for kind, rec in live.items():
+        d = dry.get(kind, {})
+        wire = d.get("wire_bytes", 0.0)
+        out[kind] = {**rec, "dry_calls": d.get("calls"),
+                     "dry_bytes": d.get("bytes"), "wire_bytes": wire,
+                     "gb_per_s": rec["bytes"] / rec["s"] / 1e9
+                     if rec["s"] else None,
+                     "wire_gb_per_s": wire / rec["s"] / 1e9
+                     if rec["s"] else None,
+                     "dry_predicted_s": wire / HW.ici_link_bw}
+    return out
+
+
+def _tally_counts(tally: dict) -> dict:
+    return {k: (v["calls"], v["bytes"]) for k, v in tally.items()}
 
 
 def _mesh_sum_launches(recs, key) -> dict:
@@ -4578,21 +4792,35 @@ def _mesh_sum_launches(recs, key) -> dict:
 
 
 def phase_mesh():
-    """The training mesh on the card: ranks of ``torch.distributed`` as
-    processes, every one on this card over gloo (NCCL refuses two ranks
-    on one device), the kernels built once before the spawn.  Returns
-    the launches of the mesh's grad steps, summed over the ranks."""
+    """The training mesh: ranks of ``torch.distributed`` as processes,
+    placed by ``device_plan`` (a card each over NCCL where there are
+    enough cards, else every one on this card over gloo: NCCL refuses
+    two ranks on one device), the kernels built once before the spawn.
+    The qwen3 SP pair's collectives on rank 0 are held equal to the dry
+    run's tally of the same step.  Returns the launches of the mesh's
+    grad steps, summed over the ranks."""
     import shutil
     import tempfile
     import torch
+    from repro_torch.launch.mesh import device_plan
     from repro_torch.runtime import plan_elastic_mesh
     t0 = time.perf_counter()
+    shape, _ = plan_elastic_mesh(2, model_parallel=MESH_TRAIN_SHAPE[1])
+    plans = {}
+    for job, mesh_shape in (("train", MESH_TRAIN_SHAPE),
+                            ("moe_decode", MESH_MOE_SHAPE),
+                            ("restore", shape)):
+        devices, backend = device_plan(int(np.prod(mesh_shape)))
+        plans[job] = {"mesh": list(mesh_shape), "backend": backend,
+                      "devices": [str(d) for d in devices]}
+    emit({"phase": "mesh", "plan": plans,
+          "cards_visible": torch.cuda.device_count()})
+    dry = _mesh_dry_tally()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     try:
         refs = _mesh_refs(root)
         train = _mesh_spawn("train", MESH_TRAIN_SHAPE, root)
         moe = _mesh_spawn("moe_decode", MESH_MOE_SHAPE, root)
-        shape, _ = plan_elastic_mesh(2, model_parallel=MESH_TRAIN_SHAPE[1])
         restore = _mesh_spawn("restore", shape, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4660,6 +4888,13 @@ def phase_mesh():
             **{f"forward_collectives_rank0_{tag}":
                first[f"{name}_{tag}_forward_collectives"]
                for tag in ("default", "sp")}}
+        if name == "qwen3":
+            for tag in ("default", "sp"):
+                live = first[f"qwen3_{tag}_collectives"]
+                gates[f"sp_qwen3_collectives_equal_dry_run_{tag}"] = (
+                    _tally_counts(live) == _tally_counts(dry[tag]))
+                sp[name][f"collectives_vs_dry_run_{tag}"] = \
+                    _mesh_tally_reading(live, dry[tag])
     families = {}
     for arch, layers, B, S in MESH_FAMILIES:
         cfg = _mesh_family_config(arch, layers)
@@ -4711,8 +4946,15 @@ def phase_mesh():
             "cache_leaves": m0[f"{arch}_cache_leaves"]}
     peaks = [r["peak_gb"] for r in train + moe + restore]
     rec = {"phase": "mesh", "nvidia_smi": nvidia_smi_line(),
-           "transport": "gloo, every rank on cuda:0 (staged through "
-           "pinned host memory)",
+           "plan": plans,
+           "transport": {job: (
+               "nccl, a card a rank" if p["backend"] == "nccl" else
+               "gloo, every rank on cuda:0 (staged through pinned host "
+               "memory)") for job, p in plans.items()},
+           "device_per_rank": {job: [r["device"] for r in recs]
+                               for job, recs in (("train", train),
+                                                 ("moe_decode", moe),
+                                                 ("restore", restore))},
            "train": {"arch": MESH_ARCH, "mesh": MESH_TRAIN_SHAPE,
                      "B": MESH_B, "S": MESH_S,
                      "loss_one_device": refs["train_loss"],
@@ -4825,11 +5067,14 @@ def summary_line(kernel_results, launches, by_phase):
 
 def main(phases=("env", "kernels", "paper", "serve", "parity",
                  "profile", "fleet", "archs", "tp", "families", "train",
-                 "train_families", "dryrun", "mesh")) -> int:
-    # one card: the first visible one (before torch sees the devices)
+                 "train_families", "dryrun", "mesh"), cards: int = 1) -> int:
+    """Run ``phases`` on the first ``cards`` visible cards (one by
+    default; with four, the kernels run on every card and the mesh's
+    ranks and the tp shards take a card each over NCCL)."""
+    # the first ``cards`` visible cards (before torch sees the devices)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    os.environ["CUDA_VISIBLE_DEVICES"] = (
-        "0" if visible is None else visible.split(",")[0])
+    ids = visible.split(",") if visible else [str(i) for i in range(cards)]
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(ids[:cards])
     try:
         import torch
     except ImportError:
@@ -4838,6 +5083,10 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs "
               "one GPU", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: {cards} cards asked for, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "

@@ -801,14 +801,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     using bf = __nv_bfloat16;
     constexpr int NT = WG * n_wg(DH);
     const size_t s1 = dq_smem_bytes<DH>(), s2 = dkdv_smem_bytes<DH>();
-    // once a process (the attributes stay set)
-    static const cudaError_t attr1 = cudaFuncSetAttribute(
+    // at every launch: a function's attributes belong to the current
+    // device's context, so a once-a-process setting would leave the
+    // kernels unset on a second card
+    cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)s1);
-    static const cudaError_t attr2 = cudaFuncSetAttribute(
-        flash_bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)s2);
-    cudaError_t err = attr1 != cudaSuccess ? attr1 : attr2;
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            flash_bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)s2);
     if (err != cudaSuccess) return (int)err;
     const float scale = 1.0f / sqrtf((float)DH);
     const int nq = (Sq + TILE - 1) / TILE;

@@ -286,11 +286,12 @@ cudaError_t launch_tile(const float* A, const float* B, float* C, float* ws,
                         int M, int N, int K, int tiles_per_chunk,
                         cudaStream_t stream) {
     using S = Shape<BM, BN>;
-    // once a process (the attribute stays set)
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    // at every launch: a function's attributes belong to the current
+    // device's context, so a once-a-process setting would leave the
+    // kernel unset on a second card
+    cudaError_t err = cudaFuncSetAttribute(
         gemm_f32_os<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)S::SMEM);
-    cudaError_t err = attr;
     if (err != cudaSuccess) return err;
     const int nk = (K + BK - 1) / BK;
     const int chunks = (nk + tiles_per_chunk - 1) / tiles_per_chunk;

@@ -574,15 +574,18 @@ inline cudaError_t maps_for(const Args& a, CUtensorMap* ma, CUtensorMap* mb) {
     return cudaSuccess;
 }
 
+// the current device's SM count, read once a device (cards of one
+// process may differ)
 inline int sm_count() {
-    static int n = 0;
-    if (n == 0) {
-        int dev = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-                cudaSuccess)
-            n = 1;
-    }
+    constexpr int MAX_DEVICES = 64;
+    static int counts[MAX_DEVICES] = {};
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+    if (dev < MAX_DEVICES && counts[dev] > 0) return counts[dev];
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n < 1)
+        n = 1;
+    if (dev < MAX_DEVICES) counts[dev] = n;
     return n;
 }
 

@@ -58,17 +58,17 @@ from .. import configs
 from ..configs import shape_by_name
 from ..data.specs import decode_token_specs, train_axes, train_specs
 from ..models import build_model
-from ..sharding import spmd
+from ..sharding import collectives, spmd
 from ..sharding.rules import (DEFAULT_RULES, RULE_VARIANTS, active_rules,
                               logical_spec, set_active_rules,
                               tree_shardings)
 from ..train.optimizer import OptConfig, init_opt_state
-from ..train.step import auto_microbatches, make_train_step
+from ..train.step import auto_microbatches, make_grad_fn, make_train_step
 from ..cost import HW, OpCounter
 from .mesh import MULTI_POD_SHAPE, PRODUCTION_SHAPE, make_dry_mesh
 
-__all__ = ["apply_overrides", "build_step", "run_cell", "main",
-           "dry_mesh_for", "memory_of", "model_flops", "trace"]
+__all__ = ["apply_overrides", "build_step", "collective_tally", "run_cell",
+           "main", "dry_mesh_for", "memory_of", "model_flops", "trace"]
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
@@ -159,14 +159,17 @@ def _cache(model, batch: int, seq: int, mesh, rules) -> dict:
     return cache
 
 
-def build_step(arch: str, shape, mesh, rules=DEFAULT_RULES, cfg=None):
+def build_step(arch: str, shape, mesh, rules=DEFAULT_RULES, cfg=None,
+               n_micro: Optional[int] = None, grad: bool = False):
     """(step function, its arguments on meta, meta) of one cell on the
     dry mesh ``mesh`` (None: one device, no mesh): the train step at
-    the reference's microbatch count (``auto_microbatches`` at dp = pod
-    x data), the model's ``prefill`` or its ``decode_step``.  ``shape``
-    is a ``ShapeSpec`` or the name of one of ``SHAPES``.  ``rules``
-    places the arguments; the activations follow the rules active when
-    the step runs (``run_cell`` sets them)."""
+    ``n_micro`` microbatches (default the reference's count,
+    ``auto_microbatches`` at dp = pod x data; with ``grad`` its
+    gradient alone, ``make_grad_fn``, no AdamW), the model's
+    ``prefill`` or its ``decode_step``.  ``shape`` is a ``ShapeSpec``
+    or the name of one of ``SHAPES``.  ``rules`` places the arguments;
+    the activations follow the rules active when the step runs
+    (``run_cell`` sets them)."""
     cfg = cfg or configs.get(arch)
     if isinstance(shape, str):
         shape = shape_by_name(shape)
@@ -177,12 +180,15 @@ def build_step(arch: str, shape, mesh, rules=DEFAULT_RULES, cfg=None):
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         dp = 1 if mesh is None else mesh.axis_size(mesh.data_axes())
-        n_micro = auto_microbatches(cfg, B, S, dp)
+        n_micro = n_micro or auto_microbatches(cfg, B, S, dp)
         meta["n_micro"] = n_micro
+        batch = _batch(cfg, B, S, mesh, rules)
+        if grad:
+            return make_grad_fn(model, cfg, n_micro=n_micro), (params,
+                                                              batch), meta
         opt = OptConfig(keep_master=(cfg.param_dtype != "float32"))
         step = make_train_step(model, cfg, opt=opt, n_micro=n_micro)
-        return step, (params, init_opt_state(params, opt),
-                      _batch(cfg, B, S, mesh, rules)), meta
+        return step, (params, init_opt_state(params, opt), batch), meta
     if shape.kind == "prefill":
         return model.prefill, (params, _batch(cfg, B, S, mesh, rules)), meta
     tok, tok_axes = decode_token_specs(cfg, B)
@@ -227,6 +233,31 @@ def trace(fn, args, mesh=None):
         counter.track(_tensors(args))
         out = fn(*args)
     return out, counter, time.time() - t0
+
+
+def collective_tally(cfg, shape, mesh, rules=DEFAULT_RULES,
+                     n_micro: int = 1) -> dict:
+    """``collectives.stats()`` of rank 0's grad step (``build_step``
+    with ``grad``) of ``cfg`` at ``shape`` on the dry mesh ``mesh``,
+    traced under ``rules`` with the arguments placed by the default
+    rules, as a live step on a mesh places them (its batch cut before
+    the rules are set): every collective's calls and the bytes of its
+    input buffers, which a live rank's tally of the same step must
+    equal, and (``wire_bytes``) the bytes it puts on the wire.  Resets
+    the tally; the previous rules are restored after."""
+    before = active_rules()
+    collectives.reset_stats()
+    try:
+        fn, args, _ = build_step(cfg.name, shape, mesh, cfg=cfg,
+                                 n_micro=n_micro, grad=True)
+        set_active_rules(rules)
+        _, counter, _ = trace(fn, args, mesh)
+    finally:
+        set_active_rules(before)
+    tally = collectives.stats()
+    for kind, rec in tally.items():
+        rec["wire_bytes"] = counter.cost.coll_bytes[kind.replace("_", "-")]
+    return tally
 
 
 def model_flops(cfg, shape_name: str, world: int) -> dict:

@@ -23,10 +23,12 @@ it back.
 as ``torchrun`` sets it, or the device of its index in a list handed to
 ``make_mesh``.  The backend is chosen up front from that list: NCCL when
 every rank has a card of its own, gloo when ranks share a device (NCCL
-refuses two ranks on one card; the co-located ranks of
-``chip_smoke.py`` are the case) or compute on the CPU.  A gloo
+refuses two ranks on one card) or compute on the CPU.  A gloo
 collective on CUDA tensors is staged through pinned host memory (see
 ``sharding/collectives.py``); the arithmetic stays on the card.
+``device_plan(n)`` lays out ``n`` ranks (or tensor-parallel shards) on
+the visible cards: one card each where there are enough, else all on
+``cuda:0``.
 
 A one-rank mesh needs no process group: every collective over it is
 the identity, so a ``(1, 1)`` mesh computes what no mesh computes.
@@ -55,7 +57,7 @@ from ..sharding.rules import spec_axes
 
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_local_mesh",
            "make_dry_mesh", "current_mesh", "init_distributed",
-           "choose_backend"]
+           "choose_backend", "device_plan"]
 
 #: the reference's production meshes: (data, model), and 2 pods of them
 PRODUCTION_SHAPE = (16, 16)
@@ -76,6 +78,18 @@ def choose_backend(devices: Sequence) -> str:
     if any(d.type != "cuda" for d in devs):
         return "gloo"
     return "nccl" if len(set(map(str, devs))) == len(devs) else "gloo"
+
+
+def device_plan(n: int) -> tuple:
+    """(devices, backend) of ``n`` ranks or shards: ``cuda:r`` for the
+    r-th where at least ``n`` cards are visible (NCCL), else every one
+    on ``cuda:0`` (gloo; the ranks time-share the card).  Never a mix:
+    with too few cards for one each, none gets a card of its own."""
+    if torch.cuda.device_count() >= n:
+        devices = [torch.device("cuda", r) for r in range(n)]
+    else:
+        devices = [torch.device("cuda", 0)] * n
+    return devices, choose_backend(devices)
 
 
 def _env_rank() -> int:

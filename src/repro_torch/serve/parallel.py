@@ -35,7 +35,10 @@ call runs each shard's step in its own thread; the threads take turns,
 one running at a time in mesh order, and hand the turn on at each
 gather, so every shard reaches gather g before any reads it.  Work is
 issued to the devices asynchronously, so shards on distinct cards
-overlap on the devices while their host code takes turns.  Host-side
+overlap on the devices while their host code takes turns.  Each thread
+runs with its shard's card as the current device (the kernels launch
+there); a gather copies the other shards' pieces card to card, ordered
+after the work that wrote them on their cards' streams.  Host-side
 scheduling (``scheduler.py``, ``kv_cache.py``: allocator, prefix trie,
 COW, speculation) is untouched: page ids are device-agnostic, and a
 page copy copies in every shard.

@@ -202,6 +202,8 @@ def runs(tmp_path_factory):
     payload["sp_indivisible"] = {"cfg": dense["cfg"],
                                  "params": dense["params"], "B": B,
                                  "S": ODD_S}
+    payload["tally"] = {"cfg": configs.get_smoke("qwen3-0.6b"), "B": B,
+                        "S": S}
     return {"tmp": tmp, "payload": payload, "refs": refs,
             "out": ranks.spawn("mesh22", MESH, tmp, payload)}
 
@@ -455,6 +457,40 @@ def test_sp_indivisible_length_is_default_layout(runs):
     for out in runs["out"]:
         assert out["sp_indivisible"] == {"loss": True, "tally": True,
                                          "grads": True}
+
+
+@pytest.mark.parametrize("rules", ["default", "sp"])
+def test_live_collectives_equal_dry_run_tally(runs, rules):
+    """Rank 0's collectives in the grad step of qwen3 smoke (bf16, as
+    the dry run's kernels take it) on (2, 2), calls and input bytes by
+    kind, are the tally of the same step, config, batch, microbatches
+    and rules traced on ``make_dry_mesh((2, 2))``: the dry run counts
+    what runs."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import collective_tally
+    from repro_torch.sharding.rules import RULE_VARIANTS
+    case = runs["payload"]["tally"]
+    live = runs["out"][0]["tally"][rules]
+    dry = collective_tally(case["cfg"], ShapeSpec("mesh22", S, B, "train"),
+                           tmesh.make_dry_mesh(MESH, ("data", "model")),
+                           RULE_VARIANTS[rules])
+
+    def counts(tally):
+        return {k: (v["calls"], v["bytes"]) for k, v in tally.items()}
+    assert counts(live) and counts(live) == counts(dry)
+
+
+@pytest.mark.parametrize("cards,backend", [(1, "gloo"), (2, "gloo"),
+                                           (4, "nccl")])
+def test_device_plan(monkeypatch, cards, backend):
+    """Four ranks take a card each over NCCL where four cards are
+    visible; with fewer, every rank shares ``cuda:0`` over gloo (never a
+    mix)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    devices, got = tmesh.device_plan(4)
+    want = ([torch.device("cuda", r) for r in range(4)] if cards >= 4
+            else [torch.device("cuda", 0)] * 4)
+    assert devices == want and got == backend
 
 
 def test_expert_parallel_moe_matches_reference_shards(runs):

@@ -255,6 +255,20 @@ def sp_indivisible(mesh, case) -> dict:
             "grads": all(torch.equal(x, y) for x, y in zip(a[1], b[1]))}
 
 
+def tally_case(mesh, case) -> dict:
+    """The collectives' tally of the grad step under the default rules
+    and under ``SP_RULES``, seeded parameters in the config's own
+    dtypes (the dry run's kernels take bf16)."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, model.init(seed=0))
+    batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+        0, mesh=mesh)
+    return {name: _grads(mesh, model, cfg, params, sh, batch, 1, rules)[2]
+            for name, rules in (("default", DEFAULT_RULES),
+                                ("sp", SP_RULES))}
+
+
 def mesh22(mesh, tmp, payload) -> dict:
     """Everything the (2, 2) group checks, in one spawn."""
     out = {name: train_case(mesh, case)
@@ -263,6 +277,7 @@ def mesh22(mesh, tmp, payload) -> dict:
     out["sp_prefill"] = {name: sp_prefill(mesh, case) for name, case in
                          payload["sp_prefill"].items()}
     out["sp_indivisible"] = sp_indivisible(mesh, payload["sp_indivisible"])
+    out["tally"] = tally_case(mesh, payload["tally"])
     out["ep"] = moe_case(mesh, payload["ep"])
     out["cross_kv"] = cross_kv_case(mesh, payload["cross_kv"])
     out["ep_model"] = model_logits(mesh, payload["ep_model"])
