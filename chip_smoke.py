@@ -213,7 +213,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                device exactly 6 N_active tokens / 256, and the traced
                FLOPs a device and the dataflow GEMM's share at or below
                DRYRUN_FLOPS + 1 %, which a rank projecting every KV
-               head, not only those its query heads read, exceeds).
+               head, not only those its query heads read, exceeds);
+               llama4-scout-17b-a16e and rwkv6-3b ``train_4k`` the same,
+               rwkv6 at 4 of its 32 layers (``model`` = 16 does not
+               divide their 40 heads: rank 0 computes 3, and a rank
+               running the whole attention exceeds the gate about
+               3- to 4-fold).
 14. **mesh**   the training mesh (``launch/mesh.py``, ``sharding/``):
                ranks as processes (``torch.multiprocessing``), placed by
                ``device_plan``: a card a rank over NCCL where there are
@@ -238,10 +243,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                against the single device under the same gates;
                recurrentgemma's attention on (2, 2) splits its 10 query
                heads while each rank projects only the one KV head they
-               read.  Rank 0's collectives in the qwen3 grad step under
-               the default rules and SP_RULES (calls and bytes by kind)
-               equal the dry run's tally of the same step on a dry
-               (2, 2) mesh (gated).  Step ms and peak GB per rank, and
+               read.  whisper-tiny's first grad step also runs on
+               (1, 4), where ``model`` does not divide its 6 heads: the
+               ranks compute 2, 1, 2 and 1 of them in every attention
+               (``spmd.rank_heads``), held to the same single-device
+               gradients, each rank's launches the single device's,
+               and rank 0's collectives equal the dry run's tally of
+               the step on a dry (1, 4) mesh.  Rank 0's collectives in the qwen3 grad
+               step under the default rules and SP_RULES (calls and
+               bytes by kind) equal the dry run's tally of the same
+               step on a dry (2, 2) mesh (gated).  Step ms and peak GB per rank, and
                the collectives' seconds and GB/s beside the dry run's
                predicted seconds, are readings.
 
@@ -488,12 +499,15 @@ MESH_CLOSE_TOL, MESH_CLOSE_FRAC = 3e-2, 0.98
 # 10 heads split over model but its one KV head does not: each rank
 # projects only that head (the one its 5 query heads read) and repeats
 # it to them.  On (1, 4) whisper's 6 and recurrentgemma's 10 heads do
-# not divide 4: their attention runs whole on every rank, their FFN /
-# RG-LRU split.
+# not divide 4: a decode step runs their attention whole on every rank
+# (the caches hold every head), their FFN / RG-LRU split; whisper's
+# first grad step on (1, 4) splits its heads unevenly, 2 / 1 / 2 / 1 a
+# rank (MESH_UNEVEN), held to the same single-device gradients.
 MESH_FAMILIES = (("whisper-tiny", None, 8, 64),
                  ("recurrentgemma-2b", 3, 2, 4096),
                  ("rwkv6-3b", 2, 4, 256))
 MESH_FAMILY_DECODE_STEPS = 8
+MESH_UNEVEN = "whisper-tiny"
 MESH_TIMEOUT_S = 600
 MESH_DEVICE = "cuda:0"
 # sequence parallelism (SP_RULES: the residual stream on sequence shards
@@ -509,22 +523,36 @@ MESH_SP_LAYERS = 2
 # dryrun phase: the anchors' model and shapes (the train phase's B x S;
 # a decode step over a cache of DRYRUN_PROMPT + GEN positions), the
 # traced peak's tolerance against max_memory_allocated, and the
-# production cells traced beside them (rank 0 of (16, 16))
+# production cells traced beside them (rank 0 of (16, 16); each with its
+# config overrides: rwkv6-3b at 4 of 32 layers, one microbatch, traced
+# in ~9 s, where its 32 layers at 8 microbatches took 483 s on the H100
+# host's CPU beside the mesh phase)
 DRYRUN_ARCH = "qwen3-0.6b"
 DRYRUN_PROMPT = 256
 DRYRUN_PEAK_TOL = 0.10
-DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen1.5-110b", "train_4k"))
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", {}),
+                ("qwen1.5-110b", "train_4k", {}),
+                ("llama4-scout-17b-a16e", "train_4k", {}),
+                ("rwkv6-3b", "train_4k", {"n_layers": "4"}))
 DRYRUN_TIMEOUT_S = 300
 # each production cell's FLOPs a device (``loop_aware.flops``, and the
 # dataflow GEMM's share, ``kernels.gemm_dataflow.flops``) as the dry run
 # traced them on a CPU once a rank of model projected only the KV heads
-# its query heads read (PERF.md section 6); gated at or below each
-# times 1 + DRYRUN_FLOPS_TOL, so that whole K/V products (qwen3 55.97 /
-# 43.29 T, qwen1.5-110b 4,355 / 4,222 T) fail
+# its query heads read and, where model does not divide H, computed
+# only its own run of whole heads, and RWKV6's channel gate formed
+# only the rank's columns of its weight gradient (PERF.md sections 5
+# and 6); gated at or below each times 1 + DRYRUN_FLOPS_TOL, so that
+# whole K/V products (qwen3 55.97 / 43.29 T, qwen1.5-110b 4,355 / 4,222
+# T), a whole attention on every rank (scout 2,651.5 T) and a whole
+# gate gradient on every rank (rwkv6 at 4 layers 31.68 T) fail
 DRYRUN_FLOPS = {("qwen3-0.6b", "train_4k"): (28966660143226.0,
                                              16355235463168.0),
                 ("qwen1.5-110b", "train_4k"): (3738704297058538.0,
-                                               3606398139105280.0)}
+                                               3606398139105280.0),
+                ("llama4-scout-17b-a16e", "train_4k"): (650567625551361.0,
+                                                        331915072634880.0),
+                ("rwkv6-3b", "train_4k"): (28454597373430.0,
+                                           24094766530560.0)}
 DRYRUN_FLOPS_TOL = 0.01
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
@@ -601,7 +629,8 @@ def time_ms(fn, *, iters: int = 20, flush=None,
 def device_ms(fn, calls: int = 10, by_kernel: bool = False):
     """Device time of one call of ``fn``: the kernels' own time summed
     from a ``torch.profiler`` trace of ``calls`` back-to-back calls
-    (after one warm-up call), host launch gaps excluded.  At decode
+    (after one warm-up call), host launch gaps excluded (included
+    where the trace holds no device event).  At decode
     sizes a call's host work (the wrapper, two launches) can outlast
     the L2 flush that ``time_ms`` puts before it, and then ``time_ms``
     reads the host's time as well.  With ``by_kernel``, also {kernel
@@ -609,6 +638,13 @@ def device_ms(fn, calls: int = 10, by_kernel: bool = False):
     fn()
     prof = _device_profile(lambda: [fn() for _ in range(calls)])
     total = prof["device_busy_ms"] / calls
+    if total <= 0:
+        # the trace holds no device event (seen on one H100 host for a
+        # library GEMM): CUDA events around the same back-to-back calls,
+        # the host's launch gaps included, and no split by kernel
+        total = time_ms(lambda: [fn() for _ in range(calls)],
+                        iters=3) / calls
+        return (total, {}) if by_kernel else total
     if not by_kernel:
         return total
     return total, {_kernel_name_of(name): ms / calls
@@ -4009,12 +4045,14 @@ def _dry_cells_start():
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
     procs = []
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, over in DRYRUN_CELLS:
         with open(root / f"{arch}__{shape}.log", "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--mesh", "single",
-                 "--out", str(root)],
+                 "--out", str(root),
+                 *(a for k, v in over.items() for a in ("--set",
+                                                         f"{k}={v}"))],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
 
     def stop():
@@ -4033,8 +4071,9 @@ def _dry_cells_finish(procs, root) -> list:
     the traced FLOPs a device and the GEMM's share at or below
     DRYRUN_FLOPS within DRYRUN_FLOPS_TOL."""
     from repro_torch import configs
+    from repro_torch.launch.dryrun import apply_overrides
     out = []
-    for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
+    for (arch, shape, over), proc in zip(DRYRUN_CELLS, procs):
         try:
             proc.wait(timeout=DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -4047,14 +4086,15 @@ def _dry_cells_finish(procs, root) -> list:
         res = json.loads((root / f"{arch}__{shape}__single.json")
                          .read_text())
         s = configs.shape_by_name(shape)
-        want = 6 * configs.get(arch).n_active_params() * s.global_batch \
-            * s.seq_len / 256
+        want = 6 * apply_overrides(configs.get(arch), over).n_active_params() \
+            * s.global_batch * s.seq_len / 256
         mem, roof = res["memory"], res["roofline"]
         flops = res["loop_aware"]["flops"]
         gemm = res["kernels"]["gemm_dataflow"]["flops"]
         cap = [f * (1 + DRYRUN_FLOPS_TOL) for f in DRYRUN_FLOPS[arch, shape]]
         out.append({
-            "arch": arch, "shape": shape, "mesh": [16, 16],
+            "arch": arch, "shape": shape, "overrides": over,
+            "mesh": [16, 16],
             "world": res["world"], "n_micro": res["n_micro"],
             "per_device_gb": mem["per_device_bytes"] / 1e9,
             "argument_gb": mem["argument_bytes"] / 1e9,
@@ -4337,16 +4377,25 @@ def _mesh_model(cfg, mesh):
     return model, params, sh
 
 
-def _mesh_grads(mesh, model, cfg, params, batch, sh, ref, rec, name):
+def _mesh_grads(mesh, model, cfg, params, batch, sh, ref, rec, name,
+                tally: bool = False):
+    """The grad step's loss, launches, seconds and leaves against
+    ``ref`` (``_mesh_grad_check``); with ``tally`` also the step's own
+    collectives (the check's all-reduce left out)."""
     import torch
+    from repro_torch.sharding import collectives
     from repro_torch.train.step import make_grad_fn
     _train_launches_reset()
+    if tally:
+        collectives.reset_stats()
     with mesh:
         _mesh_sync()
         t0 = time.perf_counter()
         loss, _, grads = make_grad_fn(model, cfg)(params, batch)
         _mesh_sync()
         rec[f"{name}_grad_s"] = time.perf_counter() - t0
+        if tally:
+            rec[f"{name}_collectives"] = collectives.stats()
         rec[f"{name}_launches"] = _train_launches()
         rec[f"{name}_loss"] = float(loss)
         rec.update({f"{name}_{k}": v for k, v in _mesh_grad_check(
@@ -4623,6 +4672,27 @@ def _mesh_moe_decode(mesh, root, rec) -> None:
     del params, cache
     _mesh_free()
     _mesh_family_decode(mesh, root, rec)
+    _mesh_uneven(mesh, root, rec)
+
+
+def _mesh_uneven(mesh, root, rec) -> None:
+    """(1, 4): MESH_UNEVEN's first grad step (MESH_FAMILIES' batch),
+    whose heads ``model`` = 4 does not divide, so each rank computes its
+    own run of whole heads (``spmd.rank_heads``), against the single
+    device's gradients that ``_mesh_refs`` wrote for (2, 2); the step's
+    collectives (for the dry run's tally) and its peak."""
+    from repro_torch.data import SyntheticPipeline
+    _, layers, B, S = next(f for f in MESH_FAMILIES if f[0] == MESH_UNEVEN)
+    cfg = _mesh_family_config(MESH_UNEVEN, layers)
+    model, params, sh = _mesh_model(cfg, mesh)
+    _mesh_sync(reset_peak=True)
+    _mesh_grads(mesh, model, cfg, params,
+                SyntheticPipeline(cfg, B, S).device_batch(0, mesh=mesh), sh,
+                root / f"{MESH_UNEVEN}_grads_ref.pt", rec, "uneven",
+                tally=True)
+    rec["uneven_peak_gb"] = _mesh_peak_gb()
+    del params
+    _mesh_free()
 
 
 def _mesh_family_decode(mesh, root, rec) -> None:
@@ -4744,7 +4814,8 @@ def _mesh_spawn(job, shape, root) -> list:
 def _mesh_dry_tally() -> dict:
     """The dry run's tally of the qwen3 SP pair's grad step (MESH_SP_LAYERS
     layers, B x S MESH_B x MESH_S, one microbatch) under the default
-    rules and under SP_RULES on a dry (2, 2) mesh: by kind, the calls and
+    rules and under SP_RULES on a dry (2, 2) mesh, and (``uneven``) of
+    MESH_UNEVEN's grad step on a dry (1, 4) mesh: by kind, the calls and
     input bytes a live rank 0 must tally, and the bytes on the wire."""
     import dataclasses
     from repro_torch import configs
@@ -4755,8 +4826,14 @@ def _mesh_dry_tally() -> dict:
     cfg = dataclasses.replace(configs.get(MESH_ARCH), n_layers=MESH_SP_LAYERS)
     mesh = make_dry_mesh(MESH_TRAIN_SHAPE, ("data", "model"))
     shape = ShapeSpec("mesh_sp", MESH_S, MESH_B, "train")
-    return {tag: collective_tally(cfg, shape, mesh, RULE_VARIANTS[tag])
-            for tag in ("default", "sp")}
+    out = {tag: collective_tally(cfg, shape, mesh, RULE_VARIANTS[tag])
+           for tag in ("default", "sp")}
+    _, layers, B, S = next(f for f in MESH_FAMILIES if f[0] == MESH_UNEVEN)
+    out["uneven"] = collective_tally(
+        _mesh_family_config(MESH_UNEVEN, layers),
+        ShapeSpec("mesh_uneven", S, B, "train"),
+        make_dry_mesh(MESH_MOE_SHAPE, ("data", "model")))
+    return out
 
 
 def _mesh_tally_reading(live: dict, dry: dict) -> dict:
@@ -4804,6 +4881,7 @@ def phase_mesh():
     import torch
     from repro_torch.launch.mesh import device_plan
     from repro_torch.runtime import plan_elastic_mesh
+    from repro_torch.sharding import spmd
     t0 = time.perf_counter()
     shape, _ = plan_elastic_mesh(2, model_parallel=MESH_TRAIN_SHAPE[1])
     plans = {}
@@ -4895,6 +4973,40 @@ def phase_mesh():
                     _tally_counts(live) == _tally_counts(dry[tag]))
                 sp[name][f"collectives_vs_dry_run_{tag}"] = \
                     _mesh_tally_reading(live, dry[tag])
+    ucfg = _mesh_family_config(
+        MESH_UNEVEN, next(f for f in MESH_FAMILIES if f[0] == MESH_UNEVEN)[1])
+    gates.update({
+        "uneven_heads_do_not_divide": ucfg.n_heads % MESH_MOE_SHAPE[1] != 0,
+        "uneven_loss_close": abs(m0["uneven_loss"]
+                                 - refs[f"{MESH_UNEVEN}_loss"])
+        <= GRAD_LOSS_TOL,
+        "uneven_grads_close": m0["uneven_grad_rel_l2_max"] <= GRAD_REL_L2,
+        "uneven_every_leaf_has_a_gradient":
+            not m0["uneven_leaves_without_gradient"],
+        "uneven_launches_equal_per_rank": all(
+            r["uneven_launches"] == m0["uneven_launches"] for r in moe),
+        "uneven_launches_equal_one_device": all(
+            r["uneven_launches"] == refs[f"{MESH_UNEVEN}_launches"]
+            for r in moe),
+        "uneven_collectives_equal_dry_run": (
+            _tally_counts(m0["uneven_collectives"])
+            == _tally_counts(dry["uneven"]))})
+    uneven = {
+        "arch": MESH_UNEVEN, "mesh": MESH_MOE_SHAPE,
+        "heads": ucfg.n_heads,
+        "heads_per_rank": [len(spmd.rank_heads(ucfg.n_heads,
+                                               MESH_MOE_SHAPE[1], r))
+                           for r in range(MESH_MOE_SHAPE[1])],
+        "loss_one_device": refs[f"{MESH_UNEVEN}_loss"],
+        "loss_mesh": m0["uneven_loss"],
+        "grad_rel_l2_max": m0["uneven_grad_rel_l2_max"],
+        "grad_rel_l2_worst_leaf": m0["uneven_grad_rel_l2_worst_leaf"],
+        "launches_one_device": refs[f"{MESH_UNEVEN}_launches"],
+        "launches_per_rank": [r["uneven_launches"] for r in moe],
+        "grad_s_per_rank": [r["uneven_grad_s"] for r in moe],
+        "peak_gb_per_rank": [r["uneven_peak_gb"] for r in moe],
+        "collectives_vs_dry_run": _mesh_tally_reading(
+            m0["uneven_collectives"], dry["uneven"])}
     families = {}
     for arch, layers, B, S in MESH_FAMILIES:
         cfg = _mesh_family_config(arch, layers)
@@ -4998,6 +5110,7 @@ def phase_mesh():
                           "leaves": s0["restored_leaves"],
                           "spawn_s": s0["spawn_s"]},
            "families": families,
+           "uneven": uneven,
            "sp": sp,
            "peak_gb_per_rank": peaks,
            "peak_gb_sum_train": sum(r["peak_gb"] for r in train),
@@ -5008,7 +5121,7 @@ def phase_mesh():
     if bad:
         fail(f"mesh: gates failed: {bad}")
     launches = _mesh_sum_launches(train, "train_launches")
-    for recs, key in ((moe, "moe_launches"),
+    for recs, key in ((moe, "moe_launches"), (moe, "uneven_launches"),
                       *((train, f"{a[0]}_launches") for a in MESH_FAMILIES),
                       *((recs, f"{name}_{tag}_launches")
                         for name, recs in (("qwen3", train), ("moe", moe))

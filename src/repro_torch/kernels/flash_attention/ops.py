@@ -35,6 +35,10 @@ step is a deterministic function of its inputs), whose plain version is
 reference trains: causal or not, a sliding ``window`` (local
 attention), Sq != Skv (cross-attention), Dh 64, 128 or 256, q_offset 0
 (no training path passes another).
+
+A call with no heads (H = KVH = 0: a rank of ``model`` that holds none,
+``sharding.spmd.rank_heads``) launches nothing and returns empty
+results, forward and backward.
 """
 from __future__ import annotations
 
@@ -224,7 +228,7 @@ def _check(q, k, v):
     if k.shape[0] != B or k.shape[3] != Dh:
         raise ValueError(f"k/v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    if H % k.shape[2]:
+    if (H % k.shape[2]) if k.shape[2] else H:
         raise ValueError(f"H={H} is not a multiple of KVH={k.shape[2]}")
 
 
@@ -249,6 +253,11 @@ def _forward(q, k, v, q_offset, causal, window, want_lse):
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.shape[2] == 0:
+        # no heads (a rank of model that holds none): nothing to launch
+        lse = q.new_empty((q.shape[0], 0, q.shape[1]),
+                          dtype=torch.float32)
+        return (torch.empty_like(q), lse) if want_lse else torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_offset, causal, window,
                                      return_lse=want_lse)
@@ -467,6 +476,8 @@ def flash_attention_bwd(q, k, v, lse, dout, causal: bool = True,
     output's gradient ``dout``: the kernels for CUDA tensors, the plain
     version for CPU tensors."""
     _check_bwd(q, k, v, window)
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, dout, causal, window)
     if q.device.type not in ("cuda", "meta"):

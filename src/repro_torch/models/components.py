@@ -60,10 +60,10 @@ from ..kernels.gemm_dataflow.ops import LinearFn, project, project_f32
 from ..kernels.paged_attention import paged_attention
 from ..sharding.collectives import (all_gather, all_reduce, fanout, gather,
                                     reduce, reduce_scatter, scatter, split)
-from ..sharding.spmd import MODEL, rank_kv_heads
+from ..sharding.spmd import MODEL, rank_heads, rank_kv_heads
 from .base import ParamSpec, normal, ones, zeros
 
-__all__ = ["linear", "fanout_linear", "row_sum", "rms_norm", "layer_norm",
+__all__ = ["linear", "fanout_linear", "replicated_linear", "row_sum", "rms_norm", "layer_norm",
            "norm_specs",
            "apply_norm", "group_norm_heads", "rope_freqs", "apply_rope", "apply_mrope",
            "sinusoid_pos", "sinusoid_pos_at", "attn_specs", "project_qkv",
@@ -102,7 +102,8 @@ def linear(x, w, bias=None, f32_out: bool = False):
     row-parallel partial sum, rounded once after the sum over
     ``model``)."""
     w = w.to(x.dtype)
-    x2 = x.reshape(-1, x.shape[-1])
+    # the rows named, not -1: a rank with no heads has K = 0
+    x2 = x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
     if _needs_grad(x, w):
         y = LinearFn.apply(x2, w, f32_out)
     else:
@@ -218,10 +219,50 @@ class _GatherLinearFn(torch.autograd.Function):
         return (dx, None, *dws)
 
 
+def replicated_linear(x, w, tp):
+    """``linear(x, w)`` of a weight that every rank of ``model`` holds
+    whole, on an x and an output gradient that every rank holds alike
+    (the replicated stream of the default rules, or a gradient
+    all-gathered whole), so that every rank would compute the same
+    dW = x^T dY: each computes only its 1 / m of dW's columns and one
+    all-gather over ``model`` hands every rank the whole, as GSPMD
+    partitions such a gradient.  The forward and dX are ``linear``'s; on
+    the CPU a column of dW has the whole product's bits."""
+    if (tp is None or tp.size == 1 or w.shape[1] % tp.size
+            or not _needs_grad(w)):
+        return linear(x, w)
+    w = w.to(x.dtype)
+    y = _ReplicatedLinearFn.apply(x.reshape(-1, x.shape[-1]), w, tp.mesh)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+class _ReplicatedLinearFn(torch.autograd.Function):
+    """``x @ w`` (``replicated_linear``): dX = dY w^T as ``LinearFn``'s,
+    dW this rank's columns of x^T dY, all-gathered over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = mesh
+        return project(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = project(dy, w.t().contiguous()) if ctx.needs_input_grad[0] \
+            else None
+        n = w.shape[1] // ctx.mesh.axis_size(MODEL)
+        cols = dy.narrow(1, ctx.mesh.axis_index(MODEL) * n, n).contiguous()
+        dw = all_gather(project(x.t().contiguous(), cols), ctx.mesh, MODEL,
+                        1)
+        return dx, dw, None
+
+
 def whole_sequence(fn, x, tp):
     """``fn(x, tp)`` of a block whose work does not split over
-    ``model`` (heads, hidden dim or width that ``model`` does not
-    divide, a prefill that builds a cache): with ``tp.seq`` the
+    ``model`` (a hidden dim or width that ``model`` does not divide;
+    heads in a prefill that builds a cache): with ``tp.seq`` the
     sequence shard x is all-gathered, ``fn`` runs on the whole sequence
     exactly as without sequence parallelism (duplicated on every rank,
     its gradients whole on every rank), and each rank keeps its rows of
@@ -445,11 +486,13 @@ def attn_specs(cfg) -> dict:
     return p
 
 
-def rank_slice(t, tp, n: int, dim: int = 0):
+def rank_slice(t, tp, n: int, dim: int = 0, start=None):
     """This rank's ``n`` entries along ``dim`` of a tensor replicated
     over ``model`` whose whole feeds work split over it (its gradient
-    summed over ``model``)."""
-    return fanout(t, tp.mesh, MODEL).narrow(dim, tp.index * n, n)
+    summed over ``model``): from ``start``, by default the rank's n-th
+    (an uneven split of the heads gives its own)."""
+    start = tp.index * n if start is None else start
+    return fanout(t, tp.mesh, MODEL).narrow(dim, start, n)
 
 
 def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
@@ -457,27 +500,29 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     (added in the compute dtype after the product), qk-norm and RoPE or
     M-RoPE applied.  ``p`` is one layer's attention parameters.
 
-    With ``tp.heads`` (heads split over ``model``): this rank's H / m
-    query heads, and its KVH / m KV heads (``tp.kv``) or, where m does
-    not divide KVH, only the KV heads its query heads read
-    (``spmd.rank_kv_heads``: their columns of the gathered ``wk`` /
-    ``wv`` and of the biases taken before the product), normed and
-    roped, then repeated to its H / m query heads (``expand_kv``); the
+    With ``tp.heads`` (heads split over ``model``): this rank's query
+    heads (``tp.head_range``: H / m of them, or where m does not divide
+    H ceil or floor of H / m, ``wq`` then cut by ``spmd.localize``), and
+    its KVH / m KV heads (``tp.kv``) or, where m does not divide KVH,
+    only the KV heads its query heads read (``spmd.rank_kv_heads``:
+    their columns of the gathered ``wk`` / ``wv`` and of the biases
+    taken before the product), normed and roped, then repeated to its
+    query heads (``expand_kv``); the
     replicated biases and norm scales enter through ``fanout``, x
     through ``fanout_linear`` (with ``tp.seq`` x is this rank's sequence
     shard, which ``fanout_linear`` gathers: q, k, v hold the whole
     sequence)."""
-    B = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
     qn, kn = p.get("q_norm"), p.get("k_norm")
     wk, wv = p["wk"], p["wv"]
     split = tp is not None and tp.heads
     if split:
-        h //= tp.size
+        h = len(tp.head_range)
         qn, kn = (None if t is None else fanout(t, tp.mesh, MODEL)
                   for t in (qn, kn))
-        bq = None if bq is None else rank_slice(bq, tp, h * hd)
+        bq = None if bq is None else rank_slice(
+            bq, tp, h * hd, start=tp.head_range.start * hd)
         if tp.kv:
             kvh //= tp.size
             bk, bv = (None if t is None else rank_slice(t, tp, kvh * hd)
@@ -488,9 +533,10 @@ def project_qkv(p, x, cfg, positions, mrope_positions=None, tp=None):
     ws = (p["wq"], wk, wv)
     q, k, v = (fanout_linear(x, *ws, tp=tp) if split
                else tuple(linear(x, w) for w in ws))
-    q = _add_bias(q, bq).reshape(B, -1, h, hd)
-    k = _add_bias(k, bk).reshape(B, -1, kvh, hd)
-    v = _add_bias(v, bv).reshape(B, -1, kvh, hd)
+    # unflatten, not reshape(B, -1, ...): a rank may hold no heads
+    q = _add_bias(q, bq).unflatten(-1, (h, hd))
+    k = _add_bias(k, bk).unflatten(-1, (kvh, hd))
+    v = _add_bias(v, bv).unflatten(-1, (kvh, hd))
     if cfg.qk_norm:
         q = rms_norm(q, qn, cfg.norm_eps)
         k = rms_norm(k, kn, cfg.norm_eps)
@@ -526,20 +572,24 @@ def _rank_kv_columns(cfg, tp, wk, wv, bk=None, bv=None):
 
 def expand_kv(t, n_heads: int, n_kv_heads: int, size: int, index: int):
     """K or V (B, S, n, Dh) of the KV heads rank ``index`` of ``size``
-    reads (``spmd.rank_kv_heads``) -> (B, S, H / size, Dh) of its query
-    heads: query head j takes KV head j // G, as every KV head repeated
-    G-fold to the H query heads and cut to the rank's would."""
-    g, h = n_heads // n_kv_heads, n_heads // size
+    reads (``spmd.rank_kv_heads``) -> (B, S, h, Dh) of its h query heads
+    (``spmd.rank_heads``): query head j takes KV head j // G, as every KV
+    head repeated G-fold to the H query heads and cut to the rank's
+    would.  A rank with no query heads reads no KV heads: (B, S, 0, Dh)."""
+    g = n_heads // n_kv_heads
+    q = rank_heads(n_heads, size, index)
+    if not q:
+        return t.narrow(2, 0, 0)
     first = rank_kv_heads(n_heads, n_kv_heads, size, index).start
-    return t.repeat_interleave(g, dim=2).narrow(2, index * h - first * g, h)
+    return t.repeat_interleave(g, dim=2).narrow(2, q.start - first * g,
+                                                len(q))
 
 
 def out_proj(p, out, tp=None):
     """(B, S, H, Dh) attention output -> (B, S, D).  With ``tp.heads``
     ``wo`` holds this rank's rows: the partial products are summed in
     f32 over ``model`` and rounded once."""
-    B, S = out.shape[:2]
-    x = out.reshape(B, S, -1)
+    x = out.flatten(2)
     if tp is None or not tp.heads:
         return linear(x, p["wo"])
     return row_parallel(x, p["wo"], tp)
@@ -612,8 +662,8 @@ def attention_block(p, x, cfg, *, positions, causal: bool = True,
     else:
         out = _decode_whole(q, k, v, kc, vc, cache_pos, window, paged)
     if split:
-        h = q.shape[2] // tp.size
-        out = out.narrow(2, tp.index * h, h)
+        heads = tp.head_range
+        out = out.narrow(2, heads.start, len(heads))
     return out_proj(p, out, tp), cache
 
 
@@ -710,11 +760,10 @@ def cross_attention_block(p, x, enc_kv, cfg, tp=None, step: bool = False):
     if tp is not None and tp.seq and not tp.heads:
         return whole_sequence(lambda x, tp: cross_attention_block(
             p, x, enc_kv, cfg, tp), x, tp)
-    B = x.shape[0]
     split = tp is not None and tp.heads
-    h = cfg.n_heads // tp.size if split else cfg.n_heads
+    h = len(tp.head_range) if split else cfg.n_heads
     q = fanout_linear(x, p["wq"], tp=tp)[0] if split else linear(x, p["wq"])
-    q = q.reshape(B, -1, h, cfg.head_dim).contiguous()
+    q = q.unflatten(-1, (h, cfg.head_dim)).contiguous()
     k, v = enc_kv
     if step and split:
         q = _gather_heads(tp, q)[0]
@@ -726,7 +775,7 @@ def cross_attention_block(p, x, enc_kv, cfg, tp=None, step: bool = False):
                   else flash_attention)
         out = attend(q, k, v, q_offset=0, causal=False)
     if step and split:
-        out = out.narrow(2, tp.index * h, h)
+        out = out.narrow(2, tp.head_range.start, h)
     return out_proj(p, out, tp)
 
 
@@ -747,9 +796,8 @@ def encode_cross_kv(p, enc_out, cfg, tp=None):
     split = tp is not None and tp.heads
     if split and not tp.kv:
         ws = _rank_kv_columns(cfg, tp, *ws)[:2]
-    shape = (enc_out.shape[0], -1, ws[0].shape[1] // cfg.head_dim,
-             cfg.head_dim)
-    k, v = (t.reshape(shape) for t in (
+    shape = (ws[0].shape[1] // cfg.head_dim, cfg.head_dim)
+    k, v = (t.unflatten(-1, shape) for t in (
         fanout_linear(enc_out, *ws, tp=tp) if split
         else tuple(linear(enc_out, w) for w in ws)))
     if split and not tp.kv:

@@ -216,31 +216,35 @@ class DecoderLM(MeshModel):
         ``pl``, as stored: attention heads as ``_heads_split`` says
         (``whole_heads``: a prefill that builds a cache;
         ``cache_step``: a decode step), the RG-LRU width, RWKV6's heads
-        (its states are cut by heads as they are computed, so neither
-        flag applies), the FFN's hidden dim, the experts; ``seq``: the
-        residual stream on sequence shards (``_seq_split``)."""
+        (where ``model`` divides H its states are cut by heads as they
+        are computed, so neither flag applies; where it does not, the
+        heads split unevenly only in a call that carries no state), the
+        FFN's hidden dim, the experts; ``seq``: the residual stream on
+        sequence shards (``_seq_split``)."""
         m = mesh.axis_size(spmd.MODEL)
         if m == 1:
             return spmd.TP(mesh)
         cfg = self.cfg
         mix, ffn = pl["mix"], pl["ffn"]
         if kind == "rwkv":
-            return spmd.TP(mesh, heads=cfg.n_heads % m == 0
-                           and spmd.splits(mix["wr"][0], 1),
+            # where model divides H its WKV state is cut by heads as it
+            # is computed; an uneven split takes no state
+            split = (spmd.splits(mix["wr"][0], 1) if cfg.n_heads % m == 0
+                     else not (whole_heads or cache_step))
+            return spmd.TP(mesh, **(self._rank_heads(mesh) if split else {}),
                            ff=spmd.splits(ffn["wk"][0], 1), seq=seq)
-        heads = kv = lru = False
+        heads, lru = {}, False
         if kind == "rglru":
             lru = spmd.splits(mix["w_in"][0], 1)
         else:
-            heads, kv = self._heads_split(mesh, mix, whole_heads,
-                                          cache_step)
+            heads = self._heads_split(mesh, mix, whole_heads, cache_step)
         if use_moe:
-            return spmd.TP(mesh, heads, kv, experts=spmd.splits(
+            return spmd.TP(mesh, **heads, experts=spmd.splits(
                 ffn["wg"][0], 0), shared="shared" in ffn and spmd.splits(
                 ffn["shared"]["wg"][0], 1), lru=lru, seq_shards=seq_shards,
                 seq=seq)
         w = "w1" if cfg.mlp_kind == "gelu" else "wg"
-        return spmd.TP(mesh, heads, kv, ff=spmd.splits(ffn[w][0], 1),
+        return spmd.TP(mesh, **heads, ff=spmd.splits(ffn[w][0], 1),
                        lru=lru, seq_shards=seq_shards, seq=seq)
 
     # ------------------------------------------------------------ blocks

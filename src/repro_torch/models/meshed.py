@@ -1,8 +1,11 @@
 """What every model of the port does on a mesh (``with mesh:``,
-``launch/mesh.py``): place its leaves, and embed and unembed through a
-vocabulary that may be split over ``model``.  ``DecoderLM`` and
-``WhisperModel`` build on it; ``sharding/spmd.py`` says how a block
-computes over the mesh."""
+``launch/mesh.py``): place its leaves, split each attention's heads
+over ``model`` (``_heads_split``: a rank's own run of whole query
+heads, unevenly where ``model`` does not divide H; every head on every
+rank where a cache is built or read and the heads do not split
+evenly), and embed and unembed through a vocabulary that may be split
+over ``model``.  ``DecoderLM`` and ``WhisperModel`` build on it;
+``sharding/spmd.py`` says how a block computes over the mesh."""
 from __future__ import annotations
 
 from ..launch.mesh import current_mesh
@@ -30,17 +33,28 @@ class MeshModel:
         return self._placed[1]
 
     def _heads_split(self, mesh, attn, whole_heads: bool = False,
-                     cache_step: bool = False):
-        """(heads, kv) of an attention placed as ``attn``: heads split
-        where ``model`` divides H (and, in a decode step, whose cache
-        holds every head, KVH too), unless ``whole_heads`` (a prefill
-        that builds a cache); KV heads where ``model`` divides KVH."""
+                     cache_step: bool = False) -> dict:
+        """``spmd.TP``'s head fields for an attention placed as
+        ``attn``: the rank's query heads (``spmd.rank_heads``; unevenly
+        where ``model`` does not divide H), and its KV heads split too
+        where ``model`` divides KVH.  Every head stays on every rank
+        (``head_range`` None) in a prefill that builds a cache
+        (``whole_heads``), and in a decode step (``cache_step``, whose
+        cache holds every head) unless the KV heads split."""
         m, cfg = mesh.axis_size(spmd.MODEL), self.cfg
-        heads = (not whole_heads and cfg.n_heads % m == 0
-                 and spmd.splits(attn["wq"][0], 1))
-        kv = (heads and cfg.n_kv_heads % m == 0
+        h = cfg.n_heads
+        kv = (h % m == 0 and cfg.n_kv_heads % m == 0
               and spmd.splits(attn["wk"][0], 1))
-        return heads and (kv or not cache_step), kv
+        if (whole_heads or (cache_step and not kv)
+                or (h % m == 0 and not spmd.splits(attn["wq"][0], 1))):
+            return {}
+        return {**self._rank_heads(mesh), "kv": kv}
+
+    def _rank_heads(self, mesh) -> dict:
+        """``spmd.TP``'s fields for this rank's own query heads."""
+        return {"head_range": spmd.rank_heads(
+            self.cfg.n_heads, mesh.axis_size(spmd.MODEL),
+            mesh.axis_index(spmd.MODEL)), "n_heads": self.cfg.n_heads}
 
     def _seq_split(self, mesh, rows: int, seq: int) -> bool:
         """Whether the residual stream of ``rows`` rows (this rank's

@@ -27,7 +27,13 @@ projections go through ``components.linear``.
 On a training mesh (``sharding/spmd.py``) the time mix splits by heads
 (``tp.heads``): ``wr/wk/wv/wg`` column-parallel, ``wo`` row-parallel,
 ``u`` and the group norm's scale and bias this rank's heads, the WKV on
-them.  The token mix (``tm_w1`` / ``tm_w2``) and the decay LoRA
+them.  Where ``model`` divides H a rank holds H / m heads in every
+call, its WKV state too; where it does not, a call without a state
+splits them unevenly (``spmd.rank_heads``: ``localize`` gathers those
+leaves and cuts the rank's heads) and a call with a state, or a
+prefill that builds one, runs every head on every rank, as the
+reference's state specs replicate the head dim there.  The token mix
+(``tm_w1`` / ``tm_w2``) and the decay LoRA
 (``wd1`` / ``wd2``) are replicated over ``model``: every rank computes
 them whole, and what leaves that duplicated work for the rank's heads
 (the four mixed inputs through ``components.fanout_linear``, the
@@ -35,8 +41,9 @@ decay's slice through ``fanout``) carries back the sum over ``model``
 of the ranks' gradients.  The
 channel mix splits its hidden dim (``tp.ff``: ``wk`` column-, ``wv``
 row-parallel); its gate ``sigmoid(xr @ wr)`` is duplicated and
-multiplies the summed output, so ``wr`` gets each rank's whole
-gradient as it is.  The WKV state splits by heads; the token-shift
+multiplies the summed output, so the gradient of ``wr`` is alike on
+every rank: each computes its columns of it and all-gathers them
+(``components.replicated_linear``), as GSPMD splits that product.  The WKV state splits by heads; the token-shift
 states stay whole.  Under sequence parallelism (``tp.seq``) both blocks
 gather the sequence first (the token shift reads the position before,
 which may be another rank's) and run as without it; the heads' and the
@@ -188,8 +195,9 @@ def wkv_step(r, k, v, lw, u, state):
 def wkv_inputs(p, x, cfg, state=None, tp=None):
     """(r, k, v, lw, u, g) of the time-mixing block for x (B, S, D):
     r, k, v, lw (B, S, H, Dh), u (H, Dh) f32, and the output gate g
-    (B, S, H * Dh); with ``tp.heads`` H is this rank's H / m heads (see
-    the module docstring).  ``state``: as ``rwkv_time_block``'s."""
+    (B, S, H * Dh); with ``tp.heads`` H is this rank's heads
+    (``tp.head_range``; see the module docstring).  ``state``: as
+    ``rwkv_time_block``'s."""
     B, S, D = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     xx = _shift(x, None if state is None else state["shift"]) - x
@@ -197,8 +205,9 @@ def wkv_inputs(p, x, cfg, state=None, tp=None):
     lw = _decay(p, xw)
     lin = C.linear
     if tp is not None and tp.heads:
-        H //= tp.size
-        lw = C.rank_slice(lw, tp, H * Dh, dim=-1)
+        H = len(tp.head_range)
+        lw = C.rank_slice(lw, tp, H * Dh, dim=-1,
+                          start=tp.head_range.start * Dh)
 
         def lin(x, w):
             return C.fanout_linear(x, w, tp=tp)[0]
@@ -257,8 +266,10 @@ def rwkv_channel_block(p, x, cfg, *, state=None, tp=None):
         v = C.row_parallel(kk, p["wv"], outer)
     else:
         v = C.linear(torch.square(F.relu(C.linear(xk, p["wk"]))), p["wv"])
-    # the duplicated gate keeps the rank's rows (backward an all-gather)
-    gate = C.model_rows(torch.sigmoid(C.linear(xr, p["wr"])), outer)
+    # the duplicated gate keeps the rank's rows (backward an all-gather);
+    # its weight gradient, alike on every rank, is split over model
+    gate = C.model_rows(torch.sigmoid(C.replicated_linear(xr, p["wr"], tp)),
+                        outer)
     return gate * v, {"shift": x[:, -1]}
 
 

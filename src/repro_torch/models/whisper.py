@@ -23,9 +23,11 @@ Caches are updated **in place** (the reference returns new arrays).
 Under ``with mesh:`` (``launch/mesh.py``) each block computes as
 ``sharding/spmd.py`` describes: FSDP gathers over ``data``, and over
 ``model`` the heads of the encoder's, the decoder's and the cross
-attention where ``model`` divides H (the cross K/V column-parallel from
-the encoder output, ``components.encode_cross_kv``) and the GELU MLP's
-hidden dim where it divides d_ff.  A prefill on a mesh keeps the
+attention (the cross K/V column-parallel from the encoder output, on
+the KV heads the rank's query heads read,
+``components.encode_cross_kv``; where ``model`` does not divide H each
+rank its own run of whole heads, ``spmd.rank_heads``) and the GELU
+MLP's hidden dim where it divides d_ff.  A prefill on a mesh keeps the
 decoder's heads whole (its caches hold every head) and cuts the self
 and cross caches along their sequence (``cache_specs``: ``kv_seq`` over
 ``model``), as ``shard_cache`` cuts a whole cache; a decode step
@@ -126,10 +128,10 @@ class WhisperModel(MeshModel):
         pl = self.placement(mesh)[name]
         tp = spmd.TP(mesh)
         if mesh.axis_size(spmd.MODEL) > 1:
-            heads, kv = self._heads_split(
+            heads = self._heads_split(
                 mesh, pl["attn" if "attn" in pl else "self_attn"],
                 whole_heads, step)
-            tp = spmd.TP(mesh, heads, kv,
+            tp = spmd.TP(mesh, **heads,
                          ff=spmd.splits(pl["mlp"]["w1"][0], 1),
                          seq_shards=seq_shards, seq=seq)
         p = spmd.localize(p, pl, tp)

@@ -22,7 +22,13 @@ package on the CPU, without compiling anything.
   layers on the dry (16, 16) mesh), every product of the step has the
   shape of one of the rank's own weights: its K/V products have the
   rank's KV heads' columns (one head, 128), not all KVH heads' (1,024),
-  and the step launches the GEMM as often as before.
+  and the step launches the GEMM as often as before.  Where ``model``
+  does not divide H (llama4-scout, H 40), rank 0's Q and output
+  products have its 3 heads' columns and rows, its K/V products the one
+  KV head they read; ``rank_heads`` tiles the heads, ceil(H / m) on
+  rank 0.  Ranks with no heads (recurrentgemma, H 10 on 16) make rank
+  0's collectives over ``model``.  RWKV6's channel gate, whole on every
+  rank, forms only the rank's columns of its weight gradient.
 * Under ``SP_RULES`` every cell's argument bytes on both production
   meshes equal the reference's placement under its ``SP_RULES``, and on
   a smoke train cell SP lowers the traced peak, leaves no all-reduce of
@@ -34,6 +40,7 @@ host devices at import, which would change JAX for later tests.
 """
 import json
 import math
+import sys
 
 import jax
 import numpy as np
@@ -55,6 +62,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_dry_mesh
 from repro_torch.cost import OpCounter
 from repro_torch.models import components as C
+from repro_torch.models.rwkv6 import TM_LORA
 from repro_torch.sharding import collectives, spmd
 from repro_torch.sharding.rules import DEFAULT_RULES, SP_RULES
 from repro_torch.train.step import auto_microbatches
@@ -296,6 +304,134 @@ def test_split_heads_project_only_the_rank_kv_heads(monkeypatch):
     assert launches == len(seen) == 4 * len(weights) * cfg.n_layers * n_micro
     assert res["kernels"]["gemm_dataflow"]["flops"] == sum(
         2 * a * b * c for a, b, c in seen)
+
+
+def test_uneven_heads_project_only_the_rank_heads(monkeypatch):
+    """llama4-scout (H 40, KVH 8, G 5) at ``train_4k`` with 2 layers on
+    the dry (16, 16) mesh, where model = 16 does not divide H: rank 0
+    computes query heads 0-2 (ceil(40 / 16)) and reads KV head 0 only.
+    Keyed as in ``test_split_heads_project_only_the_rank_kv_heads``, its
+    ``wq`` enters at (D, 3 x 128) and ``wo`` at (3 x 128, D), 4 GEMMs a
+    layer and microbatch each way, and ``wk`` / ``wv`` at (D, 128), 3 each
+    and 1 the other way: never the whole (D, 5,120) or (D, 1,024)."""
+    cfg = dryrun.apply_overrides(configs.get("llama4-scout-17b-a16e"),
+                                 {"n_layers": "2"})
+    seen = []
+    cost = gemm.cost
+
+    def spy(m, n, k, dtype):
+        seen.append((m, n, k))
+        return cost(m, n, k, dtype)
+    monkeypatch.setattr(gemm, "cost", spy)
+    res = dryrun.run_cell(cfg.name, "train_4k", "single", cfg=cfg)
+    m, dh, D = MESHES["single"]["model"], cfg.head_dim, cfg.d_model
+    heads = spmd.rank_heads(cfg.n_heads, m, 0)
+    kv = spmd.rank_kv_heads(cfg.n_heads, cfg.n_kv_heads, m, 0)
+    assert cfg.n_heads % m and (heads, kv) == (range(0, 3), range(0, 1))
+    s = configs.shape_by_name("train_4k")
+    n = cfg.n_layers * res["n_micro"]
+    tokens = s.global_batch // MESHES["single"]["data"] // res["n_micro"] \
+        * s.seq_len
+    got = {}
+    for mm, nn, k in seen:
+        key = (mm, nn) if k == tokens else (k, nn)
+        got[key] = got.get(key, 0) + 1
+    q, kvc = len(heads) * dh, len(kv) * dh
+    assert (got[D, q], got[q, D]) == (4 * n, 4 * n)
+    assert (got[D, kvc], got[kvc, D]) == (6 * n, 2 * n)
+    assert not {(D, cfg.n_heads * dh), (cfg.n_heads * dh, D),
+                (D, cfg.n_kv_heads * dh), (cfg.n_kv_heads * dh, D)} & set(got)
+
+
+def test_replicated_gate_splits_its_weight_gradient(monkeypatch):
+    """rwkv6-3b at ``train_4k`` with 1 layer on the dry (16, 16) mesh:
+    the channel mix's gate weight ``wr`` (D, D) is whole on every rank
+    of model, and so is its gradient's input, so each rank forms only
+    its D / 16 columns of dW (one product of (D, D / 16) over the
+    rank's tokens, all-gathered over model), never the whole (D, D):
+    the forward, its recompute and dX keep the whole width."""
+    cfg = dryrun.apply_overrides(configs.get("rwkv6-3b"), {"n_layers": "1"})
+    seen = []
+    cost = gemm.cost
+
+    def spy(m, n, k, dtype):
+        seen.append((m, n, k))
+        return cost(m, n, k, dtype)
+    monkeypatch.setattr(gemm, "cost", spy)
+    res = dryrun.run_cell(cfg.name, "train_4k", "single", cfg=cfg)
+    s, D, m = configs.shape_by_name("train_4k"), cfg.d_model, \
+        MESHES["single"]["model"]
+    tokens = s.global_batch // MESHES["single"]["data"] // res["n_micro"] \
+        * s.seq_len
+    # the token mix's LoRA tm_w1 (D, 5 x 32) has the same dW shape here
+    tm = int(D // m == 5 * TM_LORA)
+    assert seen.count((D, D // m, tokens)) == (1 + tm) * res["n_micro"]
+    assert (D, D, tokens) not in seen
+    assert seen.count((tokens, D, D)) == 3 * res["n_micro"]
+
+
+@pytest.mark.parametrize("rules", [DEFAULT_RULES, SP_RULES],
+                         ids=["default", "sp"])
+def test_zero_head_ranks_make_rank_0s_collectives(monkeypatch, rules):
+    """recurrentgemma-2b (H 10, KVH 1, G 10) at full widths, one whole
+    (RG-LRU, RG-LRU, local attention) pattern, a grad step on the dry
+    (16, 16) mesh: ranks 2 and 15 of ``model`` hold no heads (their
+    empty ranges start at heads 2 and 10) and trace to the end, making
+    over ``model`` the collectives of rank 0, which holds one, in kind,
+    order and input shape, as every rank of a group must or the group
+    hangs.  Over ``data`` each rank's group shares its heads, so only
+    the kinds and their order must agree there."""
+    cfg = dryrun.apply_overrides(configs.get("recurrentgemma-2b"),
+                                 {"n_layers": "3"})
+    shape = configs.ShapeSpec("zero_head", cfg.local_window, 16, "train")
+    run, log = collectives._run, []
+
+    def logged(kind, t, *args):
+        axes = tuple(sys._getframe(1).f_locals["axes"])
+        log.append((axes, kind, tuple(t.shape)))
+        return run(kind, t, *args)
+    monkeypatch.setattr(collectives, "_run", logged)
+
+    def calls(rank):
+        log.clear()
+        dryrun.collective_tally(cfg, shape, make_dry_mesh(
+            (16, 16), ("data", "model"), rank=rank), rules)
+        return ([c for c in log if c[0] == ("model",)],
+                [c[:2] for c in log if c[0] != ("model",)])
+    assert [len(spmd.rank_heads(cfg.n_heads, 16, r)) for r in (0, 2, 15)] \
+        == [1, 0, 0]
+    want = calls(0)
+    assert all(want) and calls(2) == want and calls(15) == want
+
+
+@pytest.mark.parametrize("h,m,kvh", [(40, 16, 8), (6, 16, 6), (3, 2, 1),
+                                     (1, 2, 1), (16, 4, 8), (10, 16, 1),
+                                     (4, 8, 2)])
+def test_rank_heads_tile_the_heads(h, m, kvh):
+    """``spmd.rank_heads``: the ranks' ranges tile [0, H) in rank order,
+    rank 0 holds ceil(H / m) and every rank ceil or floor of H / m, and
+    where m divides H rank r holds [r H / m, (r + 1) H / m).
+    ``rank_kv_heads`` is the range of the KV heads (j // G) of the
+    rank's query heads j, empty where it has none, and ``expand_kv``
+    repeats those to its query heads as the reference's G-fold repeat of
+    every KV head cut to them."""
+    g = h // kvh
+    ranges = [spmd.rank_heads(h, m, r) for r in range(m)]
+    assert ranges[0].start == 0 and ranges[-1].stop == h
+    assert all(a.stop == b.start for a, b in zip(ranges, ranges[1:]))
+    assert len(ranges[0]) == -(-h // m)
+    assert {len(r) for r in ranges} <= {h // m, -(-h // m)}
+    if h % m == 0:
+        assert ranges == [range(r * h // m, (r + 1) * h // m)
+                          for r in range(m)]
+    t = torch.arange(2 * 3 * kvh * 4, dtype=torch.float32).reshape(
+        2, 3, kvh, 4)
+    ref = t.repeat_interleave(g, 2)
+    for r, heads in enumerate(ranges):
+        kv = spmd.rank_kv_heads(h, kvh, m, r)
+        assert set(kv) == {j // g for j in heads}
+        got = C.expand_kv(t[:, :, kv.start:kv.stop], h, kvh, m, r)
+        assert torch.equal(got, ref[:, :, heads.start:heads.stop])
 
 
 def test_dry_collectives_count_ring_bytes():

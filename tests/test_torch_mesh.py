@@ -9,7 +9,11 @@ KVH, so each rank projects only the KV heads its query heads read
 (``KV_SPLIT``: qwen3 smoke at H 6, KVH 3, rank 0 reading KV heads 0-1
 and rank 1 heads 1-2, with ``k_norm``; qwen1.5-110b smoke at KVH 1,
 both ranks reading the one head, with ``bk`` / ``bv``; whisper's cross
-K/V at H 6, KVH 3 alone, ``CROSS_KV``), of an MoE
+K/V at H 6, KVH 3 alone, ``CROSS_KV``), of five stacks where ``model``
+does not divide H, so each rank computes its own run of whole heads
+(``UNEVEN``: qwen3, whisper, recurrentgemma and rwkv6 at H 3, rank 0
+computing heads 0-1 and rank 1 head 2; qwen3 at H 1, whose rank 1 holds
+none and still makes every collective), of an MoE
 (llama4-scout smoke, ``n_micro=2``) and of the
 three families whose blocks are not plain attention (whisper's
 encoder-decoder, recurrentgemma's RG-LRU and local attention, rwkv6's
@@ -84,11 +88,36 @@ B, S, STEPS, LR = 8, 16, 3, 1e-3
 TRAIN = {"dense": ("qwen3-0.6b", 1), "moe": ("llama4-scout-17b-a16e", 2),
          "whisper": ("whisper-tiny", 1),
          "recurrentgemma": ("recurrentgemma-2b", 1), "rwkv6": ("rwkv6-3b", 1),
-         "kv_shared": ("qwen3-0.6b", 1), "kv_one": ("qwen1.5-110b", 1)}
+         "kv_shared": ("qwen3-0.6b", 1), "kv_one": ("qwen1.5-110b", 1),
+         "uneven": ("qwen3-0.6b", 1), "uneven_whisper": ("whisper-tiny", 1),
+         "uneven_recurrentgemma": ("recurrentgemma-2b", 1),
+         "uneven_rwkv6": ("rwkv6-3b", 1), "one_head": ("qwen3-0.6b", 1)}
 #: the smoke configs' fields changed for the cases where model = 2
 #: divides H but not KVH (both packages' configs built with them)
 KV_SPLIT = {"kv_shared": {"n_heads": 6, "n_kv_heads": 3},
             "kv_one": {"n_kv_heads": 1}}
+#: the smoke configs' fields changed for the cases where model = 2 does
+#: not divide H: 48 columns of ``wq`` stored 24 a rank (1.5 heads), rank
+#: 0 computing heads 0-1 and rank 1 head 2 (rwkv6's d_model 48 = H Dh,
+#: as its decay needs); at H 1 rank 1 holds no heads
+UNEVEN = {"uneven": {"n_heads": 3, "n_kv_heads": 1},
+          "uneven_whisper": {"n_heads": 3, "n_kv_heads": 3},
+          "uneven_recurrentgemma": {"n_heads": 3, "n_kv_heads": 1},
+          "uneven_rwkv6": {"n_heads": 3, "n_kv_heads": 3, "d_model": 48},
+          "one_head": {"n_heads": 1, "n_kv_heads": 1}}
+#: the even cases whose grad step is also run with every split head's
+#: leaves gathered and cut as an uneven split cuts them (``TP.cut``)
+EVEN = ("dense", "moe", "whisper", "recurrentgemma", "rwkv6", "kv_shared",
+        "kv_one")
+#: the digests (``torch_mesh_ranks.digest``) of each even case's loss and
+#: gradients as the grad step gave them on every rank before any split
+#: of the heads was uneven (every rank the same): a fixed record that a
+#: later change to the even path is held against
+EVEN_DIGESTS = {"dense": "2d5db74e4f95c3ce", "moe": "152973d042549e90",
+                "whisper": "ecfdb64d907ca2ef",
+                "recurrentgemma": "bace84d149e1d478",
+                "rwkv6": "5e25f8ea15295ff5", "kv_shared": "0e9cd90ec19a9fba",
+                "kv_one": "d6b168911157a55c"}
 #: whisper smoke's fields for ``encode_cross_kv`` with the heads split
 #: over model = 2 but not the KV heads (rank 0 reads KV heads 0-1, rank
 #: 1 heads 1-2), and the rows and frames of its encoder output
@@ -164,7 +193,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
     payload, refs = {"train": {}}, {}
     for name, (arch, n_micro) in TRAIN.items():
-        jcfg = _jcfg(arch, **KV_SPLIT.get(name, {}))
+        jcfg = _jcfg(arch, **KV_SPLIT.get(name, {}), **UNEVEN.get(name, {}))
         jmodel, jparams, cfg, path = _port_params(jcfg, tmp, name)
         refs[name] = (jcfg, jmodel, jparams, n_micro)
         payload["train"][name] = {
@@ -204,6 +233,8 @@ def runs(tmp_path_factory):
                                  "S": ODD_S}
     payload["tally"] = {"cfg": configs.get_smoke("qwen3-0.6b"), "B": B,
                         "S": S}
+    payload["even_cut"] = {name: payload["train"][name] for name in EVEN}
+    payload["call_log"] = payload["train"]["one_head"]
     return {"tmp": tmp, "payload": payload, "refs": refs,
             "out": ranks.spawn("mesh22", MESH, tmp, payload)}
 
@@ -312,9 +343,11 @@ def test_train_step_on_mesh_matches_reference(runs, name):
     2 x n_micro microbatches."""
     jcfg, jmodel, jparams, n_micro = runs["refs"][name]
     out = runs["out"][0][name]
+    m = MESH[1]
     if name in KV_SPLIT:
-        m = MESH[1]
         assert jcfg.n_heads % m == 0 and jcfg.n_kv_heads % m
+    if name in UNEVEN:
+        assert jcfg.n_heads % m
     n_ref = MESH[0] * n_micro
     pipe = JPipeline(jcfg, B, S)
     want = _first_grads(runs, name)[1]
@@ -457,6 +490,45 @@ def test_sp_indivisible_length_is_default_layout(runs):
     for out in runs["out"]:
         assert out["sp_indivisible"] == {"loss": True, "tally": True,
                                          "grads": True}
+
+
+@pytest.mark.parametrize("name", EVEN)
+def test_even_split_equals_the_cut_path(runs, name):
+    """Where model = 2 divides H, the grad step with every split head's
+    leaves gathered over model and cut to the rank's heads (the uneven
+    split's path, ``TP.cut`` forced) gives the stored-shard path's loss
+    and every gradient ``torch.equal`` on every rank: the head ranges of
+    an even split are the stored shards, so the uneven machinery leaves
+    the even split's bits as they were."""
+    for out in runs["out"]:
+        got = out["even_cut"][name]
+        assert got["leaves"] > 0
+        assert got["loss"] and got["grads"]
+
+
+@pytest.mark.parametrize("name", EVEN)
+def test_even_split_keeps_its_recorded_bits(runs, name):
+    """Where model = 2 divides H, the grad step's loss and every gradient
+    on every rank have the bits recorded before the heads could split
+    unevenly (``EVEN_DIGESTS``)."""
+    assert [out["even_cut"][name]["digest"] for out in runs["out"]] == \
+        [EVEN_DIGESTS[name]] * len(runs["out"])
+
+
+def test_zero_head_rank_makes_every_collective(runs):
+    """qwen3 smoke at H 1 on model = 2: rank 1 holds no heads, yet in the
+    grad step the ranks of each group make the same collectives over it,
+    in the same order, with the same input shapes (a rank that skipped
+    one would leave its group waiting): over ``model`` ranks 2 r and
+    2 r + 1, over ``data`` ranks r and r + 2."""
+    logs = [out["call_log"] for out in runs["out"]]
+    assert [g["heads"] for g in logs] == [1, 0] * MESH[0]
+    groups = {("model",): [(0, 1), (2, 3)], ("data",): [(0, 2), (1, 3)]}
+    for axes, members in groups.items():
+        for ranks_ in members:
+            calls = [logs[r]["calls"].get(axes) for r in ranks_]
+            assert calls[0] and all(c == calls[0] for c in calls), axes
+    assert set(logs[0]["calls"]) == set(groups)
 
 
 @pytest.mark.parametrize("rules", ["default", "sp"])

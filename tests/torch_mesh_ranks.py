@@ -7,7 +7,9 @@ rendezvous is a ``FileStore`` in the test's own directory, so parallel
 test workers never share a port.
 """
 import contextlib
+import hashlib
 import math
+import struct
 
 import torch
 import torch.distributed as dist
@@ -153,7 +155,9 @@ def cross_kv_case(mesh, case) -> dict:
     (this rank's share: the columns of the KV heads it read) and into
     the encoder output (summed over ``model``)."""
     cfg = case["cfg"]
-    tp = spmd.TP(mesh, heads=True)
+    m, r = mesh.axis_size(spmd.MODEL), mesh.axis_index(spmd.MODEL)
+    tp = spmd.TP(mesh, head_range=spmd.rank_heads(cfg.n_heads, m, r),
+                 n_heads=cfg.n_heads)
     w = {k: case[k].clone().requires_grad_() for k in ("wk", "wv")}
     enc = case["enc"].clone().requires_grad_()
     h = cfg.n_heads // tp.size
@@ -255,6 +259,71 @@ def sp_indivisible(mesh, case) -> dict:
             "grads": all(torch.equal(x, y) for x, y in zip(a[1], b[1]))}
 
 
+def even_cut(mesh, case) -> dict:
+    """The grad step of an even split under the default rules, as it
+    runs and with ``TP.cut`` forced on every split attention (its
+    leaves gathered over ``model`` and cut to the rank's heads, as an
+    uneven split takes them): whether the loss and every gradient are
+    ``torch.equal``."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, torch.load(case["params"]))
+    batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+        0, mesh=mesh)
+    got = [_grads(mesh, model, cfg, params, sh, batch, case["n_micro"],
+                  DEFAULT_RULES)]
+    cut = spmd.TP.cut
+    spmd.TP.cut = property(lambda tp: tp.heads)
+    try:
+        got.append(_grads(mesh, model, cfg, params, sh, batch,
+                          case["n_micro"], DEFAULT_RULES))
+    finally:
+        spmd.TP.cut = cut
+    (la, ga, _), (lb, gb, _) = got
+    return {"loss": la == lb, "leaves": len(ga),
+            "grads": all(torch.equal(a, b) for a, b in zip(ga, gb)),
+            "digest": digest(la, ga)}
+
+
+def digest(loss, grads) -> str:
+    """The first 16 hex digits of the SHA-256 of the loss (an f64) and
+    every gradient's bytes in order: equal digests, equal bits."""
+    h = hashlib.sha256(struct.pack("<d", loss))
+    for g in grads:
+        h.update(g.detach().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def call_log(mesh, case) -> dict:
+    """Every collective of the grad step, in order, by the axes of its
+    group: {axes: [(kind, input shape), ...]}; and the query heads of
+    this rank's first layer."""
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    params, sh = _sharded(model, mesh, torch.load(case["params"]))
+    batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+        0, mesh=mesh)
+    calls, last, tally, group = {}, [], collectives._tally, mesh.group
+
+    def grouped(axes):
+        last[:] = [tuple(a for a in AXES if a in axes)]
+        return group(axes)
+
+    def log(kind, t, seconds):
+        calls.setdefault(last[0], []).append((kind, tuple(t.shape)))
+        tally(kind, t, seconds)
+    collectives._tally, mesh.group = log, grouped
+    try:
+        _grads(mesh, model, cfg, params, sh, batch, case["n_micro"],
+               DEFAULT_RULES)
+    finally:
+        collectives._tally = tally
+        del mesh.group
+    pl = spmd.unstack(model.placement(mesh)["layers"])
+    tp = model._tp(mesh, "attn", pl, False)
+    return {"calls": calls, "heads": len(tp.head_range)}
+
+
 def tally_case(mesh, case) -> dict:
     """The collectives' tally of the grad step under the default rules
     and under ``SP_RULES``, seeded parameters in the config's own
@@ -278,6 +347,9 @@ def mesh22(mesh, tmp, payload) -> dict:
                          payload["sp_prefill"].items()}
     out["sp_indivisible"] = sp_indivisible(mesh, payload["sp_indivisible"])
     out["tally"] = tally_case(mesh, payload["tally"])
+    out["even_cut"] = {name: even_cut(mesh, case) for name, case in
+                       payload["even_cut"].items()}
+    out["call_log"] = call_log(mesh, payload["call_log"])
     out["ep"] = moe_case(mesh, payload["ep"])
     out["cross_kv"] = cross_kv_case(mesh, payload["cross_kv"])
     out["ep_model"] = model_logits(mesh, payload["ep_model"])
@@ -287,7 +359,7 @@ def mesh22(mesh, tmp, payload) -> dict:
     return out if mesh.rank == 0 else {
         k: v for k, v in out.items()
         if k in ("ep", "ep_model", "decode", "family_decode", "sp_prefill",
-                 "sp_indivisible", "cross_kv")}
+                 "sp_indivisible", "cross_kv", "even_cut", "call_log")}
 
 
 def restore(mesh, tmp, payload) -> dict:
