@@ -539,20 +539,23 @@ DRYRUN_TIMEOUT_S = 300
 # dataflow GEMM's share, ``kernels.gemm_dataflow.flops``) as the dry run
 # traced them on a CPU once a rank of model projected only the KV heads
 # its query heads read and, where model does not divide H, computed
-# only its own run of whole heads, and RWKV6's channel gate formed
-# only the rank's columns of its weight gradient (PERF.md sections 5
-# and 6); gated at or below each times 1 + DRYRUN_FLOPS_TOL, so that
-# whole K/V products (qwen3 55.97 / 43.29 T, qwen1.5-110b 4,355 / 4,222
-# T), a whole attention on every rank (scout 2,651.5 T) and a whole
-# gate gradient on every rank (rwkv6 at 4 layers 31.68 T) fail
-DRYRUN_FLOPS = {("qwen3-0.6b", "train_4k"): (28966660143226.0,
-                                             16355235463168.0),
-                ("qwen1.5-110b", "train_4k"): (3738704297058538.0,
-                                               3606398139105280.0),
-                ("llama4-scout-17b-a16e", "train_4k"): (650567625551361.0,
-                                                        331915072634880.0),
-                ("rwkv6-3b", "train_4k"): (28454597373430.0,
-                                           24094766530560.0)}
+# only its own run of whole heads, RWKV6's gate and LoRA weights formed
+# only the rank's columns of their gradients (its decay's ``wd2`` only
+# the rank's heads' channels), and the remat's recompute no longer
+# formed a layer's dead last product (PERF.md sections 5 and 6); gated
+# at or below each times 1 + DRYRUN_FLOPS_TOL, so that whole K/V
+# products (qwen3 55.97 / 43.29 T), a whole attention on every rank
+# (scout 2,651.5 T), a recomputed FFN down projection (qwen3 28.97 T,
+# qwen1.5-110b 3,738.7 / 3,606.4 T, scout 650.6 T) and whole LoRA
+# gradients on every rank (rwkv6 at 4 layers 28.45 T) fail
+DRYRUN_FLOPS = {("qwen3-0.6b", "train_4k"): (28245105637498.0,
+                                             15633680957440.0),
+                ("qwen1.5-110b", "train_4k"): (3474821506392298.0,
+                                               3342515348439040.0),
+                ("llama4-scout-17b-a16e", "train_4k"): (634074951134721.0,
+                                                        315422398218240.0),
+                ("rwkv6-3b", "train_4k"): (27645074697718.0,
+                                           23293755129856.0)}
 DRYRUN_FLOPS_TOL = 0.01
 # the model-level bitwise invariants: 8 prompts of mixed lengths, fed in
 # chunks of the serve phase's chunk size, pages of 16
@@ -1895,6 +1898,24 @@ def _n_products(model, *, decode: bool = False) -> int:
             n += 5 * count
         elif len(per_layer) == 2:
             n += count
+    return n
+
+
+def _n_dead(model) -> int:
+    """The products of one training forward whose output the backward
+    never reads: a block's last product where nothing after it saves
+    it (the dense FFN's down projection ``wd`` / ``w2``, the shared
+    expert's ``wd``; not the routed experts' or RWKV6's channel mix's),
+    which the recompute under remat skips (``components.remat``)."""
+    from repro_torch.models.base import flatten_specs
+    n = 0
+    for path, spec in flatten_specs(model.param_specs()):
+        shape = spec.init_shape
+        stacked = path[0] == "layers"
+        per_layer = shape[1:] if stacked else shape
+        if (path[-1] in ("wd", "w2") and path[-2] in ("ffn", "mlp", "shared")
+                and len(per_layer) == 2):
+            n += shape[0] if stacked else 1
     return n
 
 
@@ -3337,14 +3358,17 @@ def _train_launches_reset() -> None:
 
 
 def _train_launch_gates(model, steps: int) -> dict:
-    """What ``steps`` train steps launch at the least (remat "full"):
-    each layer's flash forward twice (the forward and the backward's
-    recompute) and its backward once; every projection's GEMM four
-    times (forward, recompute, dX, dW), ``_n_products`` a forward."""
+    """What ``steps`` train steps launch (remat "full"): each layer's
+    flash forward twice (the forward and the backward's recompute) and
+    its backward once; every projection's GEMM four times (forward,
+    recompute, dX, dW), ``_n_products`` a forward, but a dead product
+    (``_n_dead``: the FFN's down projection) three, as the recompute
+    does not form its output."""
     L = model.cfg.n_layers
     return {"flash_attention": 2 * L * steps,
             "flash_attention_bwd": L * steps,
-            "gemm_dataflow": 4 * _n_products(model) * steps}
+            "gemm_dataflow": (4 * _n_products(model) - _n_dead(model))
+            * steps}
 
 
 def _train_launcher(root) -> tuple:
@@ -3387,7 +3411,7 @@ def _train_launcher(root) -> tuple:
             and ("checkpoint", s) in events
             for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
                            TRAIN_CKPT_EVERY)),
-        "launches": all(launches[k] >= n for k, n in want.items())}
+        "launches": all(launches[k] == n for k, n in want.items())}
     rec = {"phase": "train", "run": "launcher", "argv": argv,
            "losses": [m["loss"] for m in log],
            "grad_norms": [m["grad_norm"] for m in log],
@@ -3524,6 +3548,66 @@ def _train_grads() -> dict:
     return rec
 
 
+def _train_remat() -> dict:
+    """qwen3-0.6b at full width, GRAD_LAYERS layers, B GRAD_BATCH x
+    TRAIN_SEQ: one loss and gradient on the card with ``remat="full"``
+    (each layer under ``components.remat``, its dead last product not
+    formed in the recompute) and with ``remat="none"``: the loss and
+    every leaf ``torch.equal``; the GEMM launches 4 a product less one
+    a dead product, and 3 a product without remat; each run's peak."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_items, tree_map
+    base = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=GRAD_LAYERS)
+    batch = SyntheticPipeline(base, GRAD_BATCH, TRAIN_SEQ).device_batch(
+        0, "cuda")
+    params = DecoderLM(base, device="cuda").init(seed=1)
+    names = ["/".join(path) for path, _ in tree_items(params)]
+    out = {}
+    for remat in ("full", "none"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model = DecoderLM(cfg, device="cuda")
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        leaves = [t for _, t in tree_items(p)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _train_launches_reset()
+        t0 = time.perf_counter()
+        loss, _ = make_loss_fn(model, cfg)(p, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        out[remat] = {"loss": loss.detach(), "grads": grads,
+                      "s": time.perf_counter() - t0, "peak_mem_gb": _peak_gb(),
+                      "launches": _train_launches()}
+        del p, leaves, loss
+    full, none = out["full"], out["none"]
+    differ = [n for n, a, b in zip(names, full["grads"], none["grads"])
+              if not torch.equal(a, b)]
+    n_prod, n_dead = _n_products(model), _n_dead(model)
+    gates = {"loss_equal": torch.equal(full["loss"], none["loss"]),
+             "grads_equal": not differ,
+             "launches_full": full["launches"]["gemm_dataflow"]
+             == 4 * n_prod - n_dead,
+             "launches_none": none["launches"]["gemm_dataflow"]
+             == 3 * n_prod}
+    rec = {"phase": "train", "run": "remat", "layers": GRAD_LAYERS,
+           "B": GRAD_BATCH, "S": TRAIN_SEQ, "loss": float(full["loss"]),
+           "leaves": len(names), "leaves_differing": differ,
+           "products": n_prod, "dead_products": n_dead,
+           **{f"{k}_{r}": out[r][k] for r in out
+              for k in ("launches", "peak_mem_gb", "s")},
+           "gates": gates, "card": nvidia_smi_line()}
+    emit(rec)
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"train [remat]: gates failed: {bad}")
+    return rec
+
+
 def _train_overfit() -> dict:
     """qwen3-0.6b at full width learns one fixed batch: OVERFIT_STEPS
     steps with ``OptConfig(warmup_steps=1)``; the last loss must be
@@ -3623,7 +3707,8 @@ def phase_train():
     """qwen3-0.6b's training path at full width on the card: the
     launcher (10 steps, checkpoints at 5 and 10, launch gates), the
     resumed run after an injected fault (bit for bit), every leaf's
-    gradient against the CPU's plain path, an overfit run, and the
+    gradient against the CPU's plain path, a grad step under remat bit
+    for bit the one without it, an overfit run, and the
     step with parameters stored bf16 beside f32.  Returns the training
     kernels' launches in the launcher's run."""
     import gc
@@ -3639,7 +3724,7 @@ def phase_train():
         _train_resume(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for run in (_train_grads, _train_overfit, _train_storage):
+    for run in (_train_grads, _train_remat, _train_overfit, _train_storage):
         gc.collect()
         torch.cuda.empty_cache()
         run()
@@ -3656,8 +3741,11 @@ def _family_train_gates(model) -> dict:
     decoder's self- and cross-attention each; every projection's GEMM
     four times (forward, recompute, dX, dW), except whisper's
     cross-attention K/V of the encoder output, computed once outside
-    the decoder's blocks as in the reference (three); the f32 products
-    (routers, RG-LRU's gates, RWKV6's decay LoRA) among them."""
+    the decoder's blocks as in the reference, and each block's dead
+    last product (``_n_dead``: the dense FFN's down projection, the
+    shared expert's), whose output the recompute does not form (three
+    each); the f32 products (routers, RG-LRU's gates, RWKV6's decay
+    LoRA) among them."""
     from repro_torch.models.base import flatten_specs
     cfg = model.cfg
     if cfg.is_encoder_decoder:
@@ -3671,7 +3759,8 @@ def _family_train_gates(model) -> dict:
         if spec.f32:
             f32 += spec.init_shape[0] if path[0] == "layers" else 1
     return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "gemm_dataflow": 4 * _n_products(model) - outside,
+            "gemm_dataflow": 4 * _n_products(model) - outside
+            - _n_dead(model),
             "gemm_dataflow_f32": 4 * f32}
 
 

@@ -303,11 +303,19 @@ class LinearFn(torch.autograd.Function):
     gradient: dX = dY w^T and dW = x^T dY through ``project`` (the
     transposes made contiguous first), each in its operand's dtype.
     ``f32_out``: the forward is ``project_f32`` (its gradient arrives in
-    f32 and is rounded to x's dtype first)."""
+    f32 and is rounded to x's dtype first).  ``skip``: save x and w as
+    above but launch nothing, and return a placeholder of the output's
+    shape and dtype (one element, expanded): a checkpoint's recompute
+    that needs this product's operands but never its output
+    (``components.linear``'s ``last``)."""
 
     @staticmethod
-    def forward(ctx, x, w, f32_out=False):
+    def forward(ctx, x, w, f32_out=False, skip=False):
         ctx.save_for_backward(x, w)
+        if skip:
+            dtype = torch.float32 if f32_out else x.dtype
+            return x.new_zeros((), dtype=dtype).expand(x.shape[0],
+                                                        w.shape[1])
         return (project_f32 if f32_out else project)(x, w)
 
     @staticmethod
@@ -319,7 +327,7 @@ class LinearFn(torch.autograd.Function):
             dx = project(dy, w.t().contiguous())
         if ctx.needs_input_grad[1]:
             dw = project(x.t().contiguous(), dy)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def modeled_traffic(m: int, n: int, k: int, dataflow: Dataflow,

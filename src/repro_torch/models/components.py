@@ -46,11 +46,14 @@ writes, and the two groups' write targets are disjoint.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..kernels.flash_attention.ops import KV_TILE as FLASH_TILE
 from ..kernels.flash_attention import flash_attention
@@ -63,7 +66,8 @@ from ..sharding.collectives import (all_gather, all_reduce, fanout, gather,
 from ..sharding.spmd import MODEL, rank_heads, rank_kv_heads
 from .base import ParamSpec, normal, ones, zeros
 
-__all__ = ["linear", "fanout_linear", "replicated_linear", "row_sum", "rms_norm", "layer_norm",
+__all__ = ["linear", "remat", "fanout_linear", "replicated_linear",
+           "head_columns_linear", "row_sum", "rms_norm", "layer_norm",
            "norm_specs",
            "apply_norm", "group_norm_heads", "rope_freqs", "apply_rope", "apply_mrope",
            "sinusoid_pos", "sinusoid_pos_at", "attn_specs", "project_qkv",
@@ -82,7 +86,7 @@ __all__ = ["linear", "fanout_linear", "replicated_linear", "row_sum", "rms_norm"
 
 
 # ---------------------------------------------------------- projection
-def linear(x, w, bias=None, f32_out: bool = False):
+def linear(x, w, bias=None, f32_out: bool = False, last: bool = False):
     """``x @ w`` (+ ``bias``) in x's dtype: the one product every
     projection of the port goes through.  x ``(..., K)``, w ``(K, N)``
     (cast to x's dtype), bias ``(N,)`` added in x's dtype after the
@@ -100,12 +104,17 @@ def linear(x, w, bias=None, f32_out: bool = False):
     is needed the product is ``LinearFn`` (on the card the same
     forward bits).  ``f32_out``: the product left in f32, unrounded (a
     row-parallel partial sum, rounded once after the sum over
-    ``model``)."""
+    ``model``).  ``last``: a block's last product under ``remat``,
+    whose output reaches the block's output through operations that
+    save nothing (adds, casts, row cuts, collectives), so the backward
+    never reads it: in the backward's recompute it saves x and w for
+    its own dX and dW and launches nothing (``remat``)."""
     w = w.to(x.dtype)
     # the rows named, not -1: a rank with no heads has K = 0
     x2 = x.reshape(math.prod(x.shape[:-1]), x.shape[-1])
     if _needs_grad(x, w):
-        y = LinearFn.apply(x2, w, f32_out)
+        y = LinearFn.apply(x2, w, f32_out,
+                           last and getattr(_REMAT, "recompute", False))
     else:
         y = (project_f32 if f32_out else project)(x2, w)
     y = y.reshape(*x.shape[:-1], w.shape[1])
@@ -116,6 +125,42 @@ def linear(x, w, bias=None, f32_out: bool = False):
 
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# ---------------------------------------------------------------- remat
+#: set on the thread that runs a ``remat`` block's recompute
+_REMAT = threading.local()
+
+
+class _Recompute:
+    """The recompute context of ``remat``'s checkpoint: while it is
+    entered, a ``linear`` marked ``last`` skips its kernel."""
+
+    def __enter__(self):
+        _REMAT.recompute = True
+
+    def __exit__(self, *_):
+        _REMAT.recompute = False
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant,
+    early stop on): the forward keeps the block's inputs, and the
+    backward recomputes the block until the last tensor the forward
+    saved is saved again, where checkpoint stops it.  A block's last
+    product (``linear``'s ``last``: the dense FFN's down projection,
+    whole or row-parallel, and the shared expert's) saves its operands
+    after its kernel has run, so the recompute would form its output,
+    which nothing reads; in the recompute it saves them and launches
+    nothing, as the reference's XLA drops that product of its
+    ``jax.checkpoint`` as dead code.  The collectives after it are not
+    replayed where that save is the block's last (the dense FFN); the
+    MoE's aux loss saves after it, so its sum over ``model`` runs on
+    the placeholder, as it ran on the product before."""
+    with set_checkpoint_early_stop(True):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _Recompute()))
 
 
 def fanout_linear(x, *ws, tp):
@@ -257,6 +302,65 @@ class _ReplicatedLinearFn(torch.autograd.Function):
         dw = all_gather(project(x.t().contiguous(), cols), ctx.mesh, MODEL,
                         1)
         return dx, dw, None
+
+
+def head_columns_linear(x, w, bias, tp, head_dim: int):
+    """``bias + linear(x, w)`` on this rank's heads' columns only, for a
+    ``w`` (K, H head_dim) and an f32 ``bias`` (H head_dim,) or () (RWKV6's
+    ``wd2`` and ``w0``: the reference's init draws one ``w0`` a layer,
+    its spec one a channel) held whole by every rank of ``model``, an x
+    alike on every rank, and an output that only this rank reads (its
+    heads, ``tp.head_range``; the ranks' runs of heads uneven where
+    ``model`` does not divide H).  The product and its dX cover the
+    rank's columns: x's gradient is the ranks' f32 partials dY w_r^T
+    summed by one all-reduce over ``model`` and rounded once
+    (``fanout_linear``'s), and w's is this rank's columns of x^T dY,
+    all-gathered over ``model`` (each rank's padded to the widest) with
+    dY's column sums, the bias's gradient (their total for a ())."""
+    widths = tuple(len(rank_heads(tp.n_heads, tp.size, r)) * head_dim
+                   for r in range(tp.size))
+    w = w.to(x.dtype)
+    y = _HeadColumnsFn.apply(x.reshape(-1, x.shape[-1]), w, bias, tp.mesh,
+                             widths)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+class _HeadColumnsFn(torch.autograd.Function):
+    """``bias + x @ w`` on this rank's ``widths`` columns
+    (``head_columns_linear``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, mesh, widths):
+        i = mesh.axis_index(MODEL)
+        start, n = sum(widths[:i]), widths[i]
+        wr = w.narrow(1, start, n).contiguous()
+        ctx.save_for_backward(x, wr)
+        ctx.mesh, ctx.widths, ctx.whole = mesh, widths, bias.dim() == 0
+        return (bias if ctx.whole else bias.narrow(0, start, n)) + project(
+            x, wr)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wr = ctx.saved_tensors
+        mesh, widths = ctx.mesh, ctx.widths
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = all_reduce(project_f32(dy, wr.t().contiguous()), mesh,
+                            MODEL).to(x.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            part = torch.cat([project(x.t().contiguous(), dy),
+                              dy.sum(0, keepdim=True)])
+            n = max(widths)
+            parts = all_gather(F.pad(part, (0, n - part.shape[1])), mesh,
+                               MODEL, 1)
+            if min(widths) < n:
+                parts = torch.cat([parts.narrow(1, r * n, width)
+                                   for r, width in enumerate(widths)], 1)
+            dw, db = parts[:-1], parts[-1]
+            if ctx.whole:
+                db = db.sum()
+        return dx, dw, db, None, None
 
 
 def whole_sequence(fn, x, tp):
@@ -595,12 +699,13 @@ def out_proj(p, out, tp=None):
     return row_parallel(x, p["wo"], tp)
 
 
-def row_parallel(x, w, tp):
+def row_parallel(x, w, tp, last: bool = False):
     """``x @ w`` for a ``w`` holding this rank's rows of the whole
     product: the f32 partials summed over ``model``, rounded once to
     x's dtype (as ``linear`` rounds its one product); under ``tp.seq``
-    reduce-scattered along the sequence (x (B, S, F) -> (B, S / m, D))."""
-    y = linear(x, w, f32_out=True)
+    reduce-scattered along the sequence (x (B, S, F) -> (B, S / m, D)).
+    ``last``: as ``linear``'s (the sum is then not replayed)."""
+    y = linear(x, w, f32_out=True, last=last)
     return model_sum(y, tp).to(x.dtype)
 
 
@@ -977,10 +1082,11 @@ def mlp_block(p, x, cfg, gather=None, tp=None):
         return _mlp_split(p, x, cfg, tp)
     if cfg.mlp_kind == "gelu":
         h = F.gelu(linear(x, p["w1"], p["b1"]), approximate="tanh")
-        return linear(_tp_gather_heads(h, gather, -1), p["w2"], p["b2"])
+        return linear(_tp_gather_heads(h, gather, -1), p["w2"], p["b2"],
+                      last=True)
     g = F.silu(linear(x, p["wg"]))
     h = _tp_gather_heads(g * linear(x, p["wu"]), gather, -1)
-    return linear(h, p["wd"])
+    return linear(h, p["wd"], last=True)
 
 
 def _mlp_split(p, x, cfg, tp):
@@ -993,10 +1099,10 @@ def _mlp_split(p, x, cfg, tp):
         h = F.gelu(h, approximate="tanh")
         # under tp.seq b2 is added on the rank's rows: its gradient is
         # summed over model (fanout_tree)
-        return (row_parallel(h, p["w2"], tp)
+        return (row_parallel(h, p["w2"], tp, last=True)
                 + fanout_tree(p["b2"], tp).to(x.dtype))
     g, u = fanout_linear(x, p["wg"], p["wu"], tp=tp)
-    return row_parallel(F.silu(g) * u, p["wd"], tp)
+    return row_parallel(F.silu(g) * u, p["wd"], tp, last=True)
 
 
 # ------------------------------------------------------------------ moe
@@ -1103,13 +1209,15 @@ def moe_block(p, x, cfg, tp=None):
                 else (linear(xf, sp["wg"]), linear(xf, sp["wu"])))
         h = F.silu(g) * u
         if split:
-            sh = linear(h, sp["wd"], f32_out=True).reshape(B, S, D)
+            sh = linear(h, sp["wd"], f32_out=True,
+                        last=True).reshape(B, S, D)
             y = (model_sum(y.float() + sh, outer) if ep else
                  model_rows(y, outer) + model_sum(sh, outer).to(x.dtype))
         else:
             y = ((model_sum(y.float(), outer).to(x.dtype) if ep
                   else model_rows(y, outer))
-                 + model_rows(linear(h, sp["wd"]).reshape(B, S, D), outer))
+                 + model_rows(linear(h, sp["wd"], last=True)
+                              .reshape(B, S, D), outer))
     elif ep:
         y = model_sum(y.float(), outer)
     else:

@@ -55,7 +55,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..launch.mesh import current_mesh
@@ -383,7 +382,7 @@ class DecoderLM(MeshModel):
                     # the reference's jax.checkpoint, every block kind:
                     # keep the layer's input, recompute the rest in the
                     # backward
-                    out = checkpoint(layer, p, x, use_reentrant=False)
+                    out = C.remat(layer, p, x)
                 else:
                     out = layer(p, x)
                 if use_moe:

@@ -33,12 +33,17 @@ splits them unevenly (``spmd.rank_heads``: ``localize`` gathers those
 leaves and cuts the rank's heads) and a call with a state, or a
 prefill that builds one, runs every head on every rank, as the
 reference's state specs replicate the head dim there.  The token mix
-(``tm_w1`` / ``tm_w2``) and the decay LoRA
-(``wd1`` / ``wd2``) are replicated over ``model``: every rank computes
-them whole, and what leaves that duplicated work for the rank's heads
-(the four mixed inputs through ``components.fanout_linear``, the
-decay's slice through ``fanout``) carries back the sum over ``model``
-of the ranks' gradients.  The
+(``tm_w1`` / ``tm_w2``) and the decay LoRA's ``wd1`` are replicated over
+``model``: every rank computes them whole, and what leaves that
+duplicated work for the rank's heads (the four mixed inputs through
+``components.fanout_linear``, the decay's input through
+``components.head_columns_linear``) carries back the sum over
+``model`` of the ranks' gradients, so the gradients of their weights
+are alike on every rank: each rank forms its 1 / m of their columns
+and all-gathers them (``components.replicated_linear``).  ``wd2`` and
+``w0`` are cut to the channels of the rank's heads before the product
+(``head_columns_linear``: its dX summed over ``model``, the dW columns
+all-gathered, uneven where the heads are).  The
 channel mix splits its hidden dim (``tp.ff``: ``wk`` column-, ``wv``
 row-parallel); its gate ``sigmoid(xr @ wr)`` is duplicated and
 multiplies the summed output, so the gradient of ``wr`` is alike on
@@ -116,21 +121,32 @@ def _shift(x, state):
     return state[:, None].to(x.dtype)
 
 
-def _ddlerp(p, x, xx):
-    """Data-dependent token-shift mix -> (xw, xk, xv, xr, xg)."""
+def _ddlerp(p, x, xx, tp=None):
+    """Data-dependent token-shift mix -> (xw, xk, xv, xr, xg); on a mesh
+    each LoRA weight's gradient split over ``model``
+    (``components.replicated_linear``)."""
     B, S, D = x.shape
     xxx = x + xx * p["mu_x"].to(x.dtype)
-    z = torch.tanh(C.linear(xxx, p["tm_w1"])).reshape(B, S, 5, TM_LORA)
+    z = torch.tanh(C.replicated_linear(xxx, p["tm_w1"], tp)).reshape(
+        B, S, 5, TM_LORA)
     mus = ("mu_w", "mu_k", "mu_v", "mu_r", "mu_g")
     return tuple(
-        x + xx * (p[mu].to(x.dtype) + C.linear(z[:, :, i], p["tm_w2"][i]))
+        x + xx * (p[mu].to(x.dtype)
+                  + C.replicated_linear(z[:, :, i], p["tm_w2"][i], tp))
         for i, mu in enumerate(mus))
 
 
-def _decay(p, xw):
-    """Per-channel log-decay lw = -exp(ww) <= 0, ww clamped, in f32."""
-    ww = p["w0"].float() + C.linear(
-        torch.tanh(C.linear(xw.float(), p["wd1"])), p["wd2"])
+def _decay(p, xw, tp=None, head_dim=None):
+    """Per-channel log-decay lw = -exp(ww) <= 0, ww clamped, in f32;
+    with ``tp.heads`` the channels of this rank's heads only (``wd2``'s
+    and ``w0``'s columns cut before the product,
+    ``components.head_columns_linear``)."""
+    h = torch.tanh(C.replicated_linear(xw.float(), p["wd1"], tp))
+    if tp is not None and tp.heads:
+        ww = C.head_columns_linear(h, p["wd2"], p["w0"].float(), tp,
+                                   head_dim)
+    else:
+        ww = p["w0"].float() + C.linear(h, p["wd2"])
     return -torch.exp(torch.clamp(ww, max=WW_CLAMP))
 
 
@@ -201,13 +217,11 @@ def wkv_inputs(p, x, cfg, state=None, tp=None):
     B, S, D = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     xx = _shift(x, None if state is None else state["shift"]) - x
-    xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
-    lw = _decay(p, xw)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, xx, tp)
+    lw = _decay(p, xw, tp, Dh)
     lin = C.linear
     if tp is not None and tp.heads:
         H = len(tp.head_range)
-        lw = C.rank_slice(lw, tp, H * Dh, dim=-1,
-                          start=tp.head_range.start * Dh)
 
         def lin(x, w):
             return C.fanout_linear(x, w, tp=tp)[0]

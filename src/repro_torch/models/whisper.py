@@ -41,7 +41,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..launch.mesh import current_mesh
@@ -107,7 +106,7 @@ class WhisperModel(MeshModel):
         """``fn(*args)``, under ``torch.utils.checkpoint`` in the
         training forward with ``cfg.remat == "full"``."""
         if train and self.cfg.remat == "full":
-            return checkpoint(fn, *args, use_reentrant=False)
+            return C.remat(fn, *args)
         return fn(*args)
 
     # ----------------------------------------------------------- encoder

@@ -268,7 +268,9 @@ def test_split_heads_project_only_the_rank_kv_heads(monkeypatch):
     product's (K, N), or (M, N) for dW, whose K is the microbatch's
     tokens, the launches are 3 a layer and microbatch at (K_w, N_w) and
     1 at (N_w, K_w): ``wk`` / ``wv`` enter at (D, 128), never at the
-    whole (D, 1,024), and the launch count is 4 a product, as before."""
+    whole (D, 1,024), and the launch count is 4 a product, but 3 for
+    the FFN's row-parallel down projection (F / m, D), whose output the
+    recompute does not form (``components.remat``): 2 at (F / m, D)."""
     cfg = dryrun.apply_overrides(configs.get("qwen3-0.6b"),
                                  {"n_layers": "2"})
     seen = []
@@ -289,9 +291,11 @@ def test_split_heads_project_only_the_rank_kv_heads(monkeypatch):
     weights = [(D, cfg.n_heads // m * dh), (D, len(kv) * dh),
                (D, len(kv) * dh), (cfg.n_heads // m * dh, D),
                (D, cfg.d_ff // m), (D, cfg.d_ff // m), (cfg.d_ff // m, D)]
+    # forward, recompute and dW at (K_w, N_w); the dead product no recompute
+    runs = [3] * (len(weights) - 1) + [2]
     want = {}
-    for kw, nw in weights:
-        want[kw, nw] = want.get((kw, nw), 0) + 3 * cfg.n_layers * n_micro
+    for (kw, nw), r in zip(weights, runs):
+        want[kw, nw] = want.get((kw, nw), 0) + r * cfg.n_layers * n_micro
         want[nw, kw] = want.get((nw, kw), 0) + cfg.n_layers * n_micro
     got = {}
     for mm, n, k in seen:
@@ -301,7 +305,8 @@ def test_split_heads_project_only_the_rank_kv_heads(monkeypatch):
     assert got == want
     assert (D, cfg.n_kv_heads * dh) not in got
     launches = res["kernels"]["gemm_dataflow"]["launches"]
-    assert launches == len(seen) == 4 * len(weights) * cfg.n_layers * n_micro
+    assert launches == len(seen) == (4 * len(weights) - 1) \
+        * cfg.n_layers * n_micro
     assert res["kernels"]["gemm_dataflow"]["flops"] == sum(
         2 * a * b * c for a, b, c in seen)
 
@@ -349,7 +354,9 @@ def test_replicated_gate_splits_its_weight_gradient(monkeypatch):
     of model, and so is its gradient's input, so each rank forms only
     its D / 16 columns of dW (one product of (D, D / 16) over the
     rank's tokens, all-gathered over model), never the whole (D, D):
-    the forward, its recompute and dX keep the whole width."""
+    the forward, its recompute and dX keep the whole width.  The token
+    mix's ``tm_w1`` (D, 5 x 32), whose whole dW had this shape at m 16,
+    splits its dW too (``tests/test_torch_remat.py``)."""
     cfg = dryrun.apply_overrides(configs.get("rwkv6-3b"), {"n_layers": "1"})
     seen = []
     cost = gemm.cost
@@ -363,9 +370,8 @@ def test_replicated_gate_splits_its_weight_gradient(monkeypatch):
         MESHES["single"]["model"]
     tokens = s.global_batch // MESHES["single"]["data"] // res["n_micro"] \
         * s.seq_len
-    # the token mix's LoRA tm_w1 (D, 5 x 32) has the same dW shape here
-    tm = int(D // m == 5 * TM_LORA)
-    assert seen.count((D, D // m, tokens)) == (1 + tm) * res["n_micro"]
+    assert seen.count((D, D // m, tokens)) == res["n_micro"]
+    assert seen.count((D, 5 * TM_LORA // m, tokens)) == res["n_micro"]
     assert (D, D, tokens) not in seen
     assert seen.count((tokens, D, D)) == 3 * res["n_micro"]
 

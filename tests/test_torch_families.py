@@ -223,9 +223,9 @@ def test_decode_step_sends_every_projection_through_linear(arch,
     seen = []
     linear = C.linear
 
-    def recording(x, w, bias=None):
+    def recording(x, w, bias=None, **kw):
         seen.append((w.data_ptr(), tuple(w.shape)))
-        return linear(x, w, bias)
+        return linear(x, w, bias, **kw)
     monkeypatch.setattr(C, "linear", recording)
     _, cache = model.prefill(params, tb, max_len=S + 1)
     at_prefill = set(seen)

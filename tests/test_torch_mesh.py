@@ -112,11 +112,15 @@ EVEN = ("dense", "moe", "whisper", "recurrentgemma", "rwkv6", "kv_shared",
 #: the digests (``torch_mesh_ranks.digest``) of each even case's loss and
 #: gradients as the grad step gave them on every rank before any split
 #: of the heads was uneven (every rank the same): a fixed record that a
-#: later change to the even path is held against
+#: later change to the even path is held against.  rwkv6's recorded anew
+#: once its decay LoRA's ``wd2`` and ``w0`` took only the rank's heads'
+#: channels (``components.head_columns_linear``): the input gradient of
+#: ``wd2`` became the ranks' partial products summed over model, and
+#: ``w0``'s a sum of column sums (5e25f8ea15295ff5 before)
 EVEN_DIGESTS = {"dense": "2d5db74e4f95c3ce", "moe": "152973d042549e90",
                 "whisper": "ecfdb64d907ca2ef",
                 "recurrentgemma": "bace84d149e1d478",
-                "rwkv6": "5e25f8ea15295ff5", "kv_shared": "0e9cd90ec19a9fba",
+                "rwkv6": "b631a1b2fca3f96d", "kv_shared": "0e9cd90ec19a9fba",
                 "kv_one": "d6b168911157a55c"}
 #: whisper smoke's fields for ``encode_cross_kv`` with the heads split
 #: over model = 2 but not the KV heads (rank 0 reads KV heads 0-1, rank

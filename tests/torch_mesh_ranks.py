@@ -18,6 +18,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.data import SyntheticPipeline
+from repro_torch.kernels.gemm_dataflow import ops as gemm
 from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.models import build_model
 from repro_torch.models import components as C
@@ -379,4 +380,32 @@ def restore(mesh, tmp, payload) -> dict:
             "shard_shapes": [t.shape for t in _specs(tree)]}
 
 
-JOBS = {"mesh22": mesh22, "restore": restore}
+def lora(mesh, tmp, payload) -> dict:
+    """The default rules' grad step of each case (rwkv6's time mix):
+    the loss, every leaf's whole gradient and the shapes (a, b) of each
+    f32 product ``project`` the step made on this rank (its decay
+    LoRA's), in ``components`` and in ``LinearFn``."""
+    out = {}
+    for name, case in payload.items():
+        cfg = case["cfg"]
+        model = build_model(cfg, device="cpu")
+        params, sh = _sharded(model, mesh, case["params"])
+        batch = SyntheticPipeline(cfg, case["B"], case["S"]).device_batch(
+            0, mesh=mesh)
+        seen, project = [], C.project
+
+        def spy(a, b):
+            if a.dtype == torch.float32:
+                seen.append((tuple(a.shape), tuple(b.shape)))
+            return project(a, b)
+        C.project = gemm.project = spy
+        try:
+            loss, grads, _ = _grads(mesh, model, cfg, params, sh, batch, 1,
+                                    DEFAULT_RULES)
+        finally:
+            C.project = gemm.project = project
+        out[name] = {"loss": loss, "grads": grads, "f32": seen}
+    return out
+
+
+JOBS = {"mesh22": mesh22, "restore": restore, "lora": lora}
