@@ -95,13 +95,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                gated (``_bitwise_invariants``: chunked == whole prefill,
                verify at T = 1 == decode, fused == unfused) on 8 prompts
                of mixed lengths, and every product of layer 0 and the
-               unembedding row-stable (``_row_bits``, gated).
+               unembedding row-stable (``_row_bits``, gated).  The
+               engine replays its programs as CUDA graphs
+               (``serve/compiled.py``); the same trace eagerly
+               (``ServePrograms(model, graphs=False)``) is a reading
+               beside it, and on the step clock a gate
+               (``_graph_gate``): streams, dispatch counters, both
+               pools and the kernels' launches equal, and one dispatch
+               of each program's logits read from a graph's static
+               output after a replay (``_graph_logits``), all
+               ``torch.equal``.
 5. **parity**  every served token is re-scored teacher-forced by the
                port's whole-sequence ``apply`` on the card, and held
                token for token against the port's ``greedy_generate``
                (engine == oracle, gated).
 6. **profile** a shorter serve run under ``torch.profiler``: device
-               time by kernel and the device's idle share.
+               time by kernel and the device's idle share, on the
+               graphed programs and then eagerly, the graphed engine
+               twice (the second run replays every graph).  After the
+               fleet a ``graphs`` line: the graphs held and captured by
+               program, the capture seconds and the replays, the extra
+               peak memory, and tok/s, mean TTFT and idle share graphed
+               and eager.
 7. **fleet**   the serving fleet on the serve phase's model and program
                bundle, one line per sub-run: (a) two replicas behind
                the prefix-affinity router (beside one engine on the same
@@ -121,7 +136,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                trace, the parity phase's re-score and engine == oracle,
                the launch gates, the bitwise invariants and the row-bits
                gate; for scout also whether layer 0's routed experts on
-               the first chunk equal an f32 recomputation of its router.
+               the first chunk equal an f32 recomputation of its router,
+               and the serve phase's graph == eager gate (the MoE and
+               its cuBLAS experts inside the graphs).
 9. **tp**      tensor-parallel serving (``TP_RUNS``): qwen3-0.6b at tp 2
                and 4, qwen2-0.5b and stablelm-1.6b at tp 2, full size,
                seeded random weights, placed by ``device_plan``: a card
@@ -133,7 +150,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                slots and pages turn over) on the step clock beside
                the same engine at tp 1; gated on more admissions than
                slots, every stream
-               equal to tp 1's, the dispatch counters equal, each
+               equal to tp 1's (tp 1 eager, as the shards run), the dispatch counters equal, each
                shard's pools equal to tp 1's head slices (``torch.
                equal``, the null page aside) at 1 / tp of the bytes,
                each path kernel launched exactly tp times tp 1's count,
@@ -1943,6 +1960,7 @@ def phase_serve():
     from repro_torch.serve import ServeOptions, ServePrograms
     from repro_torch.tree import tree_leaves
 
+    t_phase = time.perf_counter()
     cfg = configs.get("qwen3-0.6b")
     model = DecoderLM(cfg)                       # the GPU
     t0 = time.perf_counter()
@@ -1957,17 +1975,46 @@ def phase_serve():
     opts.sized_for(warm).build(model, params, programs=programs).run(warm)
     torch.cuda.synchronize()
 
-    reqs = synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
+    def trace():
+        return synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN, rate=50.0)
+    reqs = trace()
     opts = opts.sized_for(reqs)
     engine = opts.build(model, params, programs=programs)
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
     _launches_reset()
     stats = serve_trace(engine, reqs, realtime=True)
     launches = _launches_read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs_held = engine.compiled.graphs()
     want = _launch_gates(model, stats)
     bitwise = _bitwise_invariants(model, params, seed=8)
     row_bits = _row_bits(model, programs.prepare_params(params))
+    # the same trace eagerly (a reading beside the graphed run's)
+    eager = opts.build(model, params,
+                       programs=ServePrograms(model, graphs=False))
+    torch.cuda.reset_peak_memory_stats()
+    e_start_gb = torch.cuda.memory_allocated() / 1e9
+    e_stats = serve_trace(eager, trace(), realtime=True)
+    e_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eager
+    graph_gate = _graph_gate(cfg.name, model, programs.prepare_params(params),
+                             programs, opts, trace, seed=10)
+    reading = {"arch": cfg.name, "graphs_held": graphs_held,
+               "tok_per_s": {"graphs": stats["tok_per_s"],
+                             "eager": e_stats["tok_per_s"]},
+               "ttft_mean_s": {"graphs": stats["ttft_mean_s"],
+                               "eager": e_stats["ttft_mean_s"]},
+               "wall_s": {"graphs": stats["wall_s"],
+                          "eager": e_stats["wall_s"]},
+               # each run's peak above what was allocated as it began
+               # (the graphed engine's graphs, pool and static buffers
+               # against the eager run's transients)
+               "run_peak_gb": {"graphs": peak_gb - start_gb,
+                               "eager": e_peak_gb - e_start_gb},
+               "extra_peak_gb": (peak_gb - start_gb) - (e_peak_gb
+                                                        - e_start_gb),
+               "serve_trace_graph_stats": programs.graph_stats.as_dict()}
     emit({"phase": "serve", "arch": cfg.name, "n_params": n_params,
           "init_s": init_s, "requests": stats["requests"],
           "prompt_len": PROMPT_LEN, "gen": GEN, "batch": opts.batch,
@@ -1983,6 +2030,8 @@ def phase_serve():
                        if k.startswith("n_") or k == "accept_rate"},
           "launches": launches, "launches_expected": want,
           "bitwise": bitwise, "row_bits": row_bits,
+          "graph_equals_eager": graph_gate,
+          "seconds": time.perf_counter() - t_phase,
           "card": nvidia_smi_line()})
     done = sorted(engine.finished, key=lambda r: r.rid)
     if len(done) != N_REQUESTS or any(len(r.generated) != GEN
@@ -1996,7 +2045,7 @@ def phase_serve():
     if not _bitwise_held(bitwise):
         fail(f"serve: a model-level bitwise invariant failed: {bitwise}")
     _row_bits_gate("serve", row_bits)
-    return model, params, programs, done, launches
+    return model, params, programs, done, launches, reading
 
 
 def _bitwise_invariants(model, params, *, seed) -> dict:
@@ -2094,6 +2143,128 @@ def _bitwise_held(bw: dict) -> bool:
             and bw["verify_t1_equals_decode"] and bw["fused_equals_unfused"])
 
 
+def _graph_logits(model, params, *, seed) -> dict:
+    """One dispatch of each paged program through a CUDA graph
+    (``compiled.CompiledProgram`` over the model's logits-returning
+    method, the engine's own programs but for the argmax), replayed on
+    other tokens, valid counts and lengths than its capture's first
+    call, against the eager method on the replay's inputs from the same
+    pools: the logits read from the graph's static output after the
+    replay, and the pools (the null page aside), ``torch.equal``.
+    Eight rows that prefilled 33-64 tokens decode, verify 5 tokens
+    and, in the fused step, beside 8 rows ingesting a first chunk."""
+    import torch
+    from repro_torch.serve import compiled
+    cfg, dev = model.cfg, model.device
+    B, C, ps, S, T = 8, BITWISE_CHUNK, 16, 64, 5
+    rng = np.random.default_rng(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def ints(hi, shape, lo=0):
+        return torch.tensor(rng.integers(lo, hi, shape), **i32)
+    per_row = -(-(S + T) // ps)
+    tables = torch.arange(2 * B * per_row, **i32).reshape(2 * B, per_row) + 1
+    shape = (cfg.n_layers, 1 + 2 * B * per_row, ps, cfg.n_kv_heads,
+             cfg.head_dim)
+    pools0 = {n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+              for n in compiled.POOL_KEYS}
+    lens = ints(S + 1, (B,), lo=33)
+    zeros = torch.zeros(B, **i32)
+    with torch.no_grad():
+        model.prefill_chunk_paged(params, pools0, ints(cfg.vocab_size,
+                                                       (B, S)),
+                                  tables[:B], zeros, lens)
+    p_rows = tables[B:, :-(-C // ps)].contiguous()
+
+    def inputs(name):
+        rows = {"page_tables": tables[:B].clone(),
+                "lengths": lens - ints(2, (B,))}
+        p = (ints(cfg.vocab_size, (B, C)), p_rows.clone(), zeros.clone(),
+             ints(C + 1, (B,), lo=1))
+        return {"chunk": ({}, p),
+                "decode": (rows, (ints(cfg.vocab_size, (B, 1)),)),
+                "verify": (rows, (ints(cfg.vocab_size, (B, T)),)),
+                "fused": (rows, (ints(cfg.vocab_size, (B, T)), *p))}[name]
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+    methods = {"chunk": model.prefill_chunk_paged,
+               "decode": model.decode_step_paged,
+               "verify": model.verify_step_paged,
+               "fused": model.fused_step_paged}
+    stats = compiled.GraphStats()
+    out = {}
+    with torch.no_grad():
+        for name, fn in methods.items():
+            prog = compiled.CompiledProgram(name, fn,
+                                            compiled.CudaGraphs(dev), stats)
+            pools = {n: t.clone() for n, t in pools0.items()}
+            extra, args = inputs(name)
+            prog(params, {**pools, **extra}, *args)   # eager, captured
+            for n, t in pools.items():
+                t.copy_(pools0[n])
+            extra, args = inputs(name)
+            got, _ = prog(params, {**pools, **extra}, *args)   # replay
+            want, st = fn(params, {**{n: t.clone() for n, t in
+                                      pools0.items()}, **extra}, *args)
+            same = [torch.equal(a, b) for a, b in zip(flat(got), flat(want))]
+            out[name] = {
+                "logits_equal": all(same),
+                "max_diff": max(float((a - b).abs().max())
+                                for a, b in zip(flat(got), flat(want))),
+                "pools_equal": all(torch.equal(pools[n][:, 1:], st[n][:, 1:])
+                                   for n in compiled.POOL_KEYS)}
+            del prog
+    out["replays"] = dict(stats.replays)
+    return out
+
+
+def _graph_gate(where, model, params, programs, opts, trace, *,
+                seed) -> dict:
+    """Graph == eager: ``trace()`` on the step clock through an engine
+    on ``ServePrograms(model, graphs=False)`` and one on the graphed
+    ``programs``: the streams, the dispatch counters, both pools (the
+    null page aside) and the kernels' launches (each replay credited
+    with its capture's) equal, and one dispatch of each program's
+    logits (``_graph_logits``).  ``params`` as the engine holds them
+    (``prepare_params``).  Fails the run where any differs."""
+    import torch
+    from repro_torch.launch.serve import serve_trace
+    from repro_torch.serve import ServePrograms
+    from repro_torch.serve.compiled import POOL_KEYS
+    runs = {}
+    for kind, progs in (("eager", ServePrograms(model, graphs=False)),
+                        ("graphs", programs)):
+        engine = opts.build(model, params, programs=progs)
+        _launches_reset()
+        st = serve_trace(engine, trace(), realtime=False)
+        runs[kind] = (
+            {r.rid: list(r.generated) for r in engine.finished},
+            {k: v for k, v in st.items() if k.startswith("n_")},
+            _launches_read(),
+            [getattr(engine.cache, n) for n in POOL_KEYS], engine)
+    (e_streams, e_counters, e_launches, e_pools, _), \
+        (g_streams, g_counters, g_launches, g_pools, g_engine) = \
+        runs["eager"], runs["graphs"]
+    rec = {"streams_equal": e_streams == g_streams,
+           "counters_equal": e_counters == g_counters,
+           "pools_equal": all(torch.equal(a[:, 1:], b[:, 1:])
+                              for a, b in zip(e_pools, g_pools)),
+           "launches_equal": e_launches == g_launches,
+           "launches": g_launches,
+           "dispatches": int(g_counters["n_total_dispatches"]),
+           "graphs_held": g_engine.compiled.graphs(),
+           "logits": _graph_logits(model, params, seed=seed)}
+    del runs, g_engine, e_pools, g_pools
+    held = (rec["streams_equal"] and rec["counters_equal"]
+            and rec["pools_equal"] and rec["launches_equal"]
+            and all(v["logits_equal"] and v["pools_equal"]
+                    for k, v in rec["logits"].items() if k != "replays"))
+    if not held:
+        fail(f"{where}: the graphed programs differ from eager: {rec}")
+    return rec
+
+
 def _rescore(model, params, reqs) -> dict:
     """Re-score every served token of ``reqs`` (all of one prompt length
     and one generation length) with one whole-sequence prefill of
@@ -2175,10 +2346,11 @@ def _kernel_group(name: str) -> str:
 def _profiled_run(backend, reqs) -> dict:
     """Serve ``reqs`` on ``backend`` under torch.profiler
     (``_device_profile``)."""
+    before = backend.stats()["n_total_dispatches"]
     prof = _device_profile(lambda: backend.run(reqs))
     st = backend.stats()
     return {"requests": len(reqs),
-            "dispatches": int(st["n_total_dispatches"]), **prof}
+            "dispatches": int(st["n_total_dispatches"] - before), **prof}
 
 
 def _device_profile(fn) -> dict:
@@ -2226,13 +2398,30 @@ def _device_profile(fn) -> dict:
 
 def phase_profile(model, params, programs):
     """Where the serve time goes: 8 requests of the same shape through
-    a fresh engine under torch.profiler."""
+    a fresh engine under torch.profiler, on the graphed programs (the
+    engine's captures included) and eagerly; then 8 other requests of
+    the same shapes on the graphed engine again (``warm``: it replays
+    every program; an eager engine's second run is its first).
+    Returns each run's device idle share and wall ms."""
     from repro_torch.launch.serve import synth_requests
-    from repro_torch.serve import ServeOptions
-    reqs = synth_requests(model.cfg, 8, PROMPT_LEN, GEN, rate=50.0, seed=2)
-    engine = ServeOptions(batch=8).sized_for(reqs).build(
-        model, params, programs=programs)
-    emit({"phase": "profile", **_profiled_run(engine, reqs)})
+    from repro_torch.serve import ServeOptions, ServePrograms
+    out = {}
+    for kind, progs, runs in (
+            ("graphs", programs, ((2, False), (3, True))),
+            ("eager", ServePrograms(model, graphs=False), ((2, False),))):
+        engine = None
+        for seed, warm in runs:
+            reqs = synth_requests(model.cfg, 8, PROMPT_LEN, GEN, rate=50.0,
+                                  seed=seed)
+            engine = engine or ServeOptions(batch=8).sized_for(reqs).build(
+                model, params, programs=progs)
+            rec = _profiled_run(engine, reqs)
+            emit({"phase": "profile", "programs": kind, "warm": warm, **rec})
+            out[f"{kind}_warm" if warm else kind] = {
+                "device_idle_share": rec["device_idle_share"],
+                "wall_ms": rec["wall_ms"],
+                "device_busy_ms": rec["device_busy_ms"]}
+    return out
 
 
 # ------------------------------------------------------------ fleet
@@ -2732,6 +2921,11 @@ def _serve_arch(name):
            "rescore": rescore, "bitwise": bitwise}
     if seen is not None:
         rec["route"] = _route_check(seen, cfg)
+        # the MoE and its cuBLAS experts through the graphs
+        rec["graph_equals_eager"] = _graph_gate(
+            f"archs [{cfg.name}]", model, params, programs, opts,
+            lambda: synth_requests(cfg, N_REQUESTS, PROMPT_LEN, GEN,
+                                   rate=50.0), seed=11)
     rec["row_bits"] = _row_bits(model, params)
     rec.update(seconds=time.perf_counter() - t0, card=nvidia_smi_line())
     emit(rec)
@@ -2927,7 +3121,8 @@ def _serve_tp(name, tps) -> dict:
     t0 = time.perf_counter()
     cfg = configs.get(name)
     model = DecoderLM(cfg)
-    one = ServePrograms(model)
+    # tp 1 runs eagerly, as the sharded programs do (ROADMAP 11b)
+    one = ServePrograms(model, graphs=False)
     params = one.prepare_params(model.init(seed=0))
     opts = ServeOptions(batch=TP_BATCH)
 
@@ -5312,14 +5507,18 @@ def main(phases=("env", "kernels", "paper", "serve", "parity",
         results.update(paper_results)
         count(paper_launches, "paper")
     if "serve" in phases:
-        model, params, programs, done, served = phase_serve()
+        model, params, programs, done, served, graphs = phase_serve()
         count(served, "serve")
         if "parity" in phases:
             phase_parity(model, params, done)
         if "profile" in phases:
-            phase_profile(model, params, programs)
+            graphs["profile"] = phase_profile(model, params, programs)
         if "fleet" in phases:
             count(phase_fleet(model, params, programs), "fleet")
+        # the bundle's graphs over every engine of these phases
+        emit({"phase": "graphs", **graphs,
+              "bundle": programs.graph_stats.as_dict(),
+              "card": nvidia_smi_line()})
         # the later phases' models need the card's memory
         del model, params, programs, done
         gc.collect()

@@ -39,6 +39,10 @@ TILE = 128
 
 #: kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
+#: the counters above by name: a CUDA graph of the serving programs
+#: (``serve/compiled.py``) reads their rise during its capture and
+#: adds it at each replay, which runs no Python
+COUNTERS = ("launches",)
 
 _fn = None
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}

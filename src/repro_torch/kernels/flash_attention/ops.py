@@ -67,6 +67,10 @@ NEG_INF = -1e30
 #: call, which runs the dQ kernel and then the dK/dV kernel)
 launches = 0
 bwd_launches = 0
+#: the counters above by name: a CUDA graph of the serving programs
+#: (``serve/compiled.py``) reads their rise during its capture and
+#: adds it at each replay, which runs no Python
+COUNTERS = ("launches", "bwd_launches")
 
 #: the backward kernel's head dims (the plain version takes any)
 BWD_HEAD_DIMS = (64, 128, 256)

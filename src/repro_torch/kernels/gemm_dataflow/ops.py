@@ -66,6 +66,10 @@ TMA, CP_ASYNC = 0, 1
 #: all of them, and those with float32 operands among them
 launches = 0
 launches_f32 = 0
+#: the counters above by name: a CUDA graph of the serving programs
+#: (``serve/compiled.py``) reads their rise during its capture and
+#: adds it at each replay, which runs no Python
+COUNTERS = ("launches", "launches_f32")
 
 _fn = None
 

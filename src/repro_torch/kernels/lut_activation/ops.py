@@ -35,6 +35,10 @@ STEP = (LUT_HI - LUT_LO) / LUT_ENTRIES          # 2^-12
 
 #: kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
+#: the counters above by name: a CUDA graph of the serving programs
+#: (``serve/compiled.py``) reads their rise during its capture and
+#: adds it at each replay, which runs no Python
+COUNTERS = ("launches",)
 
 _fn = None
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}

@@ -46,11 +46,18 @@ NEG_INF = -1e30
 
 #: kernel launches since the last reset (chip_smoke.py reads it)
 launches = 0
+#: the counters above by name: a CUDA graph of the serving programs
+#: (``serve/compiled.py``) reads their rise during its capture and
+#: adds it at each replay, which runs no Python
+COUNTERS = ("launches",)
 
 _fn = None
 # (device index, stream) -> int32 zeros, one per (b, kv head, row
-# group); the kernel leaves them zero after each launch
+# group); the kernel leaves them zero after each launch.  A buffer
+# outgrown by a larger call is kept, never freed: a CUDA graph captured
+# on that stream (``serve/compiled.py``) reads it by address
 _counters = {}
+_outgrown = []
 
 
 def _kernel():
@@ -73,6 +80,8 @@ def _kernel():
 def _counter_buffer(device, stream: int, size: int):
     buf = _counters.get((device.index, stream))
     if buf is None or buf.numel() < size:
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=device)
         _counters[(device.index, stream)] = buf
     return buf

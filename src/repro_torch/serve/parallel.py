@@ -266,6 +266,14 @@ class TPServePrograms:
         self.fused = self._program(make_fused_step)
         self._params_cache: Dict[int, tuple] = {}
 
+    #: the sharded programs run eagerly: a graph would have to capture
+    #: the shards' threads and their gathers (ROADMAP Queue 1, 11b)
+    graphs = False
+
+    def for_engine(self):
+        """The programs one engine dispatches: this bundle, eager."""
+        return self
+
     def map_shards(self, fn: Callable, params, state, *args) -> list:
         """``fn(local_model, gather, shard_params, shard_state,
         *shard_args)`` run on every shard as one program call; returns

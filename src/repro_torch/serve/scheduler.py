@@ -109,7 +109,9 @@ def default_bucket_edges(max_pages_per_seq: int) -> List[int]:
 
 
 def _host(t) -> np.ndarray:
-    """A program's token output as a host array (waits for the device)."""
+    """A program's token output as a host array (waits for the device).
+    Read at once: a CUDA graph's output holds until the next replay of
+    its key (serve/compiled.py)."""
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
@@ -209,25 +211,30 @@ class ServeEngine:
         self.bucket_edges = sorted(set(int(b) for b in bucket_edges))
         if self.bucket_edges[-1] < max_pages_per_seq:
             self.bucket_edges.append(max_pages_per_seq)
-        self._decode = programs.decode
-        self._chunk = programs.chunk
+        # this engine's programs: on the card its own CUDA graphs,
+        # captured at a key's first call (serve/compiled.py); eager
+        # where the bundle runs eagerly (the CPU, graphs=False, tp)
+        self.compiled = programs.for_engine()
+        self._decode = self.compiled.decode
+        self._chunk = self.compiled.chunk
         # speculative decode: drafts are advisory, the verify program
         # replaces the decode program for DECODING slots (spec_k == 0
         # keeps the plain one-token decode path)
         self.spec_k = int(spec_k)
         if self.spec_k > 0:
             self.drafter = drafter or PromptLookupDrafter()
-            self._verify = programs.verify
+            self._verify = self.compiled.verify
         else:
             self.drafter = None
             self._verify = None
         # fused uber-program: steady-state steps with both PREFILLING
-        # and DECODING work launch ONE program instead of two
-        # (programs.fused is built lazily, so --no-fused engines never
-        # trace it).  Degenerate mixes — prefill-only ramp, decode-only
-        # tail — take the standalone programs either way, so fusion off
-        # reproduces the unfused engine dispatch-for-dispatch.
+        # and DECODING work launch ONE program instead of two (a
+        # --no-fused engine never calls, so never captures, it).
+        # Degenerate mixes — prefill-only ramp, decode-only tail — take
+        # the standalone programs either way, so fusion off reproduces
+        # the unfused engine dispatch-for-dispatch.
         self.fused = bool(fused)
+        self._fused = self.compiled.fused
         self.waiting: deque[Request] = deque()
         self.prefilling: "OrderedDict[int, Request]" = OrderedDict()
         self.active: Dict[int, Request] = {}      # slot -> DECODING req
@@ -812,10 +819,13 @@ class ServeEngine:
         group = list(self.prefilling.items())
         p_tokens, tables, starts, valids, metas = \
             self._prefill_inputs(group)
-        (d_nxt, p_nxt), state = self.programs.fused(
+        (d_nxt, p_nxt), state = self._fused(
             self.params, self._masked_state(),
             self._dev(tokens), self._dev(p_tokens), self._dev(tables),
             self._dev(starts), self._dev(valids))
+        # both outputs to the host before anything dispatches again (a
+        # graph's outputs hold only until its next replay)
+        d_nxt, p_nxt = _host(d_nxt), _host(p_nxt)
         self.cache.k_pages = state["k_pages"]
         self.cache.v_pages = state["v_pages"]
         # one launch subsumes a prefill dispatch and a decode round:
@@ -826,7 +836,7 @@ class ServeEngine:
         self._c["n_prefill_dispatches"].inc()
         self._c["n_prefill_chunks"].inc(len(metas))
         self._apply_decode(d_nxt, drafts, any_draft, now)
-        self._finish_prefill(metas, _host(p_nxt), now)
+        self._finish_prefill(metas, p_nxt, now)
 
     # ------------------------------------------------------------- step
     def step(self, now: float = float("inf")) -> bool:

@@ -3,13 +3,14 @@ paged programs the engine dispatches (decode, chunked prefill,
 speculative verify, fused), each ending in a greedy argmax over f32
 logits — the counterpart of ``repro.serve.step``.
 
-PyTorch runs eagerly, so a "program" here is a plain function and
-``ServePrograms`` holds no compile caches; it keeps the reference's
-shape (one bundle per model, shared by engines) and its
+A "program" here is a plain function.  ``ServePrograms`` keeps the
+reference's shape (one bundle per model, shared by engines) and its
 ``prepare_params`` / ``prepare_pages`` hooks, through which
-``serve/parallel.TPServePrograms`` shards an engine.  The paged makers
-take ``gather``, the tensor-parallel hook (the reference's
-``tp_axis``): None on one device.
+``serve/parallel.TPServePrograms`` shards an engine.  Where the
+reference jits the paged programs, an engine on the card replays them
+as CUDA graphs (``for_engine``, ``serve/compiled.py``): captured once a
+key, its own graphs an engine.  The paged makers take ``gather``, the
+tensor-parallel hook (the reference's ``tp_axis``): None on one device.
 
 ``greedy_generate`` is the parity oracle: lockstep greedy decoding
 through the contiguous-cache path (``DecoderLM.prefill`` +
@@ -19,11 +20,12 @@ engine and the oracle share one kernel and one summation order.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..models.base import flatten_specs
+from .compiled import CudaGraphs, GraphedPrograms, GraphStats
 
 __all__ = ["greedy", "make_decode_step", "make_paged_decode_step",
            "make_chunk_prefill_step", "make_verify_step",
@@ -105,16 +107,43 @@ def projection_cast(dtype):
 
 class ServePrograms:
     """The serving programs of one model, shared by every engine built
-    on it."""
+    on it.
+
+    ``graphs``: whether engines replay the paged programs as CUDA
+    graphs (``for_engine``); by default on a CUDA model, never on the
+    CPU.  ``graphs=False`` runs them eagerly on the card, and asking for
+    graphs on the CPU raises.  ``capture``: the graphs' backend, made
+    once an engine from the model's device (default
+    ``compiled.CudaGraphs``; the CPU tests pass a stand-in)."""
 
     tp = 1
 
-    def __init__(self, model):
+    def __init__(self, model, graphs: Optional[bool] = None,
+                 capture: Optional[Callable] = None):
         self.model = model
         self.decode = make_paged_decode_step(model)
         self.chunk = make_chunk_prefill_step(model)
         self.verify = make_verify_step(model)
         self.fused = make_fused_step(model)
+        on_card = torch.device(model.device).type == "cuda"
+        if graphs is None:
+            graphs = on_card or capture is not None
+        if graphs and capture is None:
+            if not on_card:
+                raise ValueError(f"CUDA graphs need a CUDA model; this one "
+                                 f"is on {model.device}")
+            capture = CudaGraphs
+        self.graphs = bool(graphs)
+        self._capture = capture
+        self.graph_stats = GraphStats()
+
+    def for_engine(self):
+        """The programs one engine dispatches: with ``graphs``, a
+        ``GraphedPrograms`` of the engine's own (graphs, memory pool)
+        over these functions; else this bundle."""
+        if not self.graphs:
+            return self
+        return GraphedPrograms(self, self._capture(self.model.device))
 
     def prepare_params(self, params):
         """Cast the projection weights to the compute dtype once, where
