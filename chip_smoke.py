@@ -108,7 +108,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. **parity**  every served token is re-scored teacher-forced by the
                port's whole-sequence ``apply`` on the card, and held
                token for token against the port's ``greedy_generate``
-               (engine == oracle, gated).
+               (engine == oracle, gated), whose decode step replays a
+               CUDA graph (``ServePrograms.lockstep``, ``pos`` a device
+               scalar); gated against the same oracle run eagerly
+               (``_oracle_graph_gate``): the tokens equal, and one
+               step's logits and cache after a replay
+               (``_lockstep_logits``), ``torch.equal``.
 6. **profile** a shorter serve run under ``torch.profiler``: device
                time by kernel and the device's idle share, on the
                graphed programs and then eagerly, the graphed engine
@@ -124,9 +129,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                crashing mid-trace on a synthetic step clock (migration
                and journal recovery), (c) the streaming front-end over an
                elastic fleet with two weighted tenants, (d) an engine
-               drafting with a second full-width model.  Each is held to
-               the parity phase's re-score, its event streams, the
-               allocator invariants, the dispatch identity and the
+               drafting with a second full-width model, whose decode
+               replays a CUDA graph a slot, held against the same trace
+               with a drafter decoding eagerly (every proposal, the
+               drafted count, the accept rate and the streams equal)
+               and one draft decode's logits after a replay.  Each is
+               held to the parity phase's re-score, its event streams,
+               the allocator invariants, the dispatch identity and the
                kernels' launch counts.
 8. **archs**   the other architectures the port serves, one line each,
                after the qwen3 model and fleet are freed: qwen2-0.5b and
@@ -148,16 +157,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                pools on KV heads; on TP_REQUESTS requests of the serve phase's
                prompt and generation lengths through TP_BATCH slots (so
                slots and pages turn over) on the step clock beside
-               the same engine at tp 1; gated on more admissions than
-               slots, every stream
-               equal to tp 1's (tp 1 eager, as the shards run), the dispatch counters equal, each
-               shard's pools equal to tp 1's head slices (``torch.
-               equal``, the null page aside) at 1 / tp of the bytes,
-               each path kernel launched exactly tp times tp 1's count,
-               and one dispatch each of chunk, decode, verify at T 5
-               and fused giving every shard tp 1's logits
-               (``torch.equal``).  Served tok/s and each card's peak
-               are readings (co-located shards time-share the card).
+               the same engine at tp 1, every engine replaying CUDA
+               graphs (tp-way: in pieces cut at the gathers,
+               ``parallel.PiecewiseProgram``); gated on more admissions
+               than slots, every stream equal to tp 1's, the dispatch
+               counters equal, each shard's pools equal to tp 1's head
+               slices (``torch.equal``, the null page aside) at 1 / tp
+               of the bytes, each path kernel launched exactly tp times
+               tp 1's count, one dispatch each of chunk, decode, verify
+               at T 5 and fused giving every shard tp 1's logits
+               (``torch.equal``), the engine replaying its graphs, and
+               one dispatch of each program through the pieces, replayed
+               on other inputs, equal to the eager ``TPServePrograms``
+               (logits and every shard's pools, ``_tp_graph_logits``).
+               Served tok/s, the graphs' captures, replays and pieces,
+               and each card's peak are readings (co-located shards
+               time-share the card).
 10. **families** the five families the reference serves only through
                its lockstep path, one after the other at full published
                widths (seeded random weights, projections stored bf16 as
@@ -165,10 +180,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                whisper-tiny, recurrentgemma-2b and rwkv6-3b (every
                layer, but rwkv6's 4 of 32, ``FAMILY_LAYERS``), each
                through the ``--naive`` loop (``launch.serve.run_naive``) on 8
-               prompts of the reference's synthetic batch, gated on
-               every row finishing, the TAU re-score, decode extending
-               prefill, the row-bits gate and the kernels' launch
-               counts; each row's tokens against the same prompt alone
+               prompts of the reference's synthetic batch, its decode
+               step replaying one CUDA graph (``pos`` a device scalar),
+               gated on every row finishing, the TAU re-score, decode
+               extending prefill, the row-bits gate, the kernels'
+               launch counts, and the loop graphed == eager (the tokens
+               of the same loop run eagerly, one step's logits and
+               cache after a replay: ``_lockstep_logits``;
+               recurrentgemma's steps all past its ring's wrap); each
+               row's tokens against the same prompt alone
                through ``greedy_generate`` are a reading, and so, for
                recurrentgemma and rwkv6, is the gap between the prompt
                forms of their recurrences (the associative RG-LRU scan,
@@ -359,9 +379,6 @@ TP_RUNS = (("qwen3-0.6b", (2, 4)), ("qwen2-0.5b", (2,)),
            ("stablelm-1.6b", (2,)))
 TP_REQUESTS, TP_BATCH = 8, 4
 TP_PAGES, TP_CHUNK = 16, 32
-# gathers a call of the hand-off timing makes (qwen3-0.6b's decode: two
-# a layer over 28 layers)
-TP_HANDOFF_GATHERS = 56
 # families phase: the five lockstep-only families at full widths, with
 # their prompt lengths (qwen2-vl: 256 patch positions + 64 text tokens;
 # whisper: a 64-token decoder prompt over 1,500 stub frames;
@@ -1401,7 +1418,7 @@ def phase_kernels():
         if not lin_ok:
             fail(f"flash_attention [{case}]: the decode row is {lin_err} "
                  "from the plain version over the linear history")
-        offs = torch.full((B,), off, dtype=torch.int32, device="cuda")
+        offs = torch.full((B,), int(off), dtype=torch.int32, device="cuda")
         flash(case, qd, ka.contiguous(), va.contiguous(), offs, causal,
               window, bitwise=all(checks.values()), pos=pos,
               cache_slots=kc.shape[1], plain_linear_max_abs_err=lin_err,
@@ -2265,6 +2282,47 @@ def _graph_gate(where, model, params, programs, opts, trace, *,
     return rec
 
 
+def _lockstep_logits(model, params, batch, tokens) -> dict:
+    """One lockstep decode step through a CUDA graph (``compiled.
+    CompiledProgram`` over ``step.make_lockstep_step(model.
+    decode_step)``: the cache read and written by address, ``pos`` a device
+    scalar), captured at the first step after the prompt (tokens[:, 0])
+    and replayed at the next (tokens[:, 1]), against eager
+    ``decode_step``s from a copy of the prompt's cache: the replay's
+    logits, read from the graph's static output, and every cache
+    tensor ``torch.equal``."""
+    import torch
+    from repro_torch.serve import compiled
+    from repro_torch.serve.step import make_lockstep_step
+    S = batch["tokens"].shape[1]
+    t1, t2 = (tokens[:, i:i + 1].contiguous() for i in (0, 1))
+    stats = compiled.GraphStats()
+    with torch.no_grad():
+        _, cache = model.prefill(params, batch, max_len=S + 2)
+        mirror = compiled.nest_map(lambda t: t.clone(), cache)
+        prog = compiled.CompiledProgram(
+            "lockstep", make_lockstep_step(model.decode_step),
+            compiled.CudaGraphs(model.device), stats, state_inputs=("pos",))
+        for t in (t1, t2):                  # eager and captured, replayed
+            (got, pos), _ = prog(params, cache, t)
+            cache["pos"] = pos
+        for t in (t1, t2):
+            want, mirror = model.decode_step(params, mirror, t)
+        rec = {"logits_equal": torch.equal(got, want),
+               "max_diff": float((got - want).abs().max()),
+               "cache_equal": all(torch.equal(a, b) for a, b in zip(
+                   compiled.tensors_of(cache), compiled.tensors_of(mirror))),
+               "rows": int(t1.shape[0]), "replays": dict(stats.replays)}
+    del prog, cache, mirror
+    return rec
+
+
+def _lockstep_held(rec: dict) -> bool:
+    return (rec["tokens_equal"] and rec["logits"]["logits_equal"]
+            and rec["logits"]["cache_equal"]
+            and rec["logits"]["replays"] == {"lockstep": 1})
+
+
 def _rescore(model, params, reqs) -> dict:
     """Re-score every served token of ``reqs`` (all of one prompt length
     and one generation length) with one whole-sequence prefill of
@@ -2308,15 +2366,49 @@ def _rescore(model, params, reqs) -> dict:
 
 
 def phase_parity(model, params, done):
-    """Every token the serve phase served, re-scored (``_rescore``)."""
+    """Every token the serve phase served, re-scored (``_rescore``);
+    the greedy oracle, which replays its decode step as a CUDA graph,
+    against the same oracle run eagerly (``_oracle_graph_gate``)."""
     rec = _rescore(model, params, done)
-    emit({"phase": "parity", **rec})
+    lock = _oracle_graph_gate(model, params, done)
+    emit({"phase": "parity", **rec, "lockstep_graph_equals_eager": lock})
     if not rec["finite"]:
         fail("parity: non-finite logits")
     if rec["max_gap"] > TAU:
         fail(f"parity: a served token is {rec['max_gap']} below the "
              f"best logit (tau {TAU})")
     _oracle_gate("parity", rec)
+    if not _lockstep_held(lock):
+        fail(f"parity: the graphed lockstep decode differs from eager: "
+             f"{lock}")
+
+
+def _oracle_graph_gate(model, params, done) -> dict:
+    """``greedy_generate`` on the served prompts replaying its decode
+    step as a CUDA graph (one capture, then gen - 2 replays) against
+    ``ServePrograms(model, graphs=False)``'s eager loop: the tokens
+    equal; and one step's logits after a replay (``_lockstep_logits``,
+    on two of the prompts)."""
+    import torch
+    from repro_torch.serve import ServePrograms, greedy_generate
+    prompts = torch.tensor(np.stack([r.prompt for r in done]),
+                           device=model.device)
+    gen = len(done[0].generated)
+    out, toks = {}, {}
+    for kind, progs in (("graphs", ServePrograms(model)),
+                        ("eager", ServePrograms(model, graphs=False))):
+        t0 = time.perf_counter()
+        toks[kind] = greedy_generate(model, params, prompts, gen,
+                                     cache_len=prompts.shape[1] + gen,
+                                     programs=progs)
+        torch.cuda.synchronize()
+        out[f"{kind}_s"] = time.perf_counter() - t0
+        out[f"{kind}_graph_stats"] = progs.graph_stats.as_dict()
+    out["tokens_equal"] = torch.equal(toks["graphs"], toks["eager"])
+    out["logits"] = _lockstep_logits(model, params,
+                                     {"tokens": prompts[:EXTEND_ROWS]},
+                                     toks["eager"][:EXTEND_ROWS])
+    return out
 
 
 def _oracle_gate(where: str, rec: dict) -> None:
@@ -2659,33 +2751,132 @@ def _fleet_stream(model, params, programs):
     return launches
 
 
+def _recording_proposals(drafter) -> list:
+    """Log each of ``drafter``'s proposals: (slot, rid, context length,
+    k, the drafts)."""
+    log, propose = [], drafter.propose
+
+    def logged(slot, req, k):
+        out = propose(slot, req, k)
+        log.append((slot, req.rid, len(req.prompt) + len(req.generated),
+                    k, list(out)))
+        return out
+    drafter.propose = logged
+    return log
+
+
+def _draft_reused_slot(drafter, cfg) -> dict:
+    """A slot of ``drafter`` (its graphs captured on the trace's caches)
+    serves a request that needs less room than the slot's cache holds,
+    so the paged kernel decodes over a longer page than a fresh cache
+    would give it, against a fresh eager ``DraftModelDrafter`` on the
+    same request: two rounds of 4 drafts, the second after a rejected
+    draft (a rewind), are equal, and the graphed drafter replayed."""
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.serve import DraftModelDrafter, ServePrograms
+    req = synth_requests(cfg, 1, DRAFT_PROMPT_LEN // 2, DRAFT_GEN // 2,
+                         rate=50.0, seed=7)[0]
+    slot = min(drafter._caches)
+    fresh = DraftModelDrafter(drafter.model, drafter.params, cfg_target=cfg,
+                              programs=ServePrograms(drafter.model,
+                                                     graphs=False))
+    stats = drafter._decode.program.stats
+    replays = stats.replays["lockstep"]
+    rounds = []
+    for _ in range(2):
+        got = DraftModelDrafter.propose(drafter, slot, req, 4)
+        want = fresh.propose(slot, req, 4)
+        rounds.append([got, want])
+        # the first draft accepted, the second replaced
+        req.generated += [want[0], (want[1] + 1) % cfg.vocab_size]
+    rec = {"drafts_equal": all(a == b and len(a) == 4 for a, b in rounds),
+           "rounds": rounds, "room": drafter._caches[slot]["room"],
+           "cap": drafter._slots[slot]["cap"],
+           "replayed": stats.replays["lockstep"] > replays}
+    rec["drafts_equal"] &= rec["room"] > rec["cap"]
+    drafter.detach(slot)
+    return rec
+
+
 def _fleet_draft(model, params, programs):
     """(d) one engine drafting with a second full-width qwen3-0.6b
     (seed 1) through ``--draft-config``, on shorter requests: the draft
-    model consumes each context one token at a time."""
+    model consumes each context one token at a time, replaying its
+    decode step as a CUDA graph a slot (``DraftModelDrafter``).  Then
+    the same trace through an engine whose drafter decodes eagerly
+    (``ServePrograms(draft, graphs=False)``): every proposal, the
+    drafted count, the accept rate and the streams equal; a reused slot
+    with more room than its request needs drafts as a fresh eager
+    drafter does (``_draft_reused_slot``); and one draft decode's logits
+    after a replay (``_lockstep_logits``)."""
     t0 = time.perf_counter()
+    import dataclasses
     import torch
     from repro_torch.launch.serve import synth_requests
-    from repro_torch.serve import ServeOptions
-    reqs = synth_requests(model.cfg, DRAFT_REQUESTS, DRAFT_PROMPT_LEN,
-                          DRAFT_GEN, rate=50.0, seed=6)
+    from repro_torch.serve import (DraftModelDrafter, ServeOptions,
+                                   ServePrograms)
+
+    def trace():
+        return synth_requests(model.cfg, DRAFT_REQUESTS, DRAFT_PROMPT_LEN,
+                              DRAFT_GEN, rate=50.0, seed=6)
+    reqs = trace()
     opts = ServeOptions(batch=8, spec_k=4,
                         draft_config="qwen3-0.6b").sized_for(reqs)
     torch.cuda.reset_peak_memory_stats()
     engine = opts.build(model, params, programs=programs)
+    drafter = engine.drafter
+    proposals = _recording_proposals(drafter)
     _launches_reset()
     streamed, finishes, wall = _fleet_drive(engine, reqs)
     launches, peak = _launches_read(), _peak_gb()
     st = engine.stats()
+    # the same trace with the drafter decoding eagerly
+    eager = dataclasses.replace(opts, draft_config="").build(
+        model, params, programs=programs)
+    eager.drafter = DraftModelDrafter(
+        drafter.model, drafter.params, cfg_target=model.cfg,
+        programs=ServePrograms(drafter.model, graphs=False))
+    e_proposals = _recording_proposals(eager.drafter)
+    e_streamed, _, e_wall = _fleet_drive(eager, trace())
+    e_st = eager.stats()
+    dprogs = drafter._decode.program
+    prompt = torch.tensor(reqs[0].prompt, device=model.device)[None]
+    reused = _draft_reused_slot(drafter, model.cfg)
+    check = {
+        "proposals_equal": proposals == e_proposals,
+        "proposals": len(proposals),
+        "n_drafted": [int(st["n_drafted"]), int(e_st["n_drafted"])],
+        "accept_rate": [float(st["accept_rate"]),
+                        float(e_st["accept_rate"])],
+        "streams_equal": streamed == e_streamed,
+        "wall_s": {"graphs": wall, "eager": e_wall},
+        "draft_graphs_held": len(dprogs),
+        "draft_graph_stats": {"captures": dprogs.stats.captures["lockstep"],
+                              "replays": dprogs.stats.replays["lockstep"]},
+        "reused_slot": reused,
+        "logits": _lockstep_logits(
+            drafter.model, drafter.params, {"tokens": prompt},
+            torch.tensor([[int(reqs[0].generated[0]),
+                           int(reqs[0].generated[1])]],
+                         device=model.device))}
+    held = (check["proposals_equal"] and check["streams_equal"]
+            and check["n_drafted"][0] == check["n_drafted"][1]
+            and check["accept_rate"][0] == check["accept_rate"][1]
+            and check["logits"]["logits_equal"]
+            and check["logits"]["cache_equal"]
+            and reused["drafts_equal"] and reused["replayed"])
+    del eager
     _fleet_record(
         "draft", model, params, engine, engine.finished, len(reqs), wall,
         peak, launches, t0, streamed=streamed, finishes=finishes,
         gates=lambda st: {"drafted": st["n_drafted"] > 0,
                           "no_drafter_state_left":
-                          engine.drafter._slots == {}},
+                          engine.drafter._slots == {},
+                          "draft_graph_equals_eager": held},
         draft=type(engine.drafter).__name__, draft_seed=1,
         prompt_len=DRAFT_PROMPT_LEN, gen=DRAFT_GEN,
-        accept_rate=float(st["accept_rate"]))
+        accept_rate=float(st["accept_rate"]),
+        draft_graph_equals_eager=check)
     return launches
 
 
@@ -3046,61 +3237,92 @@ def _tp_run(model, params, programs, reqs, opts, devices):
     return engine, stats, _launches_read(), [_peak_gb(d) for d in cards]
 
 
-def _count_mesh_calls(progs) -> dict:
-    """Count ``progs``' program calls and their gathers from now on (one
-    gather a layer after attention and one in the FFN; a fused call
-    runs both row groups, so twice that)."""
-    mesh, run = progs._mesh, progs._mesh.run
-    tally = {"calls": 0, "gathers": 0}
-
-    def counted(bodies):
-        out = run(bodies)
-        tally["calls"] += 1
-        tally["gathers"] += mesh._seq[0]    # shard 0's gathers this call
-        return out
-    mesh.run = counted
-    return tally
-
-
-def _tp_handoff(progs, tally, wall_s, reps=30) -> dict:
-    """Host time the one-controller design spends apart from the model,
-    against the trace's wall time: the shard mesh runs tp bodies that do
-    nothing (``spawn_ms``: one call's threads started and joined), then
-    tp bodies that make TP_HANDOFF_GATHERS gathers of a one-element
-    tensor each (the turn handed on at each, and its concatenation);
-    medians of ``reps`` calls, each ending in a synchronize.
-    ``share`` = (calls x spawn_ms + gathers x gather_ms) / wall."""
-    import statistics
+def _tp_graph_logits(model, progs, ptp) -> dict:
+    """One dispatch of each program through the pieces' CUDA graphs
+    (``parallel.PiecewiseProgram`` over the model's logits-returning
+    method, the engine's programs but for the argmax), captured on some
+    inputs and replayed on others, against the eager ``TPServePrograms``
+    on the replay's inputs from the same pools: shard 0's logits read
+    from the graphs' static output, and every shard's pools (the null
+    page aside), ``torch.equal``.  Pools of TP_PAGES random pages of
+    16; two rows decode, verify 5 tokens and, in the fused step, beside
+    a third ingesting a chunk of TP_CHUNK tokens."""
     import torch
-    mesh = progs._mesh
-    xs = [torch.zeros(1, device=d) for d in progs.devices]
-    cards = sorted(set(progs.devices), key=str)
+    from repro_torch.serve import compiled
+    from repro_torch.serve.parallel import PiecewiseProgram, ShardedPages
+    cfg, dev = model.cfg, model.device
+    shape = (cfg.n_layers, TP_PAGES, 16, cfg.n_kv_heads, cfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(12)
+    base = {n: progs.prepare_pages(torch.randn(
+        shape, generator=g, device=dev).bfloat16())
+        for n in compiled.POOL_KEYS}
+    rng = np.random.default_rng(12)
+    n = TP_CHUNK
 
-    def timed(make):
-        ts = []
-        for _ in range(reps):
-            bodies = [make(i) for i in range(progs.tp)]
-            t = time.perf_counter()
-            mesh.run(bodies)
-            for d in cards:
-                torch.cuda.synchronize(d)
-            ts.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(ts)
+    def pools():
+        return {k: ShardedPages([t.clone() for t in v.shards])
+                for k, v in base.items()}
 
-    def gathers(i):
-        hook = mesh.hook(i)
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
 
-        def body():
-            for _ in range(TP_HANDOFF_GATHERS):
-                hook(xs[i], 0)
-        return body
-    spawn = timed(lambda i: (lambda: None))
-    gather_ms = max(timed(gathers) - spawn, 0.0) / TP_HANDOFF_GATHERS
-    cost_s = (tally["calls"] * spawn + tally["gathers"] * gather_ms) / 1e3
-    return {"calls": tally["calls"], "gathers": tally["gathers"],
-            "spawn_ms": spawn, "gather_ms": gather_ms,
-            "handoff_s": cost_s, "wall_s": wall_s,
-            "share": cost_s / wall_s}
+    def tok(*shape):
+        return i32(rng.integers(0, cfg.vocab_size, shape))
+
+    def inputs(name):
+        rows = {"page_tables": i32([[1, 2, 3, 4], [5, 6, 7, 8]]),
+                "lengths": i32(rng.integers(n - 8, n + 1, 2))}
+        p = (tok(1, n), i32([[9, 10, 11, 12]]), i32([0]),
+             i32([int(rng.integers(n - 8, n + 1))]))
+        return {"chunk": ({}, (tok(2, n), rows["page_tables"], i32([0, 0]),
+                               i32(rng.integers(n - 8, n + 1, 2)))),
+                "decode": (rows, (tok(2, 1),)),
+                "verify": (rows, (tok(2, 5),)),
+                "fused": (rows, (tok(2, 5), *p))}[name]
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+    methods = {"chunk": "prefill_chunk_paged", "decode": "decode_step_paged",
+               "verify": "verify_step_paged", "fused": "fused_step_paged"}
+    stats = compiled.GraphStats()
+    out = {}
+    with torch.no_grad():
+        for name, method in methods.items():
+            prog = PiecewiseProgram(name, progs, {
+                d: compiled.CudaGraphs(d)
+                for d in dict.fromkeys(progs.devices)}, stats)
+            prog.maker = lambda m, gather, method=method: (
+                lambda p, st, *a: getattr(m, method)(p, st, *a,
+                                                     gather=gather))
+            st = pools()
+            extra, args = inputs(name)
+            prog(ptp, {**st, **extra}, *args)          # eager, captured
+            for k in compiled.POOL_KEYS:
+                for a, b in zip(st[k].shards, base[k].shards):
+                    a.copy_(b)
+            extra, args = inputs(name)
+            got, _ = prog(ptp, {**st, **extra}, *args)     # replayed
+            want_st = pools()
+            want = progs.map_shards(
+                lambda m, gather, p, s, *a, method=method: getattr(
+                    m, method)(p, s, *a, gather=gather)[0],
+                ptp, {**want_st, **extra}, *args)[0]
+            got = [a.to(dev) for a in flat(got)]
+            want = [a.to(dev) for a in flat(want)]
+            (graph,) = prog._graphs.values()
+            out[name] = {
+                "logits_equal": all(torch.equal(a, b)
+                                    for a, b in zip(got, want)),
+                "max_diff": max(float((a - b).abs().max())
+                                for a, b in zip(got, want)),
+                "pools_equal": all(
+                    torch.equal(a[:, 1:], b[:, 1:])
+                    for k in compiled.POOL_KEYS
+                    for a, b in zip(st[k].shards, want_st[k].shards)),
+                "segments": graph.n_segments}
+            del prog, graph, st, want_st
+    out["replays"] = dict(stats.replays)
+    return out
 
 
 def _serve_tp(name, tps) -> dict:
@@ -3121,8 +3343,9 @@ def _serve_tp(name, tps) -> dict:
     t0 = time.perf_counter()
     cfg = configs.get(name)
     model = DecoderLM(cfg)
-    # tp 1 runs eagerly, as the sharded programs do (ROADMAP 11b)
-    one = ServePrograms(model, graphs=False)
+    # tp 1 and the tp-way engines replay CUDA graphs (the tp-way ones in
+    # pieces cut at their gathers, serve/parallel.py)
+    one = ServePrograms(model)
     params = one.prepare_params(model.init(seed=0))
     opts = ServeOptions(batch=TP_BATCH)
 
@@ -3158,10 +3381,9 @@ def _serve_tp(name, tps) -> dict:
                  TPServePrograms(model, devices=devices))
         ptp = progs.prepare_params(params)
         opts.sized_for(warm).build(model, params, programs=progs).run(warm)
-        tally = _count_mesh_calls(progs)
+        captured = progs.graph_stats.as_dict()
         eng, st, lt, peak = _tp_run(model, params, progs, trace(), opts,
                                     progs.devices)
-        tally = dict(tally)             # the trace's calls only
         for k, v in lt.items():
             launches[k] += v
         got = {r.rid: r.generated for r in eng.finished}
@@ -3175,7 +3397,25 @@ def _serve_tp(name, tps) -> dict:
             for n in ("k_pages", "v_pages")}
         pool_bytes = [p.nbytes for p in eng.cache.k_pages.shards]
         dispatch = _tp_dispatches(model, params, progs, ptp)
-        handoff = _tp_handoff(progs, tally, st["wall_s"])
+        # the trace's graphs: captures and replays past the warm-up's
+        trace_graphs = progs.graph_stats.as_dict()
+        trace_graphs = {
+            "held": eng.compiled.graphs(),
+            "segments": {n: sorted({g.n_segments for g in getattr(
+                eng.compiled, n)._graphs.values()})
+                for n in ("decode", "chunk", "verify", "fused")},
+            **{k: {n: c - captured[k].get(n, 0) for n, c in v.items()}
+               for k, v in trace_graphs.items() if k != "capture_s"},
+            "capture_s": trace_graphs["capture_s"] - captured["capture_s"]}
+        # the host's share of the trace's wall in the replays: the
+        # segments' graph launches against the gathers' copies
+        host = trace_graphs["host_s"]
+        trace_graphs["host_share_of_wall"] = {
+            k: v / st["wall_s"] for k, v in host.items()}
+        trace_graphs["host_ms_per_replay"] = {
+            k: 1e3 * v / max(sum(trace_graphs["replays"].values()), 1)
+            for k, v in host.items()}
+        graph_logits = _tp_graph_logits(model, progs, ptp)
         gates = {
             "streams_equal_tp1": got == streams,
             "slots_reused": eng._admit_counter == base._admit_counter
@@ -3191,14 +3431,20 @@ def _serve_tp(name, tps) -> dict:
             "program_logits_equal_tp1": all(
                 d["equal_to_tp1"] and d["shards_equal"]
                 for k, d in dispatch.items() if k != "pages_equal"),
-            "dispatch_pools_equal": dispatch["pages_equal"]}
+            "dispatch_pools_equal": dispatch["pages_equal"],
+            "engine_replays_graphs": sum(
+                trace_graphs["replays"].values()) > 0,
+            "graph_logits_equal_eager": all(
+                d["logits_equal"] and d["pools_equal"]
+                for k, d in graph_logits.items() if k != "replays")}
         readings[tp] = {"tok_per_s": st["tok_per_s"], "wall_s": st["wall_s"],
                         "peak_mem_gb_per_card": peak, "launches": lt,
                         "kv_pool_gb_per_shard": 2 * pool_bytes[0] / 1e9,
                         "heads_per_shard": [cfg.n_heads // tp,
                                             cfg.n_kv_heads // tp],
                         "d_ff_per_shard": cfg.d_ff // tp,
-                        "dispatch": dispatch, "handoff": handoff,
+                        "dispatch": dispatch, "graphs": trace_graphs,
+                        "graph_equals_eager": graph_logits,
                         "gates": gates}
         failures += [f"tp {tp}: {k}" for k, v in gates.items() if not v]
         del eng, progs, ptp
@@ -3456,7 +3702,7 @@ def _serve_family(name: str, prompt_len: int) -> dict:
     from repro_torch.launch.serve import run_naive, synthetic_batch
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
-    from repro_torch.serve import greedy_generate
+    from repro_torch.serve import ServePrograms, greedy_generate
     from repro_torch.serve.step import projection_cast
     t0 = time.perf_counter()
     cfg, reduced = _family_config(name)
@@ -3469,13 +3715,27 @@ def _serve_family(name: str, prompt_len: int) -> dict:
     n_params = sum(t.numel() for t in tree_leaves(params))
     batch = synthetic_batch(cfg, FAMILY_ROWS, prompt_len, device="cuda")
     with torch.no_grad():
-        run_naive(model, params, {k: v[:1] for k, v in batch.items()}, 2)
+        run_naive(model, params, {k: v[:1] for k, v in batch.items()}, 3)
         torch.cuda.reset_peak_memory_stats()
         _launches_reset()
         run = run_naive(model, params, batch, GEN)
         launches = _launches_read()
         peak_gb = _peak_gb()
         tokens = run["tokens"]
+        # the same loop eagerly, and one graphed step's logits
+        eager = run_naive(model, params, batch, GEN,
+                          programs=ServePrograms(model, graphs=False))
+        lock = {"tokens_equal": torch.equal(eager["tokens"], tokens),
+                "graphs": {k: run[k] for k in ("decode_s",
+                                               "decode_tok_per_s",
+                                               "graph_stats")},
+                "eager": {k: eager[k] for k in ("decode_s",
+                                                "decode_tok_per_s")},
+                "logits": _lockstep_logits(
+                    model, params, {k: v[:EXTEND_ROWS].contiguous()
+                                    for k, v in batch.items()},
+                    tokens[:EXTEND_ROWS])}
+        del eager
         alone = [torch.equal(greedy_generate(
             model, params, {k: v[b:b + 1] for k, v in batch.items()}, GEN,
             cache_len=prompt_len + GEN)[0], tokens[b])
@@ -3493,6 +3753,7 @@ def _serve_family(name: str, prompt_len: int) -> dict:
         and rescore["max_gap"] <= TAU,
         "decode_extends_prefill": extend["ok"],
         "row_bits_stable": not any(row_bits.values()),
+        "lockstep_graph_equals_eager": _lockstep_held(lock),
         **{f"{k}_launched": launches[k] >= want[k]
            and (launches[k] > 0 or want[k] == 0) for k in want}}
     emit({"phase": "families", "arch": cfg.name, "family": cfg.family,
@@ -3508,6 +3769,7 @@ def _serve_family(name: str, prompt_len: int) -> dict:
           "batched_equals_alone": sum(alone),
           "launches": launches, "launches_expected": want,
           "rescore": rescore, "decode_extends_prefill": extend,
+          "lockstep_graph_equals_eager": lock,
           "row_bits": row_bits, "scan_forms": scan_forms,
           "producers": _producers(params),
           "gates": gates, "seconds": time.perf_counter() - t0,

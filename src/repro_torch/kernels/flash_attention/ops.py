@@ -130,8 +130,12 @@ def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True,
     log-sum-exp of its scaled scores, f32 ``(B, H, Sq)``."""
     B, Sq = q.shape[:2]
     offs = _offsets(q_offset, B, q.device)
+    # the rows' first position where the host knows it: a tensor offset
+    # is read on the device only (a CUDA graph's replay, or its CPU
+    # stand-in, reads no value), and its rows walk every tile
+    host = None if isinstance(q_offset, torch.Tensor) else int(q_offset)
     parts = [_plain_rows(q[:, i:i + PLAIN_ROWS], k, v, offs + i, causal,
-                         window)
+                         window, None if host is None else host + i)
              for i in range(0, Sq, PLAIN_ROWS)]
     if not parts:
         out = torch.empty_like(q)
@@ -142,21 +146,25 @@ def flash_attention_plain(q, k, v, q_offset=0, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
-def _plain_rows(q, k, v, offs, causal, window):
+def _plain_rows(q, k, v, offs, causal, window, first):
+    """Rows whose offsets are ``offs``; ``first``: the first row's
+    position where the host knows it (every row of the call then has
+    one offset), else None."""
     B, Sq, H, Dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     dev = q.device
     scale = 1.0 / math.sqrt(Dh)
     q_pos = offs.long()[:, None] + torch.arange(Sq, device=dev)[None]
-    kend = Skv
-    if causal and Sq:
-        kend = min(Skv, int(q_pos.max()) + 1)
-    # the first tile any row sees: earlier tiles are masked for every
-    # row, and starting later gives the same bits (see the kernel)
-    kbeg = 0
-    if window is not None and Sq:
-        kbeg = max(0, int(q_pos.min()) - window + 1) // KV_TILE * KV_TILE
+    # tiles no row sees change no bit: one masked for every row before
+    # the first seen tile is wiped by that tile's rescale (alpha = 0),
+    # one after the last adds p = 0 (see the kernel); with the
+    # positions on the host, the walk skips them
+    kbeg, kend = 0, Skv
+    if causal and Sq and first is not None:
+        kend = min(Skv, first + Sq)
+    if window is not None and Sq and first is not None:
+        kbeg = max(0, first - window + 1) // KV_TILE * KV_TILE
     qh = q.float().reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)
     m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32,
                    device=dev)

@@ -150,9 +150,13 @@ def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths):
     R = T * G
     qh = (q.float().reshape(B, T, KVH, G, Dh).permute(0, 2, 1, 3, 4)
           .reshape(B, KVH, R, Dh))                   # row r = t * G + g
+    # every split the tables cover: a split that holds no key of any
+    # row is left out of each row's combine (``holds``), and the
+    # lengths are read on the device only (a CUDA graph's replay, or
+    # its CPU stand-in, reads no value)
     parts = [_split_partials(qh, k_pages, v_pages, tables, row_limit, s,
                              scale)
-             for s in range(-(-int(limit.max()) // SPLIT))]
+             for s in range(-(-cover // SPLIT))]
     # split s holds a key of row r iff s * SPLIT < limit; split 0 always
     holds = [(s * SPLIT < row_limit)[:, None] for s in range(len(parts))]
     M = parts[0][0]

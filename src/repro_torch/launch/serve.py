@@ -53,7 +53,7 @@ from .. import configs
 from ..data import SyntheticPipeline
 from ..models import build_model
 from ..serve import Request, ServeOptions
-from ..serve.step import greedy, make_decode_step
+from ..serve.step import ServePrograms, greedy
 
 __all__ = ["synth_requests", "synthetic_batch", "fleet_of",
            "backend_devices", "serve_trace", "run_stream", "run_naive",
@@ -98,14 +98,19 @@ def synthetic_batch(cfg, batch: int, seq: int, *, seed: int = 0,
     return out
 
 
-def run_naive(model, params, batch: dict, gen: int) -> dict:
+def run_naive(model, params, batch: dict, gen: int, programs=None) -> dict:
     """The lockstep loop (the reference launcher's ``run_naive``): one
     prefill of the whole batch with ``gen`` tokens of decode headroom,
-    then ``gen - 1`` decode steps of every row together, greedy.
-    Returns the generated tokens (B, gen) int32 and the prefill and
-    decode wall times (each ending in a device synchronize)."""
+    then ``gen - 1`` decode steps of every row together, greedy,
+    through ``programs.lockstep()`` (default ``ServePrograms(model)``:
+    on the card one CUDA graph, captured at the first step and
+    replayed; the prefill is eager).  Returns the generated tokens (B,
+    gen) int32, the prefill and decode wall times (each ending in a
+    device synchronize; the decode's includes its capture) and the
+    bundle's graph counters."""
     device = model.device
-    step = make_decode_step(model)
+    programs = programs or ServePrograms(model)
+    step = programs.lockstep()
     B, S = batch["tokens"].shape
     t0 = time.perf_counter()
     last, cache = model.prefill(params, batch, max_len=S + gen)
@@ -116,13 +121,14 @@ def run_naive(model, params, batch: dict, gen: int) -> dict:
     t0 = time.perf_counter()
     for _ in range(gen - 1):
         tok, cache = step(params, cache, tok)
-        out.append(tok)
+        out.append(tok.clone())
     _sync([device])
     dt = time.perf_counter() - t0
     return {"tokens": torch.cat(out, 1), "prefill_s": t_prefill,
             "decode_s": dt,
             "decode_tok_per_s": B * (gen - 1) / max(dt, 1e-9),
-            "tok_per_s": B * gen / max(t_prefill + dt, 1e-9)}
+            "tok_per_s": B * gen / max(t_prefill + dt, 1e-9),
+            "graph_stats": programs.graph_stats.as_dict()}
 
 
 def fleet_of(backend):

@@ -78,7 +78,7 @@ __all__ = ["linear", "remat", "fanout_linear", "replicated_linear",
            "rank_slice", "expand_kv", "row_parallel", "model_sum",
            "model_rows", "whole_sequence", "gather_sequence", "fanout_tree",
            "sharded_decode_attention",
-           "decode_attention",
+           "decode_attention", "decode_pos",
            "flash_decode_layout", "flash_decode_attention",
            "chunk_scatter_targets", "verify_scatter_targets",
            "paged_verify_attention_block",
@@ -537,10 +537,11 @@ def apply_mrope(x, positions, *, theta: float, sections: tuple):
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
     freqs = rope_freqs(dh, theta, x.device)                  # (half,)
-    owner = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device),
-        output_size=half)                                    # (half,)
+    # slot j's section, made on the device (no host copy: the lockstep
+    # decode runs inside a CUDA graph's capture)
+    slot = torch.arange(half, device=x.device)
+    owner = ((slot >= sections[0]).long()
+             + (slot >= sections[0] + sections[1]).long())   # (half,)
     pos = positions.float()                                  # (B, 3, S)
     ang = pos[:, owner].permute(0, 2, 1) * freqs             # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
@@ -783,15 +784,28 @@ def _gather_heads(tp, *ts):
                            2).contiguous() for i in range(len(ts)))
 
 
+def decode_pos(pos, device) -> torch.Tensor:
+    """A decode cache's ``pos`` as the lockstep step reads it: a 0-d
+    int32 tensor on ``device`` (the reference's traced scalar), made
+    from a host int where a caller gives one; a tensor is not read."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32)
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
 def _decode_whole(q, k, v, kc, vc, cache_pos, window, paged):
-    """One decode step over a whole cache (see ``attention_block``)."""
+    """One decode step over a whole cache (see ``attention_block``),
+    ``cache_pos`` a host int or a 0-d tensor: every index it gives is
+    arithmetic on the device with fixed shapes (a CUDA graph replays
+    the step at any position)."""
+    pos = decode_pos(cache_pos, kc.device)
     ring = window is not None and kc.shape[1] == window
-    slot = cache_pos % window if ring else cache_pos
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
+    slot = (pos % window if ring else pos).long().reshape(1)
+    kc.index_copy_(1, slot, k.to(kc.dtype))
+    vc.index_copy_(1, slot, v.to(vc.dtype))
     if paged and window is None:
-        return decode_attention(q, kc, vc, cache_pos + 1)
-    return flash_decode_attention(q, kc, vc, cache_pos, window=window)
+        return decode_attention(q, kc, vc, pos + 1)
+    return flash_decode_attention(q, kc, vc, pos, window=window)
 
 
 def sharded_decode_attention(q, k, v, kc, vc, pos: int, tp, window=None):
@@ -911,39 +925,52 @@ def encode_cross_kv(p, enc_out, cfg, tp=None):
     return k.contiguous(), v.contiguous()
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+def decode_attention(q, k_cache, v_cache, pos):
     """Single-token attention against a contiguous cache.
 
     q: (B, 1, H, Dh); caches: (B, S_max, KVH, Dh); ``pos``: tokens
-    attendable (including the one just written).  The cache IS a page
-    pool of B pages of S_max tokens under the identity table, so this
-    runs the paged kernel: the contiguous oracle and the paged engine
-    share one kernel and one summation order."""
+    attendable (including the one just written), a host int or a 0-d
+    tensor.  The cache IS a page pool of B pages of S_max tokens under
+    the identity table, so this runs the paged kernel: the contiguous
+    oracle and the paged engine share one kernel and one summation
+    order."""
     B = q.shape[0]
     tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
-    lengths = torch.full((B,), pos - 1, dtype=torch.int32, device=q.device)
-    return paged_attention(q, k_cache, v_cache, tables, lengths)
+    lengths = (decode_pos(pos, q.device) - 1).reshape(1).expand(B)
+    return paged_attention(q, k_cache, v_cache, tables,
+                           lengths.contiguous())
 
 
-def flash_decode_layout(k_cache, v_cache, pos: int, window=None):
+def flash_decode_layout(k_cache, v_cache, pos, window=None):
     """(k, v, q_offset) that ``flash_decode_attention`` gives the flash
-    kernel for the query at position ``pos``: a contiguous cache as it
-    is, or a ring of ``window`` slots that has wrapped laid out in
-    position order from the start of the 64-key tile that holds its
-    oldest position (earlier slots of that tile hold newer keys, which
-    the window masks)."""
-    if window is not None and k_cache.shape[1] == window and pos >= window:
-        base = (pos + 1 - window) // FLASH_TILE * FLASH_TILE
-        idx = torch.arange(base, pos + 1, device=k_cache.device) % window
-        return k_cache[:, idx], v_cache[:, idx], pos - base
-    return k_cache, v_cache, pos
+    kernel for the query at position ``pos`` (a host int or a 0-d
+    tensor; q_offset is a 0-d int32 tensor): a contiguous cache as it
+    is, or a ring of ``window`` slots laid out in position order from
+    the start of the 64-key tile that holds its oldest position
+    (earlier slots of that tile hold newer keys, which the window
+    masks).  The ring's layout has one length at every position,
+    ``window + FLASH_TILE`` slots: before the ring wraps it starts at
+    position 0, and the slots past ``pos`` (older or unwritten keys)
+    are masked by causality, which leaves the row's bits as they are
+    (the kernel's tiles are anchored at position 0, and keys past the
+    row's are never added).  So the step has fixed shapes, and a CUDA
+    graph replays it at any position."""
+    pos = decode_pos(pos, k_cache.device)
+    if window is None or k_cache.shape[1] != window:
+        return k_cache, v_cache, pos
+    base = (torch.clamp(pos + 1 - window, min=0)
+            // FLASH_TILE * FLASH_TILE)
+    idx = (base + torch.arange(window + FLASH_TILE,
+                               device=k_cache.device)) % window
+    return k_cache[:, idx], v_cache[:, idx], pos - base
 
 
-def flash_decode_attention(q, k_cache, v_cache, pos: int, window=None):
-    """The query at position ``pos`` (q (B, 1, H, Dh)) against a
-    contiguous cache holding positions 0 .. pos (B, S_max, KVH, Dh), or
-    against a ring of ``window`` slots holding the last ``window``
-    positions at slot position % window, through the flash kernel.
+def flash_decode_attention(q, k_cache, v_cache, pos, window=None):
+    """The query at position ``pos`` (q (B, 1, H, Dh); a host int or a
+    0-d tensor) against a contiguous cache holding positions 0 .. pos
+    (B, S_max, KVH, Dh), or against a ring of ``window`` slots holding
+    the last ``window`` positions at slot position % window, through the
+    flash kernel.
 
     The kernel walks keys in tiles anchored at position 0 (a ring's
     layout keeps that anchoring), so the row gets the bits of row
@@ -1224,7 +1251,8 @@ def moe_block(p, x, cfg, tp=None):
         y = model_rows(y, outer)
     E = m.n_experts
     me = probs.mean(dim=0)
-    ce = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    ce = (topi[:, :1] == torch.arange(E, device=topi.device)
+          ).float().mean(dim=0)                  # one-hot, as above
     return y.to(x.dtype), E * torch.sum(me * ce)
 
 
@@ -1258,7 +1286,11 @@ def _moe_partial(p, xf, topw, topi, cfg, ep_size: int = 1,
     lid = eid - ep_index * e_loc
     mine = (lid >= 0) & (lid < e_loc)
     lid = torch.where(mine, lid, 0)
-    onehot = F.one_hot(lid, e_loc) * mine[:, None]
+    # one-hot by comparison: F.one_hot checks the ids' range on the
+    # host on the CPU, and a captured program reads no value (the CUDA
+    # graphs' CPU stand-in holds the program to that)
+    onehot = (lid[:, None] == torch.arange(e_loc, device=lid.device)
+              ).long() * mine[:, None]
     pos = torch.cumsum(onehot, dim=0) - onehot
     pos = torch.gather(pos, 1, lid[:, None])[:, 0]
     pos = torch.where(mine & (pos < C), pos, C)              # C: dropped

@@ -419,7 +419,8 @@ class DecoderLM(MeshModel):
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Forward + contiguous decode cache.  Returns (last-token logits
-        (B, V), cache ``{"layers": [one per layer], "pos": S}``);
+        (B, V), cache ``{"layers": [one per layer], "pos": S}``, ``pos``
+        a 0-d int32 tensor on the model's device);
         ``max_len`` > S pads the full-attention caches with decode
         headroom (ring buffers and recurrent states are fixed-size).
         On a mesh the cache is this rank's shard of the reference's
@@ -435,7 +436,7 @@ class DecoderLM(MeshModel):
                     c["kv"] = {n: torch.cat([t, t.new_zeros(
                         (t.shape[0], max_len - S) + t.shape[2:])], 1)
                         for n, t in c["kv"].items()}
-        cache = {"layers": caches, "pos": S}
+        cache = {"layers": caches, "pos": C.decode_pos(S, self.device)}
         if mesh is not None:
             cache = self._cut_sequence(cache, mesh)
         return self.logits(params, h[:, -1:])[:, 0], cache
@@ -467,13 +468,13 @@ class DecoderLM(MeshModel):
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
         """An empty contiguous decode cache of capacity ``seq_len``
-        (zeros of ``cache_specs``; ``pos`` 0)."""
+        (zeros of ``cache_specs``; ``pos`` a 0-d int32 tensor, 0)."""
         def zeros(ps):
             return torch.zeros(ps.shape, dtype=ps.dtype,
                                device=self.device)
         specs = self.cache_specs(batch, seq_len)
         return {"layers": [map_specs(zeros, c) for c in specs["layers"]],
-                "pos": 0}
+                "pos": C.decode_pos(0, self.device)}
 
     def shard_cache(self, cache, mesh) -> dict:
         """This rank's shard of a whole decode cache on ``mesh``, placed
@@ -517,18 +518,32 @@ class DecoderLM(MeshModel):
         the cache is this rank's shard (``prefill`` or ``shard_cache``)
         and the tokens its batch rows; every head attends on every rank
         of ``model``, whose ranks split the cache's sequence
-        (``components.sharded_decode_attention``)."""
+        (``components.sharded_decode_attention``).
+
+        ``pos`` is a 0-d int32 tensor (the reference's traced scalar),
+        and off a mesh the step reads no value of it on the host: the
+        positions, the cache slot and the attention's lengths and
+        offsets are arithmetic on the device, so one CUDA graph of the
+        step replays at every position (``serve/step.py``,
+        ``ServePrograms.lockstep``)."""
         cfg = self.cfg
-        pos = int(cache["pos"])
+        mesh = current_mesh()
+        pos = C.decode_pos(cache["pos"], self.device)
         tokens = torch.as_tensor(tokens, device=self.device)
         B = tokens.shape[0]
-        positions = torch.full((B, 1), pos, dtype=torch.long,
-                               device=self.device)
+        if mesh is not None:
+            # the mesh's decode places the cache's slots on the host
+            # (sharded_decode_attention: which rank writes, each
+            # rank's offset): one read of pos a step, eager
+            at = int(cache["pos"])
+            positions = torch.full((B, 1), at, dtype=torch.long,
+                                   device=self.device)
+        else:
+            at = pos
+            positions = pos.long().reshape(1, 1).expand(B, 1)
         # text-only decode: all three M-RoPE ids advance with t
-        mrope = (torch.full((B, 3, 1), pos, dtype=torch.long,
-                            device=self.device)
+        mrope = (positions[:, None].expand(B, 3, 1)
                  if cfg.rope_kind == "mrope" else None)
-        mesh = current_mesh()
         place = None if mesh is None else self.placement(mesh)
         x = self._embed(params, tokens)
         layers = cache["layers"]
@@ -539,9 +554,12 @@ class DecoderLM(MeshModel):
                 seq_shards=cache.get("seq_shards", 1))
             x, layers[i], _ = self._block(kind, use_moe, p, x,
                                           positions=positions, mrope=mrope,
-                                          cache=layers[i], pos=pos, tp=tp,
+                                          cache=layers[i], pos=at, tp=tp,
                                           pl=pl)
-        cache["pos"] = pos + 1
+        # pos advances where the caller keeps it (the dry run's on the
+        # CPU beside a model on meta)
+        held = cache["pos"]
+        cache["pos"] = held + 1 if isinstance(held, torch.Tensor) else pos + 1
         return self._logits(params, x)[:, 0], cache
 
     # ------------------------------------------------------ paged path

@@ -299,7 +299,8 @@ class WhisperModel(MeshModel):
                 "pos": ParamSpec((), (), dtype=torch.int32)}
 
     def init_cache(self, batch: int, seq_len: int) -> dict:
-        """An empty cache: zeros of ``cache_specs``, ``pos`` 0."""
+        """An empty cache: zeros of ``cache_specs``, ``pos`` 0 (a 0-d
+        int32 tensor)."""
         def zeros(ps):
             return torch.zeros(ps.shape, dtype=ps.dtype, device=self.device)
         specs = self.cache_specs(batch, seq_len)
@@ -307,7 +308,7 @@ class WhisperModel(MeshModel):
                          for n, kv in specs["self"].items()},
                 "cross": {n: tuple(map(zeros, kv))
                           for n, kv in specs["cross"].items()},
-                "pos": 0}
+                "pos": C.decode_pos(0, self.device)}
 
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Encode + decoder prefill.  Returns (last-token logits (B, V),
@@ -325,7 +326,8 @@ class WhisperModel(MeshModel):
                     kv[n] = torch.cat([c, c.new_zeros(
                         (c.shape[0], max_len - S) + c.shape[2:])], 1)
         last = self.logits(params, x[:, -1:])[:, 0]
-        cache = {"self": kvs, "cross": cross, "pos": S}
+        cache = {"self": kvs, "cross": cross,
+                 "pos": C.decode_pos(S, self.device)}
         if mesh is not None:
             cache = self._cut_sequence(cache, mesh)
         return last, cache
@@ -372,19 +374,27 @@ class WhisperModel(MeshModel):
         (``prefill`` or ``shard_cache``) and the tokens its batch rows;
         every head attends on every rank of ``model``, over the ranks'
         shards of each cache's sequence."""
-        pos = int(cache["pos"])
+        pos = C.decode_pos(cache["pos"], self.device)
         tokens = torch.as_tensor(tokens, device=self.device)
         B = tokens.shape[0]
-        x = self._embed_at(params, tokens, C.sinusoid_pos_at(
-            torch.tensor([pos], device=self.device), self.cfg.d_model))
-        positions = torch.full((B, 1), pos, dtype=torch.long,
-                               device=self.device)
+        if current_mesh() is not None:
+            # the mesh's decode places the cache's slots on the host
+            # (sharded_decode_attention): one read of pos a step, eager
+            at = int(cache["pos"])
+        else:
+            at = pos          # off a mesh no value of pos is read
+        x = self._embed_at(params, tokens,
+                           C.sinusoid_pos_at(pos.reshape(1), self.cfg.d_model))
+        positions = pos.long().reshape(1, 1).expand(B, 1)
         sh = cache.get("seq_shards", {"self": 1, "cross": 1})
         x, _ = self._decoder(params, x, positions, cache["cross"],
-                             caches=cache["self"], cache_pos=pos,
+                             caches=cache["self"], cache_pos=at,
                              seq_shards=(sh["self"], sh["cross"]))
         x = self._norm(params["final_norm"], x)
-        cache["pos"] = pos + 1
+        # pos advances where the caller keeps it (the dry run's on the
+        # CPU beside a model on meta)
+        held = cache["pos"]
+        cache["pos"] = held + 1 if isinstance(held, torch.Tensor) else pos + 1
         return self.logits(params, x)[:, 0], cache
 
 

@@ -36,8 +36,14 @@ held 1.0 GB over a smoke run's ~30 engines.
 The kernels' Python launch counters (``kernels/*/ops.py``, named by
 each module's ``COUNTERS``) tick while a capture runs the program's
 Python and not at all on a replay.  So a capture's rise is taken back
-and recorded, and each replay adds it: the counters read as if every
-call had run eagerly.
+and recorded, and each replay adds it (``GraphStats.capturing`` /
+``replayed``): the counters read as if every call had run eagerly.
+
+The same machinery replays the reference's other jitted serving
+programs: the lockstep decode step (``step.ServePrograms.lockstep``: a
+``CompiledProgram`` whose per-dispatch state is ``pos`` and whose cache
+is read by address), and the tensor-parallel programs in pieces
+(``parallel.PiecewiseProgram``, through ``CudaGraphs.begin`` / ``end``).
 
 On CUDA a failed capture or replay raises; nothing falls back to eager.
 ``ServePrograms(model, graphs=False)`` is the one way to run eagerly on
@@ -47,7 +53,9 @@ the card would capture or replay it).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from collections import Counter
 from typing import Callable, Dict, List, Tuple
@@ -63,6 +71,7 @@ from ..tree import tree_leaves
 
 __all__ = ["CudaGraphs", "CompiledProgram", "GraphedPrograms",
            "GraphStats", "launch_counts", "set_launch_counts",
+           "split_inputs", "graph_key", "nest_map", "tensors_of",
            "POOL_KEYS"]
 
 #: the state entries a graph reads and writes by address (the page
@@ -85,24 +94,54 @@ def set_launch_counts(counts: Dict[Tuple[str, str], int]) -> None:
         setattr(by_name[mod], name, n)
 
 
-def _credit(rise: Dict[Tuple[str, str], int]) -> None:
-    now = launch_counts()
-    set_launch_counts({k: now[k] + n for k, n in rise.items()})
-
-
 @dataclasses.dataclass
 class GraphStats:
     """What the graphs of a program bundle did, summed over its
-    engines: graphs captured and replays by program, and the seconds
-    the captures took (the warm-up calls not included)."""
+    engines: graphs captured and replays by program, the seconds the
+    captures took (the warm-up calls not included), and the host's
+    seconds in the tensor-parallel replays, split between the segments'
+    graph launches (``"segments"``) and the gathers' copies
+    (``"gathers"``, ``parallel.PiecewiseProgram``).
+
+    ``capturing`` and ``replayed`` keep the launch counters true: a
+    capture's rise is taken back, and each replay adds it."""
     captures: Counter = dataclasses.field(default_factory=Counter)
     replays: Counter = dataclasses.field(default_factory=Counter)
     capture_s: float = 0.0
+    host_s: Counter = dataclasses.field(default_factory=Counter)
 
     def as_dict(self) -> dict:
         return {"captures": dict(self.captures),
                 "replays": dict(self.replays),
-                "capture_s": self.capture_s}
+                "capture_s": self.capture_s,
+                "host_s": dict(self.host_s)}
+
+    @contextlib.contextmanager
+    def capturing(self, name: str):
+        """A capture of program ``name`` (a context): the launch
+        counters are set back to what they were before it (the capture
+        ran the wrappers' Python, not their kernels) and the capture is
+        counted and timed.  Yields a dict that then holds the counters'
+        rise, which ``replayed`` adds."""
+        rise: Dict[Tuple[str, str], int] = {}
+        before = launch_counts()
+        t0 = time.perf_counter()
+        try:
+            yield rise
+        finally:
+            after = launch_counts()
+            set_launch_counts(before)
+        self.capture_s += time.perf_counter() - t0
+        self.captures[name] += 1
+        rise.update({k: after[k] - n for k, n in before.items()
+                     if after[k] != n})
+
+    def replayed(self, name: str, rise: Dict[Tuple[str, str], int]) -> None:
+        """A replay of program ``name``: the launch counters credited
+        with its capture's ``rise``."""
+        now = launch_counts()
+        set_launch_counts({k: now[k] + n for k, n in rise.items()})
+        self.replays[name] += 1
 
 
 #: device index -> its capture stream, shared by every engine there
@@ -124,17 +163,31 @@ class CudaGraphs:
             _capture_streams[idx] = torch.cuda.Stream(idx)
         self.stream = _capture_streams[idx]
         self.pool = torch.cuda.graph_pool_handle()
+        self._open: Dict[int, tuple] = {}     # thread -> open capture
+
+    def fork(self) -> None:
+        """Order the capture stream after the current stream's work."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def join(self) -> None:
+        """Order the current stream's next work after the capture
+        stream's."""
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def on_stream(self):
+        """The capture stream as the calling thread's current stream on
+        this device (a context)."""
+        return torch.cuda.stream(self.stream)
 
     def warm(self, fn: Callable):
         """``fn()`` eagerly on the capture stream, ordered after the
         current stream's work and before its next: whatever it caches
         by stream (the paged kernel's counter buffer, cuBLAS's
         workspace) is then made outside any capture."""
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
+        self.fork()
+        with self.on_stream():
             out = fn()
-        cur.wait_stream(self.stream)
+        self.join()
         return out
 
     def capture(self, fn: Callable):
@@ -146,6 +199,39 @@ class CudaGraphs:
                 out = fn()
         return graph.replay, out
 
+    # a capture in pieces (serve/parallel.py's tensor-parallel
+    # programs): the calling thread opens one, runs work, closes it
+    def begin(self) -> None:
+        """Open a capture on the capture stream in the calling thread
+        (into this backend's pool); ``end`` closes it."""
+        graph = torch.cuda.CUDAGraph()
+        ctx = self.on_stream()
+        ctx.__enter__()
+        try:
+            graph.capture_begin(pool=self.pool)
+        except BaseException:
+            ctx.__exit__(None, None, None)
+            raise
+        self._open[threading.get_ident()] = (graph, ctx)
+
+    def end(self) -> Callable:
+        """Close the calling thread's capture: returns its replay."""
+        graph, ctx = self._open.pop(threading.get_ident())
+        try:
+            graph.capture_end()
+        finally:
+            ctx.__exit__(None, None, None)
+        return graph.replay
+
+    def abandon(self) -> None:
+        """Close the calling thread's capture, if one is open, after an
+        error (the error is the one raised)."""
+        if threading.get_ident() in self._open:
+            try:
+                self.end()
+            except Exception:             # noqa: BLE001 - already failing
+                pass
+
 
 @dataclasses.dataclass
 class _Graph:
@@ -155,20 +241,47 @@ class _Graph:
     rise: Dict[Tuple[str, str], int]  # launch counters a replay adds
 
 
-def _split(state: dict, inputs) -> Tuple[List[str], List[torch.Tensor]]:
-    """The per-dispatch tensors of a call: the state's non-pool entries
-    (sorted by name), then the positional inputs."""
-    names = sorted(k for k in state if k not in POOL_KEYS)
+def split_inputs(state: dict, inputs, names=None
+                 ) -> Tuple[List[str], List[torch.Tensor]]:
+    """The per-dispatch tensors of a call: the state entries ``names``
+    (default: every entry but the pools, sorted by name), then the
+    positional inputs."""
+    if names is None:
+        names = sorted(k for k in state if k not in POOL_KEYS)
     tensors = [state[k] for k in names] + list(inputs)
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"a graphed program takes tensors, got "
                             f"{type(t).__name__}")
-    return names, tensors
+    return list(names), tensors
 
 
-def _sig(t: torch.Tensor) -> tuple:
-    return (tuple(t.shape), t.dtype, t.device)
+def nest_map(fn: Callable, tree):
+    """A nest of dicts (rebuilt in sorted-key order), lists and tuples
+    anew, ``fn`` over its tensors; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: nest_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(nest_map(fn, x) for x in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def tensors_of(tree) -> List[torch.Tensor]:
+    """The tensors of a nest (``nest_map``'s order): what a graph reads
+    by address."""
+    out: List[torch.Tensor] = []
+    nest_map(out.append, tree)
+    return out
+
+
+def graph_key(by_address, tensors) -> tuple:
+    """A graph's key: the address, shape, dtype and device of every
+    tensor it reads by address, and the shape, dtype and device of its
+    per-dispatch inputs."""
+    def sig(t):
+        return (tuple(t.shape), t.dtype, t.device)
+    return (tuple((t.data_ptr(), *sig(t)) for t in by_address),
+            tuple(sig(t) for t in tensors))
 
 
 class CompiledProgram:
@@ -176,28 +289,30 @@ class CompiledProgram:
     state)`` of one engine, a CUDA graph a key (see the module
     docstring).  A replay returns the graph's static outputs, which are
     valid until the next replay of that key (the engine reads them at
-    once, ``scheduler._host``), and the caller's own ``state``."""
+    once, ``scheduler._host``), and the caller's own ``state``.
+
+    ``state_inputs``: the state entries copied into the graph's static
+    buffers at each call; every other tensor of the state is read by
+    address.  Default: every entry but the page pools (``POOL_KEYS``),
+    the paged programs' layout; the lockstep decode passes ``("pos",)``
+    (its whole cache is read by address, ``step.make_lockstep_step``)."""
 
     def __init__(self, name: str, fn: Callable, backend,
-                 stats: GraphStats):
+                 stats: GraphStats, state_inputs=None):
         self.name = name
         self.fn = fn
         self.backend = backend
         self.stats = stats
+        self.state_inputs = state_inputs
         self._graphs: Dict[tuple, _Graph] = {}
 
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def _key(self, params, state, tensors) -> tuple:
-        by_address = tree_leaves(params) + [state[k] for k in POOL_KEYS
-                                            if k in state]
-        return (tuple((t.data_ptr(), *_sig(t)) for t in by_address),
-                tuple(_sig(t) for t in tensors))
-
     def __call__(self, params, state, *inputs):
-        names, tensors = _split(state, inputs)
-        key = self._key(params, state, tensors)
+        names, tensors = split_inputs(state, inputs, self.state_inputs)
+        key = graph_key(tree_leaves(params) + tensors_of(
+            {k: v for k, v in state.items() if k not in names}), tensors)
         g = self._graphs.get(key)
         if g is None:
             result = self.backend.warm(
@@ -207,28 +322,17 @@ class CompiledProgram:
         for static, t in zip(g.inputs, tensors):
             static.copy_(t)
         g.replay()
-        _credit(g.rise)
-        self.stats.replays[self.name] += 1
+        self.stats.replayed(self.name, g.rise)
         return g.out, state
 
     def _capture(self, params, state, names, tensors) -> _Graph:
         static = [t.clone() for t in tensors]
-        st = {k: state[k] for k in POOL_KEYS if k in state}
+        st = {k: v for k, v in state.items() if k not in names}
         st.update(zip(names, static))
         args = static[len(names):]
-        before = launch_counts()
-        t0 = time.perf_counter()
-        try:
+        with self.stats.capturing(self.name) as rise:
             replay, out = self.backend.capture(
                 lambda: self.fn(params, st, *args)[0])
-        finally:
-            after = launch_counts()
-            # the capture ran the wrappers' Python, not their kernels
-            set_launch_counts(before)
-        self.stats.capture_s += time.perf_counter() - t0
-        self.stats.captures[self.name] += 1
-        rise = {k: after[k] - n for k, n in before.items()
-                if after[k] != n}
         return _Graph(replay, out, static, rise)
 
 

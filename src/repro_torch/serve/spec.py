@@ -43,7 +43,8 @@ from typing import Dict, List
 
 import torch
 
-from .step import ServePrograms, make_decode_step
+from .compiled import tensors_of
+from .step import ServePrograms
 
 __all__ = ["PromptLookupDrafter", "DraftModelDrafter"]
 
@@ -159,11 +160,12 @@ class PromptLookupDrafter:
 class DraftModelDrafter:
     """Draft with a second ``DecoderLM`` (``--draft-config``): each
     DECODING slot keeps a private single-row contiguous cache for the
-    draft model, fed through the plain lockstep ``decode_step`` program
-    (``serve/step.py``'s ``make_decode_step``, whose attention is the
-    paged kernel over the cache viewed as one page).  The context is
-    streamed token by token, so there is no prefill program per prompt
-    length.
+    draft model, fed through the lockstep decode step
+    (``ServePrograms.lockstep``: ``make_decode_step``'s program, whose
+    attention is the paged kernel over the cache viewed as one page; on
+    the card a CUDA graph a slot's cache, as the reference jits it).
+    The context is streamed token by token, so there is no prefill
+    program per prompt length.
 
     Rollback is a position reset: after a verify round rejects the tail
     of a draft, the slot's draft cache simply rewinds ``pos`` to the
@@ -172,10 +174,20 @@ class DraftModelDrafter:
     when the true continuation is fed.  The draft cache never needs
     page bookkeeping, COW, or replay: it is advisory state, rebuilt
     from the token list after any preemption.
+
+    A slot's cache outlives its request: the slot's next request zeroes
+    it in place and rewinds ``pos`` to 0, so the slot's graph replays
+    (a new cache would be a new capture a request, which costs more
+    than the decode steps it replaces).  Each request keeps its own
+    logical capacity (``cap``, which bounds its drafts), so the drafts
+    are those of a fresh cache; the cache is remade only where a
+    request needs more room than the slot has.  ``programs``: the
+    draft model's ``ServePrograms`` (default ``ServePrograms(model)``;
+    ``graphs=False`` decodes eagerly on the card).
     """
 
     def __init__(self, model, params, *, cfg_target=None,
-                 headroom: int = 8):
+                 headroom: int = 8, programs=None):
         if cfg_target is not None and \
                 model.cfg.vocab_size != cfg_target.vocab_size:
             raise ValueError(
@@ -183,19 +195,29 @@ class DraftModelDrafter:
                 f"{cfg_target.vocab_size}: draft tokens would be "
                 "meaningless to the verifier")
         self.model = model
+        programs = programs or ServePrograms(model)
         # the projection weights in the compute dtype once (a no-op on
         # weights that already are); exact, so the drafts are the same
-        self.params = ServePrograms(model).prepare_params(params)
-        self._decode = make_decode_step(model)
+        self.params = programs.prepare_params(params)
+        self._decode = programs.lockstep()
         self.headroom = headroom
         self._slots: Dict[int, dict] = {}   # slot -> {cache, n_fed, cap}
+        # slot -> {cache, room}: the slot's cache, kept across requests
+        self._caches: Dict[int, dict] = {}
 
     def _state_for(self, slot: int, req) -> dict:
         st = self._slots.get(slot)
         if st is None:
             cap = len(req.prompt) + req.max_new_tokens + self.headroom
-            st = {"cache": self.model.init_cache(1, cap),
-                  "n_fed": 0, "cap": cap}
+            kept = self._caches.get(slot)
+            if kept is None or kept["room"] < cap:
+                kept = {"cache": self.model.init_cache(1, cap), "room": cap}
+                self._caches[slot] = kept
+            else:
+                for t in tensors_of({k: v for k, v in kept["cache"].items()
+                                     if k != "pos"}):
+                    t.zero_()
+            st = {"cache": kept["cache"], "n_fed": 0, "cap": cap}
             self._slots[slot] = st
         return st
 
@@ -212,7 +234,8 @@ class DraftModelDrafter:
         # the cache's pos falls back to the confirmed-context frontier
         # and the pending true tokens overwrite the stale entries
         cache = st["cache"]
-        cache["pos"] = st["n_fed"]
+        cache["pos"] = torch.full((), st["n_fed"], dtype=torch.int32,
+                                  device=self.model.device)
         tok = None
         for t in ctx[st["n_fed"]:]:
             tok, cache = self._decode(self.params, cache, self._token(t))
@@ -228,4 +251,5 @@ class DraftModelDrafter:
         return drafts
 
     def detach(self, slot: int) -> None:
+        # the request's state goes; its cache stays for the slot's next
         self._slots.pop(slot, None)

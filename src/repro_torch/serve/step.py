@@ -16,7 +16,13 @@ tensor-parallel hook (the reference's ``tp_axis``): None on one device.
 through the contiguous-cache path (``DecoderLM.prefill`` +
 ``decode_step``).  Its decode attention runs the same paged kernel as
 the engine (the contiguous cache viewed as one page per row), so the
-engine and the oracle share one kernel and one summation order.
+engine and the oracle share one kernel and one summation order.  Where
+the reference jits that decode step, the card replays it as a CUDA
+graph (``ServePrograms.lockstep``: the cache read and written by
+address, ``pos`` a device scalar): ``greedy_generate``, the launcher's
+``--naive`` loop and the draft model's decode
+(``spec.DraftModelDrafter``).  Their prefill stays eager: it runs once
+a generation, so its graph would never replay.
 """
 from __future__ import annotations
 
@@ -25,9 +31,11 @@ from typing import Callable, Optional
 import torch
 
 from ..models.base import flatten_specs
-from .compiled import CudaGraphs, GraphedPrograms, GraphStats
+from .compiled import (CompiledProgram, CudaGraphs, GraphedPrograms,
+                       GraphStats, nest_map, tensors_of)
 
-__all__ = ["greedy", "make_decode_step", "make_paged_decode_step",
+__all__ = ["greedy", "make_decode_step", "make_lockstep_step",
+           "LockstepDecode", "make_paged_decode_step",
            "make_chunk_prefill_step", "make_verify_step",
            "make_fused_step", "greedy_generate", "ServePrograms",
            "projection_cast"]
@@ -44,6 +52,54 @@ def make_decode_step(model) -> Callable:
         logits, cache = model.decode_step(params, cache, tokens)
         return greedy(logits)[:, None], cache
     return serve_step
+
+
+def make_lockstep_step(step: Callable) -> Callable:
+    """A lockstep decode step ``step(params, cache, tokens) -> (out,
+    cache)`` (``make_decode_step``'s program, or a model's
+    ``decode_step`` for its logits) as a CUDA graph takes it:
+    ``(params, cache, tokens) -> ((out, pos'), cache)``.  The step runs
+    over new containers of the cache's tensors; each state a recurrent
+    layer replaces is then copied into the cache's own tensor (the
+    attention caches are written in place already), so a graph reads
+    and writes the whole cache by address.  The caller's cache is left
+    as it was but for those writes; the advanced ``pos`` is an output
+    (``LockstepDecode`` puts it in the cache)."""
+
+    def lockstep(params, cache, tokens):
+        work = nest_map(lambda t: t, cache)
+        tok, work = step(params, work, tokens)
+        held = {k: v for k, v in cache.items() if k != "pos"}
+        olds = tensors_of(held)
+        news = tensors_of({k: work[k] for k in held})
+        if [(t.shape, t.dtype) for t in olds] != [(t.shape, t.dtype)
+                                                   for t in news]:
+            # e.g. an f32-compute RG-LRU's bf16 conv state of init_cache
+            raise ValueError("the decode step changed a cache leaf's shape "
+                             "or dtype: a graph reads the cache by address")
+        for old, new in zip(olds, news):
+            if new is not old:
+                old.copy_(new)
+        return (tok, work["pos"]), cache
+    return lockstep
+
+
+class LockstepDecode:
+    """The lockstep decode step, ``(params, cache, tokens) -> (tokens',
+    cache)`` as ``make_decode_step``'s, through a CUDA graph a cache
+    (``CompiledProgram`` over ``make_lockstep_step``; its per-dispatch
+    inputs are ``pos`` and the tokens, the rest of the cache is read by
+    address): the first call with a cache runs eagerly and captures,
+    each later one replays.  The tokens returned are the graph's static
+    output, valid until the next call."""
+
+    def __init__(self, program: CompiledProgram):
+        self.program = program
+
+    def __call__(self, params, cache, tokens):
+        (tok, pos), _ = self.program(params, cache, tokens)
+        cache["pos"] = pos
+        return tok, cache
 
 
 def make_paged_decode_step(model, gather=None) -> Callable:
@@ -145,6 +201,18 @@ class ServePrograms:
             return self
         return GraphedPrograms(self, self._capture(self.model.device))
 
+    def lockstep(self) -> Callable:
+        """The lockstep decode step of one user (a generation, a
+        drafter): with ``graphs`` a ``LockstepDecode`` with its own
+        graphs and memory pool, one graph a cache; else
+        ``make_decode_step``'s plain program."""
+        if not self.graphs:
+            return make_decode_step(self.model)
+        return LockstepDecode(CompiledProgram(
+            "lockstep", make_lockstep_step(make_decode_step(self.model)),
+            self._capture(self.model.device), self.graph_stats,
+            state_inputs=("pos",)))
+
     def prepare_params(self, params):
         """Cast the projection weights to the compute dtype once, where
         every call would otherwise cast them again (the cast is exact
@@ -169,20 +237,24 @@ class ServePrograms:
 
 
 def greedy_generate(model, params, batch, n_steps: int,
-                    cache_len: int) -> torch.Tensor:
+                    cache_len: int, programs=None) -> torch.Tensor:
     """Lockstep greedy decoding of a prompt batch for ``n_steps``
     tokens: a (B, S) token array, or the reference's batch dict
     (``tokens`` and, for the families that take them, ``frames``,
     ``patch_embeds``, ``mrope_positions``).  Returns (B, n_steps) int32
-    on the model's device."""
+    on the model's device.  The decode steps run ``programs.lockstep()``
+    (default ``ServePrograms(model)``: on the card one CUDA graph,
+    captured at the first step and replayed ``n_steps - 2`` times;
+    ``ServePrograms(model, graphs=False)`` runs them eagerly); the
+    prefill runs eagerly."""
     if not isinstance(batch, dict):
         batch = {"tokens": torch.as_tensor(batch, device=model.device)}
     max_len = max(cache_len, batch["tokens"].shape[1] + n_steps)
     last, cache = model.prefill(params, batch, max_len=max_len)
-    step = make_decode_step(model)
+    step = (programs or ServePrograms(model)).lockstep()
     tok = greedy(last)[:, None]
     out = [tok]
     for _ in range(n_steps - 1):
         tok, cache = step(params, cache, tok)
-        out.append(tok)
+        out.append(tok.clone())
     return torch.cat(out, dim=1)
